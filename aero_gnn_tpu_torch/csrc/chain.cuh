@@ -1,5 +1,6 @@
 // Shared pieces of the fused MLP-chain kernels (fused_edge_fwd.cu,
-// fused_node_fwd.cu): a row chunk of 128 rows per CTA step, 8 warps of 16
+// fused_node_fwd.cu, and through chain_bwd.cuh the backward kernels
+// fused_edge_bwd.cu, fused_node_bwd.cu): a row chunk of 128 rows per CTA step, 8 warps of 16
 // rows each, every h x h product as warp-level tiles whose accumulator
 // layout is that of mma.sync m16n8k16 (thread (g = lane/4, t = lane%4) holds
 // rows g and g+8, columns 8j+2t and 8j+2t+1 for j < H/8), so one epilogue
@@ -259,6 +260,22 @@ __host__ inline cudaError_t plan_smem(int n_mats, size_t extra, int* resident,
   *resident = all <= budget;
   *bytes = *resident ? all : Layout<T, H>::kMatBytes + base;
   return *bytes <= budget ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// First edge tile of node block `block` in a block-aligned receiver stream:
+// a tile's block is recv[first row] / node_block (graph/padded.py
+// derive_tiles), found by binary search over the tiles.
+__device__ inline int first_tile(const int* __restrict__ recv, int n_tiles,
+                                 int edge_tile, int node_block, int block) {
+  int lo = 0, hi = n_tiles;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (recv[int64_t(mid) * edge_tile] / node_block < block)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
 }
 
 __host__ inline int sm_count() {

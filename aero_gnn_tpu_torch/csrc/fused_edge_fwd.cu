@@ -39,19 +39,6 @@ namespace {
 
 using namespace chain;
 
-__device__ int first_tile(const int* __restrict__ recv, int n_tiles,
-                          int edge_tile, int node_block, int block) {
-  int lo = 0, hi = n_tiles;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (recv[int64_t(mid) * edge_tile] / node_block < block)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_edge_fwd_kernel(const T* __restrict__ e, const T* __restrict__ sg,

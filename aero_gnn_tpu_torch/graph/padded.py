@@ -9,7 +9,12 @@ Conventions the kernels and models rely on:
     endpoints and have ``edge_mask == 0``; pad nodes have ``node_mask == 0``;
   * with ``align_edges=True`` every ALIGN_NODE_BLOCK-node block owns a
     contiguous run of whole ALIGN_EDGE_TILE-row tiles (at least one), which
-    is the layout the fused edge kernel (``ops.hopper_fused``) consumes.
+    is the layout the fused edge kernel (``ops.hopper_fused``) consumes;
+  * ``sender_perm`` sorts the edge rows by sender (``senders_sorted`` =
+    ``senders[sender_perm]``), the stream of the sender gather's backward
+    (a sorted segment sum, ``ops.scatter.gather_senders``). With
+    ``align_edges`` it is block-aligned too when the graph has a masked
+    edge row for its pad slots to point at (``senders_aligned``).
 
 Host-side construction is numpy; the result is a dataclass of tensors on
 the requested device.
@@ -49,6 +54,8 @@ class GraphBatch:
 
     senders: torch.Tensor  # i32[E]
     receivers: torch.Tensor  # i32[E], ascending
+    sender_perm: torch.Tensor  # i32[E_s], edge rows in sender order
+    senders_sorted: torch.Tensor  # i32[E_s] == senders[sender_perm]
     x: torch.Tensor  # f[N, Dn]
     edge_attr: torch.Tensor  # f[E, De]
     pos: torch.Tensor  # f[N, dim]
@@ -62,6 +69,8 @@ class GraphBatch:
     # aligned layout only: node block of each tile / first tile of a block
     tile_block: Optional[torch.Tensor] = None  # i32[T]
     tile_first: Optional[torch.Tensor] = None  # i32[T]
+    # True iff the sender-sorted stream was block-aligned (pad slots added)
+    senders_aligned: bool = False
 
     @property
     def edges_aligned(self) -> bool:
@@ -194,11 +203,19 @@ def build_graph_batch(
     graph_mask = np.zeros(num_graphs_pad, dtype=dtype)
     graph_mask[:n_real_graphs] = 1.0
 
+    sender_perm = np.argsort(s_p, kind="stable").astype(np.int32)
+    senders_sorted = s_p[sender_perm]
+    senders_aligned = False
+    if align_edges:
+        sender_perm, senders_sorted, senders_aligned = _align_sender_stream(
+            sender_perm, senders_sorted, edge_mask, np_pad)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return GraphBatch(
         senders=t(s_p), receivers=t(r_p),
+        sender_perm=t(sender_perm), senders_sorted=t(senders_sorted),
         x=t(pad_rows(x, np_pad)), edge_attr=t(ea_p),
         pos=t(pad_rows(pos, np_pad)), y=t(pad_rows(y, np_pad)),
         node_mask=t(node_mask), edge_mask=t(edge_mask),
@@ -206,7 +223,76 @@ def build_graph_batch(
         n_node=n, n_edge=e,
         tile_block=None if tile_block is None else t(tile_block),
         tile_first=None if tile_first is None else t(tile_first),
+        senders_aligned=senders_aligned,
     )
+
+
+def batch_graphs(graphs: list, *, num_nodes_pad: Optional[int] = None,
+                 num_edges_pad: Optional[int] = None,
+                 num_graphs_pad: Optional[int] = None,
+                 align_edges: bool = False, dtype: np.dtype = np.float32,
+                 device: DeviceLike = None) -> GraphBatch:
+    """Disjoint union of host graphs (dicts of numpy arrays: senders,
+    receivers, x, edge_attr, pos, y) in one padded GraphBatch, sample i's
+    nodes after those of samples < i and ``node_graph`` = i."""
+    offs = np.cumsum([0] + [g["x"].shape[0] for g in graphs[:-1]])
+    n_tot = sum(g["x"].shape[0] for g in graphs)
+    e_tot = sum(g["senders"].shape[0] for g in graphs)
+    cat = np.concatenate
+    return build_graph_batch(
+        senders=cat([g["senders"] + o for g, o in zip(graphs, offs)]),
+        receivers=cat([g["receivers"] + o for g, o in zip(graphs, offs)]),
+        x=cat([g["x"] for g in graphs]),
+        edge_attr=cat([g["edge_attr"] for g in graphs]),
+        pos=cat([g["pos"] for g in graphs]),
+        y=cat([g["y"] for g in graphs]),
+        num_nodes_pad=(num_nodes_pad if num_nodes_pad is not None
+                       else bucket_size(n_tot + 1)),
+        num_edges_pad=(num_edges_pad if num_edges_pad is not None
+                       else bucket_size(e_tot)),
+        num_graphs_pad=(num_graphs_pad if num_graphs_pad is not None
+                        else max(len(graphs) + 1, 2)),
+        node_graph=cat([np.full(g["x"].shape[0], i, dtype=np.int32)
+                        for i, g in enumerate(graphs)]),
+        align_edges=align_edges, dtype=dtype, device=device)
+
+
+def _align_sender_stream(sender_perm, senders_sorted, edge_mask,
+                         num_nodes_pad):
+    """Block-align the sender-sorted stream: each ALIGN_NODE_BLOCK sender
+    block padded to whole ALIGN_EDGE_TILE tiles. Pad slots index the last
+    masked edge row, whose cotangent is exactly zero, so no extra mask is
+    needed downstream. Without a masked edge row the stream stays as it is
+    (third result False)."""
+    nb, et = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
+    masked_rows = np.nonzero(edge_mask == 0.0)[0]
+    if len(masked_rows) == 0:
+        return sender_perm, senders_sorted, False
+    pad_row = np.int32(masked_rows[-1])
+    n_blocks = num_nodes_pad // nb
+    block_of = senders_sorted // nb
+    starts = np.searchsorted(block_of, np.arange(n_blocks))
+    ends = np.searchsorted(block_of, np.arange(n_blocks) + 1)
+    perm_out, keys_out = [], []
+    for b in range(n_blocks):
+        lo, hi = int(starts[b]), int(ends[b])
+        cnt = hi - lo
+        pad = max(1, -(-cnt // et)) * et - cnt
+        perm_out.append(sender_perm[lo:hi])
+        keys_out.append(senders_sorted[lo:hi])
+        if pad:
+            fill_k = (senders_sorted[hi - 1] if cnt
+                      else min(b * nb, num_nodes_pad - 1))
+            perm_out.append(np.full(pad, pad_row, dtype=np.int32))
+            keys_out.append(np.full(pad, fill_k, dtype=senders_sorted.dtype))
+    perm_a = np.concatenate(perm_out)
+    keys_a = np.concatenate(keys_out)
+    extra = _round_up(len(perm_a), et) - len(perm_a)
+    if extra:
+        perm_a = np.concatenate([perm_a, np.full(extra, pad_row, np.int32)])
+        keys_a = np.concatenate(
+            [keys_a, np.full(extra, num_nodes_pad - 1, keys_a.dtype)])
+    return perm_a.astype(np.int32), keys_a, True
 
 
 def _align_edge_blocks(senders, receivers, edge_attr, num_nodes_pad, dtype):

@@ -2,19 +2,22 @@
 aero_gnn_tpu.inference.engine).
 
 ``AeroInference`` serves one model on one device (CUDA unless the caller
-passes ``device="cpu"``). The parameters are moved to that device and cast
-to the model's compute dtype once, at construction.
+passes ``device="cpu"``). The parameters are copied to that device in the
+model's compute dtype once, at construction; requests run under
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from aero_gnn_tpu_torch.data.dataset import denormalize_predictions
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
-from aero_gnn_tpu_torch.models.mgn import cast_params
+from aero_gnn_tpu_torch.models.mgn import _DTYPES
 
 
 class AeroInference:
@@ -26,8 +29,12 @@ class AeroInference:
                 "models that need a graph hierarchy (BSMS) are not ported yet")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
-        self.params = cast_params(params.to(self.device),
-                                  model_cfg.compute_dtype)
+        if model_cfg.compute_dtype not in _DTYPES:
+            raise ValueError(
+                f"Unsupported compute_dtype: {model_cfg.compute_dtype}")
+        self.params = copy.deepcopy(params).to(
+            device=self.device, dtype=_DTYPES[model_cfg.compute_dtype])
+        self.params.requires_grad_(False)
         self.norm_stats = norm_stats
         self.exp_params = exp_params or {}
 
@@ -35,7 +42,8 @@ class AeroInference:
         """Normalised predictions over the padded graph, on the device."""
         if graph.device != self.device:
             graph = graph.to(self.device)
-        return self.model_cfg.apply(self.params, graph)
+        with torch.inference_mode():
+            return self.model_cfg.apply(self.params, graph)
 
     def predict_single(self, graph, aux=None, n_nodes: Optional[int] = None):
         """(pred_phys, target_phys, pred_norm, target_norm) as numpy arrays

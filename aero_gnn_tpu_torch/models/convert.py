@@ -1,5 +1,6 @@
-"""Carry a JAX-package MGN parameter tree over to the port (the inverse of
-aero_gnn_tpu/utils/torch_import.py).
+"""Carry MGN parameters between the JAX package's tree and the port
+(``params_from_jax``, the inverse of aero_gnn_tpu/utils/torch_import.py, and
+``params_to_jax``).
 
 The JAX tree, as numpy arrays, has the layout of ``MGNConfig.init`` there:
 ``{"node_encoder", "edge_encoder": {"linears": [{"w", "b"}], "ln"},
@@ -90,3 +91,56 @@ def params_from_jax(tree, cfg: MGNConfig, *,
     else:
         load_mlp(params.decoder, tree["decoder"], "decoder")
     return params.to(resolve_device(device))
+
+
+def _get(param: torch.nn.Parameter, grads: bool) -> np.ndarray:
+    t = param.grad if grads else param
+    if t is None:
+        return np.zeros(tuple(param.shape), np.float32)
+    return t.detach().float().cpu().numpy()
+
+
+def _mlp_tree(mlp: M.MLP, grads: bool):
+    return {"linears": [{"w": _get(lin.w, grads), "b": _get(lin.b, grads)}
+                        for lin in mlp.linears],
+            "ln": None if mlp.ln is None else
+            {"scale": _get(mlp.ln.scale, grads),
+             "bias": _get(mlp.ln.bias, grads)}}
+
+
+def _stack(trees):
+    """Stack per-layer trees of equal structure on a new leading axis."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
+def params_to_jax(params: MeshGraphNet, cfg: MGNConfig, *,
+                  grads: bool = False):
+    """The port's parameters (``grads=True``: their ``.grad``, zeros where
+    there is none) as the JAX package's ``cfg.init`` tree of float32 numpy
+    arrays, processor layers stacked on the leading axis."""
+    layers = []
+    for layer in params.layers:
+        if isinstance(layer.edge, B.EdgeBlockSum):
+            p = layer.edge
+            edge = {k: _get(getattr(p, k), grads)
+                    for k in ("w_e", "w_s", "w_d", "b")}
+            edge["stack"] = [{"w": _get(lin.w, grads), "b": _get(lin.b, grads)}
+                             for lin in p.stack]
+            edge["ln"] = None if p.ln is None else {
+                "scale": _get(p.ln.scale, grads),
+                "bias": _get(p.ln.bias, grads)}
+        else:
+            edge = _mlp_tree(layer.edge, grads)
+        layers.append({"edge": edge, "node": _mlp_tree(layer.node, grads)})
+    decoder = ([_mlp_tree(d, grads) for d in params.decoder]
+               if cfg.separate_decoders else _mlp_tree(params.decoder, grads))
+    return {"node_encoder": _mlp_tree(params.node_encoder, grads),
+            "edge_encoder": _mlp_tree(params.edge_encoder, grads),
+            "layers": _stack(layers), "decoder": decoder}

@@ -3,22 +3,33 @@
 
 ``MGNConfig`` keeps the JAX package's fields and defaults. ``init`` builds a
 ``MeshGraphNet`` module from an explicit ``torch.Generator``; ``apply`` runs
-the forward pass, which is all this slice of the port provides: it runs
-under ``torch.no_grad()``. The processor is a Python loop over the layers.
+the forward pass, differentiable with respect to the module's parameters.
+The processor is a Python loop over the layers.
 
 compute_dtype policy (as in the JAX package): fp32 master parameters are
-cast to the compute dtype for the forward pass (``cast_params``), the node /
-edge inputs and the edge mask are cast too, LayerNorm statistics stay fp32
-and the output is fp32.
+cast to the compute dtype for the pass by ``cast_params``, a cast autograd
+sees, so the weight gradients come back rounded to the compute dtype and
+then cast up to fp32; the node / edge inputs and the edge mask are cast
+too, LayerNorm statistics stay fp32 and the output is fp32. Parameters that
+are already in the compute dtype (``AeroInference`` casts once, at
+construction) are used as they are.
+
+Rematerialisation (``remat``): the fused layer's autograd Functions already
+save only the layer inputs plus sg / d_proj / agg, the set the JAX
+"save_fused" policy keeps, so "save_fused" on the fused path checkpoints
+nothing; "full", and any policy on the unfused path, recompute each layer
+in the backward (``torch.utils.checkpoint``). ``remat_group`` > 1 and
+``remat_offload`` are not ported (ROADMAP queue 1); ``unroll`` has no
+meaning in an eager loop.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
@@ -46,14 +57,12 @@ class MGNConfig:
     aggregation: str = "add"
     hidden_dim_decoder: int = 128
     num_hidden_layers_decoder: int = 1
-    # training-only (the JAX package applies it only when given an rng);
-    # no effect on this forward-only port
+    # encoder dropout, applied only when apply() is given a generator
     dropout: float = 0.0
     do_concat_trick: bool = False
-    # remat / remat_policy / remat_group / remat_offload / remat_group_policy
-    # / unroll are the JAX package's memory and compile knobs for the
-    # backward pass; they are accepted and have no effect on this
-    # forward-only port.
+    # memory knobs of the backward pass (module docstring); remat_group > 1
+    # and remat_offload raise NotImplementedError, unroll and
+    # remat_group_policy have no effect
     remat: bool = True
     remat_policy: str = "save_fused"
     remat_group: int = 0
@@ -89,30 +98,47 @@ class MGNConfig:
             generator = torch.Generator().manual_seed(seed)
         return MeshGraphNet(self, generator).to(dev)
 
-    def apply(self, params: "MeshGraphNet",
-              graph: GraphBatch) -> torch.Tensor:
-        """Forward pass -> fp32 [N_pad, output_node_dim]."""
+    def apply(self, params: "MeshGraphNet", graph: GraphBatch, *,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Forward pass -> fp32 [N_pad, output_node_dim]. ``generator`` (on
+        the graph's device) turns on the encoders' dropout."""
         if params.device != graph.device:
             raise ValueError(f"params are on {params.device}, the graph on "
                              f"{graph.device}")
+        if self.remat and (self.remat_group > 1 or self.remat_offload):
+            raise NotImplementedError(
+                "remat_group > 1 and remat_offload (grouped / host-offloaded "
+                "remat) are not ported yet (ROADMAP queue 1)")
         cd = self.compute_dtype
-        with torch.no_grad():
-            params = cast_params(params, cd)
-            x = M.mlp_apply(params.node_encoder, _cast(graph.x, cd),
-                            activation=self.activation)
-            e = M.mlp_apply(params.edge_encoder, _cast(graph.edge_attr, cd),
-                            activation=self.activation)
-            x, e = run_processor(params.layers, self.layer_cfg, x, e,
-                                 graph.senders, graph.receivers,
-                                 _cast(graph.edge_mask, cd),
-                                 aligned=graph.edges_aligned)
-            if self.separate_decoders:
-                out = torch.cat([M.mlp_apply(d, x, activation=self.activation)
-                                 for d in params.decoder], dim=-1)
-            else:
-                out = M.mlp_apply(params.decoder, x,
-                                  activation=self.activation)
-            return out.float()
+        casted = cast_params(params, cd)
+        if casted:
+            return torch.func.functional_call(params, casted,
+                                              (self._forward, graph,
+                                               generator))
+        return self._forward(params, graph, generator)
+
+    def _forward(self, params: "MeshGraphNet", graph: GraphBatch,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        cd = self.compute_dtype
+        x = M.mlp_apply(params.node_encoder, _cast(graph.x, cd),
+                        activation=self.activation, dropout=self.dropout,
+                        generator=generator)
+        e = M.mlp_apply(params.edge_encoder, _cast(graph.edge_attr, cd),
+                        activation=self.activation, dropout=self.dropout,
+                        generator=generator)
+        x, e = run_processor(params.layers, self.layer_cfg, x, e,
+                             graph.senders, graph.receivers,
+                             _cast(graph.edge_mask, cd),
+                             sender_perm=graph.sender_perm,
+                             senders_sorted=graph.senders_sorted,
+                             aligned=graph.edges_aligned, remat=self.remat,
+                             remat_policy=self.remat_policy)
+        if self.separate_decoders:
+            out = torch.cat([M.mlp_apply(d, x, activation=self.activation)
+                             for d in params.decoder], dim=-1)
+        else:
+            out = M.mlp_apply(params.decoder, x, activation=self.activation)
+        return out.float()
 
 
 class MeshGraphNet(nn.Module):
@@ -149,16 +175,46 @@ class MeshGraphNet(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def forward(self, fn, *args):
+        """``fn(self, *args)``: lets torch.func.functional_call run a
+        function of the module with substituted parameters."""
+        return fn(self, *args)
+
 
 def run_processor(layers: nn.ModuleList, layer_cfg: B.MGNLayerConfig,
                   x: torch.Tensor, e: torch.Tensor, senders: torch.Tensor,
                   receivers: torch.Tensor, edge_mask: torch.Tensor, *,
-                  aligned: bool = False):
-    """The residual MP layers in order; returns (x, e)."""
+                  sender_perm: Optional[torch.Tensor] = None,
+                  senders_sorted: Optional[torch.Tensor] = None,
+                  aligned: bool = False, remat: bool = False,
+                  remat_policy: str = "save_fused"):
+    """The residual MP layers in order; returns (x, e). With ``remat`` (and
+    grad mode on) each layer is recomputed in the backward unless the
+    policy is "save_fused" on the fused path (module docstring)."""
+    fused = B.uses_fused_layer(layer_cfg, x, receivers, edge_mask, aligned)
+    recompute = (remat and torch.is_grad_enabled()
+                 and (remat_policy != "save_fused" or not fused))
+    graph_args = (senders, receivers, edge_mask, sender_perm, senders_sorted,
+                  aligned)
     for layer in layers:
-        x, e = B.mgn_layer_apply(layer, layer_cfg, x, e, senders, receivers,
-                                 edge_mask, aligned)
+        if not recompute:
+            x, e = B.mgn_layer_apply(layer, layer_cfg, x, e, *graph_args)
+            continue
+        # the layer's (possibly cast) parameters enter the checkpoint as
+        # inputs, so the recompute sees the same tensors as the forward
+        names, tensors = zip(*layer.named_parameters())
+        x, e = torch.utils.checkpoint.checkpoint(
+            _layer_with, layer, layer_cfg, names, graph_args, x, e, *tensors,
+            use_reentrant=False)
     return x, e
+
+
+def _layer_with(layer: B.MGNLayer, layer_cfg: B.MGNLayerConfig, names,
+                graph_args, x, e, *tensors):
+    """mgn_layer_apply of ``layer`` with its parameters set to ``tensors``."""
+    return torch.func.functional_call(
+        layer, dict(zip(names, tensors)),
+        (B.mgn_layer_apply, layer_cfg, x, e, *graph_args))
 
 
 def _cast(a: Optional[torch.Tensor], dtype: str) -> Optional[torch.Tensor]:
@@ -167,13 +223,19 @@ def _cast(a: Optional[torch.Tensor], dtype: str) -> Optional[torch.Tensor]:
     return a.to(_DTYPES[dtype])
 
 
-def cast_params(params: nn.Module, dtype: str) -> nn.Module:
-    """fp32 master parameters cast to the compute dtype, as a copy (the
-    module itself when nothing needs casting)."""
+def cast_params(params: nn.Module, dtype: str) -> Dict[str, torch.Tensor]:
+    """{name: parameter cast to the compute dtype} for every floating
+    parameter not already in it (empty when there is none), as one
+    concatenate-cast-split so the backward is one cast too. Autograd sees
+    the cast: the gradient of each fp32 master is its compute-dtype
+    gradient cast up."""
     if dtype not in _DTYPES:
         raise ValueError(f"Unsupported compute_dtype: {dtype}")
     dt = _DTYPES[dtype]
-    if all(p.dtype == dt for p in params.parameters()
-           if p.is_floating_point()):
-        return params
-    return copy.deepcopy(params).to(dt)
+    named = [(n, p) for n, p in params.named_parameters()
+             if p.is_floating_point() and p.dtype != dt]
+    if not named:
+        return {}
+    flat = torch.cat([p.reshape(-1) for _, p in named]).to(dt)
+    parts = torch.split(flat, [p.numel() for _, p in named])
+    return {n: v.view(p.shape) for (n, p), v in zip(named, parts)}

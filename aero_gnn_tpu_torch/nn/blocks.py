@@ -9,10 +9,11 @@
     (add | mean), concat with the node state, MLP
   * ``mgn_layer_apply``      — edge update + residual, then node update +
     residual. On the cuda backend with an aligned graph the layer runs the
-    fused Hopper kernels K1 (edge) and K3 (node).
+    fused Hopper kernels K1 (edge) and K3 (node) forward, K2 and K4
+    backward, and the sender gather's backward on K5.
 
-All functions take explicit masks so pad edges/nodes contribute zeros.
-Forward only in this slice.
+All functions take explicit masks so pad edges/nodes contribute zeros, and
+are differentiable end to end.
 """
 
 from __future__ import annotations
@@ -25,8 +26,12 @@ from torch import nn
 
 from aero_gnn_tpu_torch import ops
 from aero_gnn_tpu_torch.nn import mlp as M
-from aero_gnn_tpu_torch.ops.hopper_fused import ET, NB, fused_edge_layer
-from aero_gnn_tpu_torch.ops.hopper_node import fused_node_layer
+from aero_gnn_tpu_torch.ops.hopper_fused import (
+    ET,
+    NB,
+    fused_edge_layer_autograd,
+)
+from aero_gnn_tpu_torch.ops.hopper_node import fused_node_layer_autograd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +65,11 @@ def edge_block_init(cfg: MGNLayerConfig, generator=None) -> M.MLP:
 def edge_block_apply(mlp: M.MLP, cfg: MGNLayerConfig,
                      edge_attr: torch.Tensor, node_attr: torch.Tensor,
                      senders: torch.Tensor, receivers: torch.Tensor,
+                     sender_perm: Optional[torch.Tensor] = None,
+                     senders_sorted: Optional[torch.Tensor] = None,
                      aligned: bool = False) -> torch.Tensor:
-    x_src = ops.gather_senders(node_attr, senders)
+    x_src = ops.gather_senders(node_attr, senders, sender_perm,
+                               senders_sorted, aligned)
     x_dst = ops.gather_receivers(node_attr, receivers, aligned)
     edge_input = torch.cat([edge_attr, x_src, x_dst], dim=-1)
     return M.mlp_apply(mlp, edge_input, activation=cfg.activation)
@@ -96,12 +104,16 @@ class EdgeBlockSum(nn.Module):
 def edge_block_sum_pre(p: EdgeBlockSum, edge_attr: torch.Tensor,
                        node_attr: torch.Tensor, senders: torch.Tensor,
                        receivers: torch.Tensor,
+                       sender_perm: Optional[torch.Tensor] = None,
+                       senders_sorted: Optional[torch.Tensor] = None,
                        aligned: bool = False) -> torch.Tensor:
     """h0 = W_e e + (W_s x)[src] + (W_d x + b)[dst]."""
     e_proj = edge_attr @ p.w_e
     s_proj = node_attr @ p.w_s
     d_proj = node_attr @ p.w_d + p.b
-    return (e_proj + ops.gather_senders(s_proj, senders)
+    return (e_proj
+            + ops.gather_senders(s_proj, senders, sender_perm,
+                                 senders_sorted, aligned)
             + ops.gather_receivers(d_proj, receivers, aligned))
 
 
@@ -120,9 +132,11 @@ def edge_block_sum_post(p: EdgeBlockSum, h0: torch.Tensor,
 def edge_block_sum_apply(p: EdgeBlockSum, cfg: MGNLayerConfig,
                          edge_attr: torch.Tensor, node_attr: torch.Tensor,
                          senders: torch.Tensor, receivers: torch.Tensor,
+                         sender_perm: Optional[torch.Tensor] = None,
+                         senders_sorted: Optional[torch.Tensor] = None,
                          aligned: bool = False) -> torch.Tensor:
     h0 = edge_block_sum_pre(p, edge_attr, node_attr, senders, receivers,
-                            aligned)
+                            sender_perm, senders_sorted, aligned)
     return edge_block_sum_post(p, h0, cfg)
 
 
@@ -181,12 +195,12 @@ def _pack_node_split(mlp: M.MLP, h: int, dtype, device):
 def node_block_post_residual(mlp: M.MLP, cfg: MGNLayerConfig,
                              node_attr: torch.Tensor,
                              edge_aggr: torch.Tensor) -> torch.Tensor:
-    """x + NodeBlock(x, agg), on the fused kernel K3 when legal."""
+    """x + NodeBlock(x, agg), on the fused kernels K3 / K4 when legal."""
     if not _fused_node_ok(mlp, cfg, node_attr):
         return node_attr + node_block_post(mlp, cfg, node_attr, edge_aggr)
     p = _pack_node_split(mlp, node_attr.shape[1], node_attr.dtype,
                          node_attr.device)
-    return fused_node_layer(
+    return fused_node_layer_autograd(
         node_attr, edge_aggr.to(node_attr.dtype),
         p["w1x"], p["w1a"], p["b1"], p["ws"], p["bs"],
         p["w_out"], p["b_out"], p["ln_scale"], p["ln_bias"])
@@ -214,13 +228,23 @@ class MGNLayer(nn.Module):
                      else edge_block_init(cfg, generator))
         self.node = node_block_init(cfg, generator)
 
+    def forward(self, fn, *args):
+        """``fn(self, *args)``: lets torch.func.functional_call run a
+        function of the layer with substituted parameters."""
+        return fn(self, *args)
 
-def _fused_layer_ok(cfg: MGNLayerConfig, node_attr: torch.Tensor,
-                    receivers: torch.Tensor,
-                    edge_mask: Optional[torch.Tensor], aligned: bool) -> bool:
+
+def uses_fused_layer(cfg: MGNLayerConfig, node_attr: torch.Tensor,
+                     receivers: torch.Tensor,
+                     edge_mask: Optional[torch.Tensor], aligned: bool) -> bool:
+    """Whether mgn_layer_apply takes the fused path (K1-K5 on the card):
+    cuda backend, concat trick with LayerNorm and ReLU, an edge mask and
+    the block-aligned layout."""
     if not aligned or ops.backend() != "cuda" or not cfg.do_concat_trick:
         return False
-    if cfg.edge_sum_activation != "relu" or edge_mask is None:
+    if not cfg.ln_in_edge_block() or cfg.edge_sum_activation != "relu":
+        return False
+    if edge_mask is None:
         return False
     return receivers.shape[0] % ET == 0 and node_attr.shape[0] % NB == 0
 
@@ -228,23 +252,25 @@ def _fused_layer_ok(cfg: MGNLayerConfig, node_attr: torch.Tensor,
 def _mgn_layer_fused(layer: MGNLayer, cfg: MGNLayerConfig,
                      node_attr: torch.Tensor, edge_attr: torch.Tensor,
                      senders: torch.Tensor, receivers: torch.Tensor,
-                     edge_mask: torch.Tensor):
-    """Fused path (only reached when _fused_layer_ok: the streams are
+                     edge_mask: torch.Tensor, sender_perm, senders_sorted):
+    """Fused path (only reached when uses_fused_layer: the streams are
     block-aligned): the node projections and the sender gather are plain
-    ops; the whole edge chain, the receiver gather and the aggregation run
-    in kernel K1; the node update runs in kernel K3."""
+    ops (the gather's backward is K5); the whole edge chain, the receiver
+    gather and the aggregation run in K1 / K2; the node update in K3 /
+    K4."""
     p = layer.edge
     h = node_attr.shape[1]
     s_proj = node_attr @ p.w_s
     d_proj = node_attr @ p.w_d + p.b
-    sg = ops.gather_senders(s_proj, senders)
+    sg = ops.gather_senders(s_proj, senders, sender_perm, senders_sorted,
+                            aligned=True)
     hidden = p.stack[:-1]
     ws = (torch.stack([s.w for s in hidden]) if len(hidden)
           else torch.zeros((0, h, h), dtype=s_proj.dtype,
                            device=s_proj.device))
     bs = (torch.stack([s.b for s in hidden]) if len(hidden)
           else torch.zeros((0, h), dtype=s_proj.dtype, device=s_proj.device))
-    edge_attr, agg = fused_edge_layer(
+    edge_attr, agg = fused_edge_layer_autograd(
         edge_attr, sg, d_proj, edge_mask, receivers,
         p.w_e, ws, bs, p.stack[-1].w, p.stack[-1].b,
         p.ln.scale, p.ln.bias, node_attr.shape[0], cfg.edge_sum_activation)
@@ -260,21 +286,26 @@ def mgn_layer_apply(layer: MGNLayer, cfg: MGNLayerConfig,
                     node_attr: torch.Tensor, edge_attr: torch.Tensor,
                     senders: torch.Tensor, receivers: torch.Tensor,
                     edge_mask: Optional[torch.Tensor] = None,
+                    sender_perm: Optional[torch.Tensor] = None,
+                    senders_sorted: Optional[torch.Tensor] = None,
                     aligned: bool = False):
     """One processor step; returns (node_attr', edge_attr'). ``aligned``
     declares the edge streams block-aligned (build_graph_batch
-    align_edges=True); it gates the fused kernels."""
-    if (cfg.do_concat_trick and cfg.ln_in_edge_block()
-            and _fused_layer_ok(cfg, node_attr, receivers, edge_mask,
-                                aligned)):
+    align_edges=True); it gates the fused kernels. ``sender_perm`` /
+    ``senders_sorted`` (GraphBatch) give the sender gather its sorted
+    segment-sum backward."""
+    if uses_fused_layer(cfg, node_attr, receivers, edge_mask, aligned):
         return _mgn_layer_fused(layer, cfg, node_attr, edge_attr, senders,
-                                receivers, edge_mask)
+                                receivers, edge_mask, sender_perm,
+                                senders_sorted)
     if cfg.do_concat_trick:
         delta_e = edge_block_sum_apply(layer.edge, cfg, edge_attr, node_attr,
-                                       senders, receivers, aligned)
+                                       senders, receivers, sender_perm,
+                                       senders_sorted, aligned)
     else:
         delta_e = edge_block_apply(layer.edge, cfg, edge_attr, node_attr,
-                                   senders, receivers, aligned)
+                                   senders, receivers, sender_perm,
+                                   senders_sorted, aligned)
     edge_attr = edge_attr + delta_e
     delta_n = node_block_apply(layer.node, cfg, node_attr, edge_attr,
                                receivers, edge_mask, aligned)

@@ -3,8 +3,7 @@
   * layer stack = Linear(in, h) + Linear(h, h) * num_hidden_layers
     + Linear(h, out); with num_hidden_layers == 0 it degenerates to a single
     Linear(in, out);
-  * activation after every layer except the last (dropout is a training
-    option and is not applied in this forward-only port);
+  * activation (+ optional dropout) after every layer except the last;
   * optional LayerNorm AFTER the final linear, statistics in float32.
 
 Weights are stored ``[in, out]`` (``x @ w + b``), the JAX package's layout,
@@ -105,11 +104,20 @@ class MLP(nn.Module):
         self.ln = LayerNorm(output_dim) if use_layer_norm else None
 
 
-def mlp_apply(mlp: MLP, x: torch.Tensor, *,
-              activation: str = "relu") -> torch.Tensor:
+def mlp_apply(mlp: MLP, x: torch.Tensor, *, activation: str = "relu",
+              dropout: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Forward pass. Dropout (inverted, after each activation) is active
+    only when a ``generator`` on x's device is given and ``dropout > 0``;
+    the masks come from that generator, so they are not the JAX package's
+    bits."""
     act = activation_fn(activation)
     for lin in mlp.linears[:-1]:
         x = act(lin(x))
+        if dropout > 0.0 and generator is not None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) >= dropout
+            x = torch.where(keep, x / (1.0 - dropout), torch.zeros_like(x))
     x = mlp.linears[-1](x)
     if mlp.ln is not None:
         x = layer_norm_apply(mlp.ln, x)

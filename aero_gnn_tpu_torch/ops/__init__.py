@@ -4,8 +4,9 @@ aero_gnn_tpu.ops).
 ``backend()`` is ``"cuda"`` (default) or ``"torch"``:
 
   * ``"cuda"``: the model's fused-path gates hold, and the kernel wrappers
-    (``ops.hopper_fused``, ``ops.hopper_node``) launch the Hopper kernels on
-    CUDA tensors. Given CPU tensors, a wrapper runs its plain version.
+    (``ops.hopper_fused``, ``ops.hopper_node``, ``ops.hopper_segment``)
+    launch the Hopper kernels on CUDA tensors. Given CPU tensors, a wrapper
+    runs its plain version.
   * ``"torch"``: every gate fails and the model runs the plain PyTorch
     composition everywhere: the explicit reference mode.
 
@@ -23,6 +24,7 @@ from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     degree,
     gather_receivers,
     gather_senders,
+    segment_sum_masked,
     segment_sum_sorted,
 )
 
@@ -67,12 +69,21 @@ def aggregate_edges(messages: torch.Tensor, receivers: torch.Tensor,
                     edge_mask: Optional[torch.Tensor] = None,
                     aligned: bool = False) -> torch.Tensor:
     """Aggregate edge messages to destination nodes ([E, D] -> [N, D]),
-    'add' or 'mean'; ValueError on any other mode."""
+    'add' or 'mean'; ValueError on any other mode. On the cuda backend an
+    aligned stream takes kernel K5 (its plain version on CPU tensors); the
+    'mean' degree is K5's sum of the mask, as segment_agg_pallas does."""
     if aggregation not in ("add", "mean"):
         raise ValueError(f"Unsupported aggregation method: {aggregation}")
-    if aligned:
-        refuse_unported_kernel("aggregate_edges", "K5 (segment_agg_pallas)",
-                               messages)
+    if aligned and _BACKEND == "cuda":
+        mask = (torch.ones(messages.shape[0], dtype=messages.dtype,
+                           device=messages.device)
+                if edge_mask is None else edge_mask)
+        summed = segment_sum_masked(messages, receivers, mask, num_nodes)
+        if aggregation == "mean":
+            deg = segment_sum_masked(mask[:, None].to(messages.dtype),
+                                     receivers, mask, num_nodes)
+            summed = summed / torch.clamp(deg, min=1.0)
+        return summed
     if edge_mask is not None:
         messages = messages * edge_mask[:, None].to(messages.dtype)
     summed = segment_sum_sorted(messages, receivers, num_nodes)

@@ -114,7 +114,9 @@ def check_launch(symbol: str, err: int) -> None:
 
 def check_tensors(device, dtype, **tensors) -> None:
     """Raise ValueError unless every tensor is contiguous, on ``device`` and
-    of ``dtype``; forward-only kernels also refuse tensors that need grad."""
+    of ``dtype``. The raw kernel wrappers have no autograd, so they refuse
+    tensors that need grad while grad mode is on (the autograd Functions
+    call them with grad mode off)."""
     import torch
 
     for name, t in tensors.items():
@@ -128,5 +130,19 @@ def check_tensors(device, dtype, **tensors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError(
-                f"{name} requires grad: the kernel is forward-only, call it "
+                f"{name} requires grad: the raw kernel wrapper has no "
+                "backward; call its *_autograd counterpart, or call it "
                 "under torch.no_grad()")
+
+
+def mma_b_operands(mats):
+    """[n, 2, h, h]: each [h, h] weight W of ``mats`` (a list of [h, h] or
+    [k, h, h] tensors, in order) laid out as the backward kernels' products
+    read their B operand from shared memory (csrc/chain_bwd.cuh load_b):
+    [m][0] for the forward product act @ W, [m][1] for the backward product
+    dz @ W^T; bf16 stores B transposed ([n][k]), fp32 as it is ([k][n])."""
+    import torch
+
+    w = torch.cat([m.reshape(-1, *m.shape[-2:]) for m in mats])
+    pair = (w.mT, w) if w.dtype == torch.bfloat16 else (w, w.mT)
+    return torch.stack(pair, dim=1).contiguous()

@@ -1,12 +1,16 @@
-"""Fused node block + residual: Hopper kernel K3 (forward) and its plain
-version (counterpart of aero_gnn_tpu.ops.pallas_node).
+"""Fused node block + residual: Hopper kernels K3 (forward) and K4
+(backward) with their plain versions (counterpart of
+aero_gnn_tpu.ops.pallas_node).
 
     z  = relu(x @ W1x + agg @ W1a + b1)    (concat first linear, split)
     z  = relu(z @ W_i + b_i) ...           (square hidden chain)
     x' = x + LayerNorm(z @ W_out + b_out)  (fp32 statistics)
 
 ``fused_node_layer`` launches ``csrc/fused_node_fwd.cu`` on CUDA tensors
-and runs ``fused_node_layer_ref`` on CPU tensors.
+and runs ``fused_node_layer_ref`` on CPU tensors; ``fused_node_layer_bwd``
+launches ``csrc/fused_node_bwd.cu`` / runs ``fused_node_layer_bwd_ref``.
+``fused_node_layer_autograd`` is the differentiable layer (forward K3,
+backward K4), saving the layer's inputs only, as ``_fnl_fwd`` does.
 """
 
 from __future__ import annotations
@@ -15,34 +19,71 @@ import ctypes
 
 import torch
 
-from aero_gnn_tpu_torch.nn.mlp import layer_norm
+from aero_gnn_tpu_torch.nn.mlp import LN_EPS, layer_norm
 from aero_gnn_tpu_torch.ops import _build
 
-ROW_CHUNK = 128  # rows per CTA step of the kernel
+ROW_CHUNK = 128  # rows per CTA step of the kernels
 KERNEL_WIDTHS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 12 + [_I64, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P] * 12 + [_I64, _I64, _I, _I, _I, _P]
+_WS_ARGTYPES = [_I64, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)]
+
+
+def _first_linear(x, agg, w1x, w1a):
+    return torch.cat([x, agg], dim=-1) @ torch.cat([w1x, w1a], dim=0)
 
 
 def fused_node_layer_ref(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
                          ln_scale, ln_bias):
     """Plain PyTorch composition, in the order of the JAX package's _equiv
-    (pallas_node.py)."""
-    z = torch.relu(x @ w1x + agg @ w1a + b1)
+    (pallas_node.py), except that x @ W1x + agg @ W1a is one product of the
+    concatenations, summed before one rounding as the kernels, the TPU
+    kernel and the unfused node block do (_equiv rounds each product)."""
+    z = torch.relu(_first_linear(x, agg, w1x, w1a) + b1)
     for i in range(ws.shape[0]):
         z = torch.relu(z @ ws[i] + bs[i])
     d = z @ w_out + b_out
     return x + layer_norm(d, ln_scale, ln_bias)
 
 
-def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
-                     ln_bias):
-    """x + LN(MLP([x, agg])). CUDA tensors launch kernel K3; CPU tensors run
-    the plain version. Forward only."""
-    if not x.is_cuda:
-        return fused_node_layer_ref(x, agg, w1x, w1a, b1, ws, bs, w_out,
-                                    b_out, ln_scale, ln_bias)
+def fused_node_layer_bwd_ref(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                             ln_scale, ln_bias, ct):
+    """Plain VJP of the fused node layer for the cotangent ct of x', in the
+    order of the JAX package's backward kernel (pallas_node.py:211-265).
+    Returns (d_x, d_agg, dW1x, dW1a, db1, dWs, dbs, dW_out, db_out, dscale,
+    dbias), the weight gradients in fp32."""
+    dt, h, nh = x.dtype, x.shape[1], ws.shape[0]
+    acts = [torch.relu(_first_linear(x, agg, w1x, w1a) + b1)]
+    for i in range(nh):
+        acts.append(torch.relu(acts[-1] @ ws[i] + bs[i]))
+    d32 = (acts[-1] @ w_out + b_out).float()
+    mu = d32.mean(-1, keepdim=True)
+    inv = torch.rsqrt((d32 - mu).square().mean(-1, keepdim=True) + LN_EPS)
+    xn = (d32 - mu) * inv
+    ct32 = ct.float()
+    g = ct32 * ln_scale.float()
+    d_d = ((g - g.mean(-1, keepdim=True)
+            - xn * (g * xn).mean(-1, keepdim=True)) * inv).to(dt)
+    dscale, dbias = (ct32 * xn).sum(0), ct32.sum(0)
+    dwo, dbo = acts[-1].float().T @ d_d.float(), d_d.float().sum(0)
+    dz = (d_d @ w_out.T) * (acts[-1] > 0).to(dt)
+    dws = torch.zeros((nh, h, h), dtype=torch.float32, device=x.device)
+    dbs = torch.zeros((nh, h), dtype=torch.float32, device=x.device)
+    for i in reversed(range(nh)):
+        dws[i] = acts[i].float().T @ dz.float()
+        dbs[i] = dz.float().sum(0)
+        dz = (dz @ ws[i].T) * (acts[i] > 0).to(dt)
+    dz32 = dz.float()
+    return (ct + dz @ w1x.T, dz @ w1a.T, x.float().T @ dz32,
+            agg.float().T @ dz32, dz32.sum(0), dws, dbs, dwo, dbo, dscale,
+            dbias)
+
+
+def _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
+                ln_bias, **cotangents):
+    """Validate the layer's tensors for the kernels; returns (N, h, nh)."""
     n, h = x.shape
     n_hidden = ws.shape[0]
     if x.dtype not in _DTYPE_CODE:
@@ -51,22 +92,34 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
     if h not in KERNEL_WIDTHS:
         raise ValueError(f"fused node kernel takes h in {KERNEL_WIDTHS}, "
                          f"not {h}")
-    if n % ROW_CHUNK:
-        raise ValueError(f"fused node kernel needs N % {ROW_CHUNK} == 0, "
-                         f"got N={n}")
+    if n % ROW_CHUNK or n == 0:
+        raise ValueError(f"fused node kernel needs N a positive multiple of "
+                         f"{ROW_CHUNK}, got N={n}")
     shapes = {"agg": (agg, (n, h)), "w1x": (w1x, (h, h)),
               "w1a": (w1a, (h, h)), "b1": (b1, (h,)),
               "ws": (ws, (n_hidden, h, h)), "bs": (bs, (n_hidden, h)),
               "w_out": (w_out, (h, h)), "b_out": (b_out, (h,)),
               "ln_scale": (ln_scale, (h,)), "ln_bias": (ln_bias, (h,))}
+    shapes.update({k: (v, (n, h)) for k, v in cotangents.items()})
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
     _build.check_tensors(x.device, x.dtype, x=x, agg=agg, w1x=w1x, w1a=w1a,
                          b1=b1, ws=ws, bs=bs, w_out=w_out, b_out=b_out,
-                         ln_scale=ln_scale, ln_bias=ln_bias)
+                         ln_scale=ln_scale, ln_bias=ln_bias, **cotangents)
+    return n, h, n_hidden
 
+
+def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
+                     ln_bias):
+    """x + LN(MLP([x, agg])). CUDA tensors launch kernel K3; CPU tensors run
+    the plain version. No autograd (see fused_node_layer_autograd)."""
+    if not x.is_cuda:
+        return fused_node_layer_ref(x, agg, w1x, w1a, b1, ws, bs, w_out,
+                                    b_out, ln_scale, ln_bias)
+    n, h, n_hidden = _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                                 ln_scale, ln_bias)
     out = torch.empty_like(x)
     fn = _build.c_function("fused_node_fwd", "aero_fused_node_fwd",
                            _ARGTYPES)
@@ -82,5 +135,74 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
     return out
 
 
-# launches of kernel K3 since the count was last set to 0
+def fused_node_layer_bwd(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                         ln_scale, ln_bias, ct):
+    """VJP of the fused node layer: (d_x, d_agg, dW1x, dW1a, db1, dWs, dbs,
+    dW_out, db_out, dscale, dbias), the weight gradients in fp32. CUDA
+    tensors launch kernel K4 (deterministic); CPU tensors run the plain
+    version."""
+    if not x.is_cuda:
+        return fused_node_layer_bwd_ref(x, agg, w1x, w1a, b1, ws, bs, w_out,
+                                        b_out, ln_scale, ln_bias, ct)
+    n, h, nh = _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                           ln_scale, ln_bias, ct=ct)
+    code = _DTYPE_CODE[x.dtype]
+    ws_bytes = ctypes.c_int64(0)
+    ws_fn = _build.c_function("fused_node_bwd",
+                              "aero_fused_node_bwd_workspace", _WS_ARGTYPES)
+    with torch.cuda.device(x.device):
+        _build.check_launch("aero_fused_node_bwd_workspace",
+                            ws_fn(n, h, nh, code, ctypes.byref(ws_bytes)))
+        workspace = torch.empty(ws_bytes.value, dtype=torch.uint8,
+                                device=x.device)
+        d_x, d_agg = torch.empty_like(x), torch.empty_like(x)
+        n_mat = (nh + 3) * h * h
+        dw = torch.empty(n_mat + (nh + 4) * h, dtype=torch.float32,
+                         device=x.device)
+        fn = _build.c_function("fused_node_bwd", "aero_fused_node_bwd",
+                               _BWD_ARGTYPES)
+        wb = _build.mma_b_operands([w1x, w1a, ws, w_out])
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), agg.data_ptr(), wb.data_ptr(), b1.data_ptr(),
+                 bs.data_ptr(), b_out.data_ptr(), ln_scale.data_ptr(),
+                 ct.data_ptr(), d_x.data_ptr(), d_agg.data_ptr(),
+                 dw.data_ptr(), workspace.data_ptr(), ws_bytes.value, n, h,
+                 nh, code, stream)
+    _build.check_launch("aero_fused_node_bwd", err)
+    fused_node_layer_bwd.launches += 1
+    mats = dw[:n_mat].view(nh + 3, h, h)
+    vecs = dw[n_mat:].view(nh + 4, h)
+    return (d_x, d_agg, mats[0], mats[1], vecs[3], mats[2:nh + 2], vecs[4:],
+            mats[nh + 2], vecs[0], vecs[1], vecs[2])
+
+
+# launches of kernels K3 / K4 since the counts were last set to 0
 fused_node_layer.launches = 0
+fused_node_layer_bwd.launches = 0
+
+
+class _FusedNodeLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
+                ln_bias):
+        ctx.save_for_backward(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                              ln_scale, ln_bias)
+        return fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                                ln_scale, ln_bias)
+
+    @staticmethod
+    def backward(ctx, ct):
+        saved = ctx.saved_tensors
+        grads = fused_node_layer_bwd(*saved, ct.contiguous())
+        # weight gradients rounded to the weights' (compute) dtype, as the
+        # JAX package's _fnl_bwd returns them
+        wgrads = [g.to(w.dtype) for g, w in zip(grads[2:], saved[2:])]
+        return (grads[0], grads[1], *wgrads)
+
+
+def fused_node_layer_autograd(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                              ln_scale, ln_bias):
+    """The differentiable fused node layer: x' by K3, its backward by K4
+    (the plain versions on CPU tensors)."""
+    return _FusedNodeLayer.apply(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                                 ln_scale, ln_bias)

@@ -1,10 +1,21 @@
-"""Forward gather / segment primitives in plain PyTorch (forward subset of
-aero_gnn_tpu.ops.scatter).
+"""Gather / segment primitives with the JAX package's custom VJPs
+(counterpart of aero_gnn_tpu.ops.scatter).
 
 Shape-static and mask-aware: pad edges/nodes contribute exact zeros and
-empty segments are zero rows. Segment sums accumulate in float32 and round
-once to the data's dtype (``index_add_`` on a float32 buffer; on CUDA its
-atomics make the summation order, and so the last bits, vary run to run).
+empty segments are zero rows. Plain segment sums accumulate in float32 and
+round once to the data's dtype (``index_add_`` on a float32 buffer; on CUDA
+its atomics make the summation order, and so the last bits, vary run to
+run). Each op is a ``torch.autograd.Function`` whose backward is the
+transpose the JAX package defines:
+
+  * ``gather_senders``: ``x[senders]``; backward a sorted segment sum over
+    the sender-sorted stream (``ct[sender_perm]`` summed by
+    ``senders_sorted``), on kernel K5 (``ops.hopper_segment``) when the
+    stream is declared aligned on the cuda backend;
+  * ``gather_receivers``: ``x[receivers]``; backward a sorted segment sum;
+  * ``segment_sum_sorted``: backward a sorted gather;
+  * ``segment_sum_masked``: the masked sum of ``aggregate_edges`` on an
+    aligned stream, forward on K5; backward ``mask * ct[ids]``.
 """
 
 from __future__ import annotations
@@ -13,37 +24,123 @@ from typing import Optional
 
 import torch
 
+from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
 
 def gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Row gather ``values[indices]``: [N, D] -> [E, D]."""
     return values.index_select(0, indices)
 
 
-def gather_senders(x: torch.Tensor, senders: torch.Tensor) -> torch.Tensor:
-    """``x[senders]``. The JAX package leaves this forward gather to XLA,
-    so the port leaves it to ``index_select``."""
-    return gather(x, senders)
+def _backend() -> str:
+    from aero_gnn_tpu_torch import ops as _ops
+
+    return _ops.backend()
+
+
+class _GatherSenders(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, senders, sender_perm, senders_sorted, use_kernel):
+        ctx.save_for_backward(sender_perm, senders_sorted)
+        ctx.num_nodes = x.shape[0]
+        ctx.use_kernel = use_kernel
+        return gather(x, senders)
+
+    @staticmethod
+    def backward(ctx, ct):
+        sender_perm, senders_sorted = ctx.saved_tensors
+        ct = ct.contiguous()
+        if ctx.use_kernel:
+            # K5 reads ct[sender_perm[i]] itself: no [E, h] permuted copy
+            dx = HS.segment_sum(ct, senders_sorted, ctx.num_nodes,
+                                rows=sender_perm)
+        else:
+            dx = HS.segment_sum_ref(gather(ct, sender_perm), senders_sorted,
+                                    ctx.num_nodes)
+        return dx, None, None, None, None
+
+
+def gather_senders(x: torch.Tensor, senders: torch.Tensor,
+                   sender_perm: Optional[torch.Tensor] = None,
+                   senders_sorted: Optional[torch.Tensor] = None,
+                   aligned: bool = False) -> torch.Tensor:
+    """``x[senders]`` whose backward is a sorted segment sum over the
+    sender-sorted stream (plain autograd of the gather without it).
+    ``aligned`` declares the graph block-aligned and, on the cuda backend,
+    routes the backward to kernel K5. The JAX package leaves the forward
+    gather to XLA, so the port leaves it to ``index_select``."""
+    if sender_perm is None or senders_sorted is None:
+        return gather(x, senders)
+    return _GatherSenders.apply(x, senders, sender_perm, senders_sorted,
+                                aligned and _backend() == "cuda")
+
+
+class _GatherReceivers(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, receivers):
+        ctx.save_for_backward(receivers)
+        ctx.num_nodes = x.shape[0]
+        return gather(x, receivers)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (receivers,) = ctx.saved_tensors
+        return HS.segment_sum_ref(ct, receivers, ctx.num_nodes), None
 
 
 def gather_receivers(x: torch.Tensor, receivers: torch.Tensor,
                      aligned: bool = False) -> torch.Tensor:
-    """``x[receivers]`` (ascending ids). On the cuda backend an aligned
-    stream on the card belongs to kernel K6, which is not ported yet."""
+    """``x[receivers]`` (ascending ids) with a sorted segment-sum backward.
+    On the cuda backend an aligned stream on the card belongs to kernel K6,
+    which is not ported yet."""
     if aligned:
         from aero_gnn_tpu_torch import ops as _ops
 
         _ops.refuse_unported_kernel(
             "gather_receivers", "K6 (gather_receivers_pallas)", x)
-    return gather(x, receivers)
+    return _GatherReceivers.apply(x, receivers)
+
+
+class _SegmentSumSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return HS.segment_sum_ref(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (segment_ids,) = ctx.saved_tensors
+        return gather(ct, segment_ids), None, None
 
 
 def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """[E, D] -> [N, D] sum over rows with equal (ascending) ids."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=torch.float32, device=data.device)
-    out.index_add_(0, segment_ids, data.float())
-    return out.to(data.dtype)
+    """[E, D] -> [N, D] sum over rows with equal (ascending) ids; backward
+    a sorted gather."""
+    return _SegmentSumSorted.apply(data, segment_ids, num_segments)
+
+
+class _SegmentSumMasked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, mask, num_segments):
+        ctx.save_for_backward(segment_ids, mask)
+        return HS.segment_sum(data, segment_ids, num_segments, mask=mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        segment_ids, mask = ctx.saved_tensors
+        d = gather(ct, segment_ids) * mask[:, None].to(ct.dtype)
+        return d, None, None, None
+
+
+def segment_sum_masked(data: torch.Tensor, segment_ids: torch.Tensor,
+                       mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``out[n] = sum_{ids[i] = n} mask[i] * data[i]`` on kernel K5 (CUDA
+    tensors) or its plain version (CPU tensors); ``mask`` is cast to the
+    data's dtype."""
+    return _SegmentSumMasked.apply(data.contiguous(), segment_ids,
+                                   mask.to(data.dtype).contiguous(),
+                                   num_segments)
 
 
 def degree(segment_ids: torch.Tensor, num_segments: int, *,
@@ -54,4 +151,4 @@ def degree(segment_ids: torch.Tensor, num_segments: int, *,
                       device=segment_ids.device)
     if mask is not None:
         ones = ones * mask.to(dtype)
-    return segment_sum_sorted(ones, segment_ids, num_segments)
+    return HS.segment_sum_ref(ones, segment_ids, num_segments)

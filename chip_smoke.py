@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--record PATH]
 
 ``--record PATH`` also writes the full record (every kernel's operations
-and bytes, launch counts, build and total seconds) as JSON to PATH.
+and bytes, launch counts, step times, build and total seconds) as JSON to
+PATH.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -12,8 +13,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                (sm_90a), one process per source, and report the time;
   3. kernels — each Hopper kernel against its plain PyTorch version on the
                card, at the flagship shapes (the 65,536-node mesh's aligned
-               layout, h = 128, 2 hidden layers), fp32 and bf16, timed with
-               CUDA events (median of 20 after warm-up) beside the bound;
+               layout, h = 128, 2 hidden layers; K5 on its aligned sender
+               stream), fp32 and bf16, timed with CUDA events (median of 20
+               after warm-up) beside the bound and, for K5, the library
+               call torch.segment_reduce; K1's agg and K2's / K4's weight
+               gradients must be bit-equal across two launches;
   3b. shapes — the kernels' other configurations (no hidden layer, weights
                streamed per stage, h = 64) against the plain versions on a
                4,096-node mesh;
@@ -22,9 +26,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                65,536-node meshes in bf16 and in fp32. Launch counters are set
                to 0 before each dtype's run and read after it; every forward
                must launch K1 and K3 exactly 15 times each. Request 0 in fp32
-               is cross-checked against the plain path (use_backend("torch")).
+               is cross-checked against the plain path (use_backend("torch"));
   5. profile — torch.profiler over one warm forward per dtype: device busy
-               time, idle share and the kernels that take the most time.
+               time, idle share and the kernels that take the most time;
+  6. train   — the flagship MeshGraphNet trained on mesh 0 through
+               training.loop.make_step_fns (Adam, lr 1e-3, fp32 masters,
+               remat off): 10 steps in bf16, then one fp32 step's gradients
+               against the plain path and 3 fp32 steps. Every step must
+               launch K1-K5 exactly 15 times each; the loss must be finite
+               and fall over the bf16 steps; one warm bf16 step is
+               profiled.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or aero_gnn_tpu is imported.
@@ -48,11 +59,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor / fp32 FFMA
 # kernel vs plain version on the card: |k - p| <= atol + rtol * |p|
 TOL = {"float32": (1e-4, 1e-4),
        # a few bf16 ulps: the kernel rounds where the plain version does but
-       # accumulates its products in another order (and K3 sums its two
-       # first products in fp32 before rounding, as the TPU kernel does)
+       # accumulates its products in another order
        "bfloat16": (6.25e-2, 1.5625e-2)}
+# fp32 weight gradients (sums over every edge or node row) against the
+# plain version: |k - p| <= a * max|p| + r * |p|. In bf16 a ReLU input that
+# rounds one ulp to the other side of 0 in one of the two (their products
+# accumulate in another order) moves a whole column of a weight gradient by
+# that row's share, so the floor is relative to the tensor's scale.
+GRAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 1.5625e-2)}
 # fused fp32 forward vs the plain path, normalised predictions
 SERVE_TOL = (1e-3, 1e-3)
+# one fp32 train step's parameter gradients, kernels vs the plain path
+TRAIN_GRAD_TOL = (1e-3, 1e-3)
+TRAIN_STEPS = {"bfloat16": 10, "float32": 3}
+EDGE_GRADS = ("d_e", "d_sg", "d_dproj", "dW_e", "dWs", "dbs", "dW_out",
+              "db_out", "dscale", "dbias")
+NODE_GRADS = ("d_x", "d_agg", "dW1x", "dW1a", "db1", "dWs", "dbs", "dW_out",
+              "db_out", "dscale", "dbias")
 N_NODES = 65536
 HIDDEN = 128
 N_HIDDEN = 2
@@ -96,9 +119,10 @@ def phase_shapes(torch, graph):
     hidden layers no longer fits shared memory at once), and h = 64."""
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
 
     dev = graph.device
-    E, N = graph.num_edges_pad, graph.num_nodes_pad
+    N = graph.num_nodes_pad
     real = graph.edge_mask > 0
     gen = torch.Generator(device=dev).manual_seed(99)
     for h, nh in ((128, 0), (128, 4), (64, 2)):
@@ -109,29 +133,31 @@ def phase_shapes(torch, graph):
                 return (torch.randn(*shape, generator=gen, device=dev)
                         * scale).to(dt)
 
-            w = 1.0 / h ** 0.5
-            edge_args = (r(E, h), r(E, h), r(N, h), graph.edge_mask.to(dt),
-                         graph.receivers, r(h, h, scale=w),
-                         r(nh, h, h, scale=w), r(nh, h, scale=0.1),
-                         r(h, h, scale=w), r(h, scale=0.1),
-                         1 + r(h, scale=0.1), r(h, scale=0.1), N)
+            edge_args, edge_bwd, node_args, node_bwd, seg = bwd_cases(
+                torch, graph, dt, r, h, nh)
             ek, ak = HF.fused_edge_layer(*edge_args)
             ep, ap = HF.fused_edge_layer_ref(*edge_args)
-            node_args = (r(N, h), r(N, h, scale=3.0), r(h, h, scale=w),
-                         r(h, h, scale=w), r(h, scale=0.1),
-                         r(nh, h, h, scale=w), r(nh, h, scale=0.1),
-                         r(h, h, scale=w), r(h, scale=0.1),
-                         1 + r(h, scale=0.1), r(h, scale=0.1))
             xk = HN.fused_node_layer(*node_args)
             xp = HN.fused_node_layer_ref(*node_args)
+            # K5 as aggregate_edges calls it: receivers, edge mask, no rows
+            mk = HS.segment_sum(seg[0], graph.receivers, N,
+                                mask=graph.edge_mask.to(dt))
+            mp = HS.segment_sum_ref(seg[0], graph.receivers, N,
+                                    mask=graph.edge_mask.to(dt))
             torch.cuda.synchronize()
             tag = f"h={h} n_hidden={nh} {dtype_name}"
             errs = (check_close(torch, f"K1 {tag} e'", ek, ep, dtype_name,
                                 rows=real),
                     check_close(torch, f"K1 {tag} agg", ak, ap, dtype_name),
-                    check_close(torch, f"K3 {tag} x'", xk, xp, dtype_name))
+                    check_close(torch, f"K3 {tag} x'", xk, xp, dtype_name),
+                    check_close(torch, f"K5 {tag} masked", mk, mp,
+                                dtype_name))
+            e2, e4, e5 = check_backward_kernels(torch, tag, dtype_name, graph,
+                                                edge_bwd, node_bwd, seg)
             log(f"[shapes] {tag}: max abs err K1 e' {errs[0]:.3e}, agg "
-                f"{errs[1]:.3e}, K3 {errs[2]:.3e}")
+                f"{errs[1]:.3e}, K3 {errs[2]:.3e}, K2 {e2[0]:.3e} (weight "
+                f"grads {e2[1]:.3e} of max|p|), K4 {e4[0]:.3e} ({e4[1]:.3e}), "
+                f"K5 {e5:.3e} / masked {errs[3]:.3e}")
 
 
 def flagship_graph(seed: int, device, n_nodes: int = N_NODES):
@@ -182,18 +208,116 @@ def check_close(torch, name, got, ref, dtype, rows=None):
     return float(err.max())
 
 
-def phase_kernels(torch, graph):
-    """K1 and K3 against their plain versions at the flagship shapes."""
+def check_grad(torch, name, got, ref, tol):
+    """|got - ref| <= a * max|ref| + r * |ref| elementwise; returns the
+    max abs error."""
+    a, r = tol
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values from the kernel")
+    if ref.numel() == 0:
+        return 0.0
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    bad = err > a * scale + r * ref.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {ref.numel()} values outside "
+            f"{a} max|p| + {r} |p| (max|p| {scale:.3e}); max abs err "
+            f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def check_bwd(torch, name, got, ref, dtype, n_act):
+    """A backward kernel's outputs: the first ``n_act`` are activation
+    gradients in the compute dtype (the K1/K3 rule), the rest fp32 weight
+    gradients (GRAD_TOL). Returns (max abs err of the activation gradients,
+    max abs err of the weight gradients / max|p|)."""
+    names = EDGE_GRADS if len(got) == len(EDGE_GRADS) else NODE_GRADS
+    act, wrel = 0.0, 0.0
+    for i, (nm, g, r) in enumerate(zip(names, got, ref)):
+        if i < n_act:
+            act = max(act, check_close(torch, f"{name} {nm}", g, r, dtype))
+        else:
+            err = check_grad(torch, f"{name} {nm}", g, r, GRAD_TOL[dtype])
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            wrel = max(wrel, err / scale if scale else 0.0)
+    return act, wrel
+
+
+def bwd_cases(torch, graph, dt, randn, h, nh):
+    """Random inputs of K1/K2 and K3/K4 on ``graph`` (weights ~ 1/sqrt(h),
+    the edge cotangent zero on pad rows as on the training path) and K5's
+    aligned sender stream: (edge_args, edge_bwd_args, node_args,
+    node_bwd_args, seg_args)."""
+    E, N = graph.num_edges_pad, graph.num_nodes_pad
+    real = (graph.edge_mask > 0).to(dt)
+    w = 1.0 / h ** 0.5
+    edge_args = (randn(E, h), randn(E, h), randn(N, h), graph.edge_mask.to(dt),
+                 graph.receivers, randn(h, h, scale=w),
+                 randn(nh, h, h, scale=w), randn(nh, h, scale=0.1),
+                 randn(h, h, scale=w), randn(h, scale=0.1),
+                 1 + randn(h, scale=0.1), randn(h, scale=0.1), N)
+    node_args = (randn(N, h), randn(N, h, scale=3.0), randn(h, h, scale=w),
+                 randn(h, h, scale=w), randn(h, scale=0.1),
+                 randn(nh, h, h, scale=w), randn(nh, h, scale=0.1),
+                 randn(h, h, scale=w), randn(h, scale=0.1),
+                 1 + randn(h, scale=0.1), randn(h, scale=0.1))
+    edge_bwd = edge_args[:-1] + (randn(E, h) * real[:, None], randn(N, h), N)
+    node_bwd = node_args + (randn(N, h),)
+    seg = (randn(E, h), graph.senders_sorted, N)
+    return edge_args, edge_bwd, node_args, node_bwd, seg
+
+
+def check_backward_kernels(torch, tag, dtype_name, graph, edge_bwd, node_bwd,
+                           seg):
+    """K2, K4 and K5 against their plain versions; K2's and K4's outputs
+    (weight gradients included) bit-equal across two launches; K5's rows of
+    nodes without a row exact zeros. Returns the max abs errors."""
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    k2 = HF.fused_edge_layer_bwd(*edge_bwd)
+    p2 = HF.fused_edge_layer_bwd_ref(*edge_bwd)
+    k4 = HN.fused_node_layer_bwd(*node_bwd)
+    p4 = HN.fused_node_layer_bwd_ref(*node_bwd)
+    k5 = HS.segment_sum(*seg, rows=graph.sender_perm)
+    p5 = HS.segment_sum_ref(*seg, rows=graph.sender_perm)
+    torch.cuda.synchronize()
+    e2 = check_bwd(torch, f"K2 {tag}", k2, p2, dtype_name, 3)
+    e4 = check_bwd(torch, f"K4 {tag}", k4, p4, dtype_name, 2)
+    e5 = check_close(torch, f"K5 {tag}", k5, p5, dtype_name)
+    for name, again, first in (
+            ("K2", HF.fused_edge_layer_bwd(*edge_bwd), k2),
+            ("K4", HN.fused_node_layer_bwd(*node_bwd), k4)):
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{name} {tag}: outputs differ between two "
+                                 "launches on the same inputs")
+    empty = torch.bincount(seg[1], minlength=seg[2]) == 0
+    if not (k5[empty] == 0).all():
+        raise AssertionError(f"K5 {tag}: rows of nodes without a row are "
+                             "not exactly 0")
+    return e2, e4, e5
+
+
+def phase_kernels(torch, graph):
+    """Every kernel against its plain version at the flagship shapes."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
     from aero_gnn_tpu_torch.ops.scatter import degree
 
     dev = graph.device
     E, N, h, nh = graph.num_edges_pad, graph.num_nodes_pad, HIDDEN, N_HIDDEN
+    Es = graph.senders_sorted.shape[0]
     real = graph.edge_mask > 0
     empty = degree(graph.receivers, N, mask=graph.edge_mask) == 0
     log(f"[kernels] flagship layout: E={E} (real {int(real.sum())}), N={N}, "
-        f"h={h}, n_hidden={nh}; {int(empty.sum())} nodes without a real edge")
+        f"h={h}, n_hidden={nh}; {int(empty.sum())} nodes without a real "
+        f"edge; sender stream {Es} rows (aligned: {graph.senders_aligned})")
+    lengths = torch.bincount(graph.senders_sorted, minlength=N)
+    perm = graph.sender_perm.long()
     results = []
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
@@ -203,26 +327,8 @@ def phase_kernels(torch, graph):
             return (torch.randn(*shape, generator=gen, device=dev)
                     * scale).to(dt)
 
-        w = 1.0 / h ** 0.5
-        e, sg = randn(E, h), randn(E, h)
-        d_proj, x, agg_in = randn(N, h), randn(N, h), randn(N, h, scale=3.0)
-        mask = graph.edge_mask.to(dt)
-        ew = dict(w_e=randn(h, h, scale=w), ws=randn(nh, h, h, scale=w),
-                  bs=randn(nh, h, scale=0.1), w_out=randn(h, h, scale=w),
-                  b_out=randn(h, scale=0.1),
-                  ln_scale=1 + randn(h, scale=0.1), ln_bias=randn(h, scale=0.1))
-        nw = dict(w1x=randn(h, h, scale=w), w1a=randn(h, h, scale=w),
-                  b1=randn(h, scale=0.1), ws=randn(nh, h, h, scale=w),
-                  bs=randn(nh, h, scale=0.1), w_out=randn(h, h, scale=w),
-                  b_out=randn(h, scale=0.1),
-                  ln_scale=1 + randn(h, scale=0.1), ln_bias=randn(h, scale=0.1))
-        edge_args = (e, sg, d_proj, mask, graph.receivers, ew["w_e"], ew["ws"],
-                     ew["bs"], ew["w_out"], ew["b_out"], ew["ln_scale"],
-                     ew["ln_bias"], N)
-        node_args = (x, agg_in, nw["w1x"], nw["w1a"], nw["b1"], nw["ws"],
-                     nw["bs"], nw["w_out"], nw["b_out"], nw["ln_scale"],
-                     nw["ln_bias"])
-
+        edge_args, edge_bwd, node_args, node_bwd, seg = bwd_cases(
+            torch, graph, dt, randn, h, nh)
         ek, ak = HF.fused_edge_layer(*edge_args)
         ep, ap = HF.fused_edge_layer_ref(*edge_args)
         torch.cuda.synchronize()
@@ -240,39 +346,81 @@ def phase_kernels(torch, graph):
         xp = HN.fused_node_layer_ref(*node_args)
         torch.cuda.synchronize()
         err_x = check_close(torch, f"K3 {dtype_name} x'", xk, xp, dtype_name)
+        del ek, ak, ak2, ep, ap, xk, xp
+        e2, e4, e5 = check_backward_kernels(torch, dtype_name, dtype_name,
+                                            graph, edge_bwd, node_bwd, seg)
+        log(f"[kernels] {dtype_name}: K2 max abs err {e2[0]:.3e} (weight "
+            f"grads {e2[1]:.3e} of max|p|), K4 {e4[0]:.3e} ({e4[1]:.3e}), K5 "
+            f"{e5:.3e}; K2 / K4 bit-equal across launches")
 
         isz = torch.finfo(dt).bits // 8
-        n_w = lambda ws: sum(t.numel() for t in ws.values())  # noqa: E731
-        k1_bytes = (3 * E * h + 2 * N * h + E + n_w(ew)) * isz + 4 * E
-        k1_flops = 2 * E * h * h * (2 + nh)
-        k3_bytes = (3 * N * h + n_w(nw)) * isz
-        k3_flops = 2 * N * h * h * (3 + nh)
-        for name, src, replaces, fn, ref, flops, nbytes, err in (
-                ("fused_edge_fwd", "aero_gnn_tpu_torch/csrc/fused_edge_fwd.cu",
-                 "aero_gnn_tpu/ops/pallas_fused.py:488",
-                 lambda: HF.fused_edge_layer(*edge_args),
-                 lambda: HF.fused_edge_layer_ref(*edge_args),
-                 k1_flops, k1_bytes, max(err_e, err_a)),
-                ("fused_node_fwd", "aero_gnn_tpu_torch/csrc/fused_node_fwd.cu",
-                 "aero_gnn_tpu/ops/pallas_node.py:143",
-                 lambda: HN.fused_node_layer(*node_args),
-                 lambda: HN.fused_node_layer_ref(*node_args),
-                 k3_flops, k3_bytes, err_x)):
+        w_edge = sum(t.numel() for t in edge_args[5:12])
+        w_node = sum(t.numel() for t in node_args[2:])
+        dw_edge = (nh + 2) * h * h + (nh + 3) * h
+        dw_node = (nh + 3) * h * h + (nh + 4) * h
+        gathered = seg[0][perm]
+        kernels = (
+            ("fused_edge_fwd", "aero_gnn_tpu/ops/pallas_fused.py:488",
+             lambda: HF.fused_edge_layer(*edge_args),
+             lambda: HF.fused_edge_layer_ref(*edge_args), None,
+             2 * E * h * h * (2 + nh),
+             (3 * E * h + 2 * N * h + E + w_edge) * isz + 4 * E,
+             max(err_e, err_a)),
+            ("fused_node_fwd", "aero_gnn_tpu/ops/pallas_node.py:143",
+             lambda: HN.fused_node_layer(*node_args),
+             lambda: HN.fused_node_layer_ref(*node_args), None,
+             2 * N * h * h * (3 + nh), (3 * N * h + w_node) * isz, err_x),
+            ("fused_edge_bwd", "aero_gnn_tpu/ops/pallas_fused.py:789",
+             lambda: HF.fused_edge_layer_bwd(*edge_bwd),
+             lambda: HF.fused_edge_layer_bwd_ref(*edge_bwd), None,
+             3 * 2 * E * h * h * (2 + nh),
+             (5 * E * h + 3 * N * h + E + w_edge) * isz + 4 * E
+             + 4 * dw_edge, e2[0]),
+            ("fused_node_bwd", "aero_gnn_tpu/ops/pallas_node.py:284",
+             lambda: HN.fused_node_layer_bwd(*node_bwd),
+             lambda: HN.fused_node_layer_bwd_ref(*node_bwd), None,
+             3 * 2 * N * h * h * (3 + nh),
+             (5 * N * h + w_node) * isz + 4 * dw_node, e4[0]),
+            ("segment_sum", "aero_gnn_tpu/ops/pallas_segment.py:428",
+             lambda: HS.segment_sum(*seg, rows=graph.sender_perm),
+             lambda: HS.segment_sum_ref(*seg, rows=graph.sender_perm),
+             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths),
+             Es * h, (E * h + N * h) * isz + 8 * Es, e5),
+        )
+        for name, replaces, fn, ref, lib, flops, nbytes, err in kernels:
+            peak = PEAK_FLOPS["float32" if name == "segment_sum"
+                              else dtype_name]
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+            t_ops = flops / peak * 1e3
             ms = cuda_time_ms(torch, fn)
             plain_ms = cuda_time_ms(torch, ref)
+            library_ms = cuda_time_ms(torch, lib) if lib else None
             results.append({
                 "name": f"{name}[{dtype_name}]", "route": "cuda",
-                "source": src, "replaces": replaces, "launches": None,
+                "source": f"aero_gnn_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": None,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "flops": flops, "bytes": nbytes})
+                "library_ms": library_ms, "flops": flops, "bytes": nbytes})
+            if name == "segment_sum":
+                # what folding ct[sender_perm] into K5 saves: K5 on the
+                # pre-gathered rows, and the [E, h] permutation gather alone
+                results[-1]["ms_without_rows"] = cuda_time_ms(
+                    torch, lambda: HS.segment_sum(gathered, *seg[1:]))
+                results[-1]["perm_gather_ms"] = cuda_time_ms(
+                    torch, lambda: seg[0].index_select(0, graph.sender_perm))
+                log(f"[kernels] segment_sum {dtype_name} on the pre-gathered "
+                    f"rows: {results[-1]['ms_without_rows']:.3f} ms; the "
+                    f"permutation gather alone "
+                    f"{results[-1]['perm_gather_ms']:.3f} ms")
+            lib_txt = "" if lib is None else f", library {library_ms:.3f} ms"
             log(f"[kernels] {name} {dtype_name}: {ms:.3f} ms (plain "
-                f"{plain_ms:.3f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
-                f"{results[-1]['bound_by']}, max abs err {err:.3e}")
-        del e, sg, d_proj, x, agg_in, ek, ak, ak2, ep, ap, xk, xp
+                f"{plain_ms:.3f} ms{lib_txt}), bound "
+                f"{max(t_bytes, t_ops):.4f} ms by {results[-1]['bound_by']}, "
+                f"max abs err {err:.3e}")
+        del edge_args, edge_bwd, node_args, node_bwd, seg, gathered, kernels
+        torch.cuda.empty_cache()
     return results
 
 
@@ -286,21 +434,10 @@ def phase_serve(torch, graphs):
     from aero_gnn_tpu_torch import ops
     from aero_gnn_tpu_torch.inference.engine import AeroInference
     from aero_gnn_tpu_torch.inference.metrics import compute_rrmse_percent
-    from aero_gnn_tpu_torch.models.mgn import MGNConfig
     from aero_gnn_tpu_torch.ops.hopper_fused import fused_edge_layer
     from aero_gnn_tpu_torch.ops.hopper_node import fused_node_layer
 
-    cfg = MGNConfig(
-        input_node_dim=6, input_edge_dim=3, output_node_dim=4,
-        processor_size=LAYERS, hidden_dim_processor=HIDDEN,
-        hidden_dim_node_encoder=HIDDEN, hidden_dim_edge_encoder=HIDDEN,
-        hidden_dim_decoder=HIDDEN,
-        num_hidden_layers_node_processor=N_HIDDEN,
-        num_hidden_layers_edge_processor=N_HIDDEN,
-        num_hidden_layers_node_encoder=N_HIDDEN,
-        num_hidden_layers_edge_encoder=N_HIDDEN,
-        num_hidden_layers_decoder=N_HIDDEN,
-        aggregation="add", do_concat_trick=True)
+    cfg = flagship_config()
     dev = graphs[0][1].device
     params = cfg.init(torch.Generator().manual_seed(0), device=dev)
     stats = {"target_mean": np.zeros(4, np.float32),
@@ -367,42 +504,172 @@ def phase_serve(torch, graphs):
     log(f"[serve] bf16 request 0 vs fp32 plain path: max abs err "
         f"{bf.max():.3e}, mean {bf.mean():.3e} (information)")
     for dtype in ("bfloat16", "float32"):
-        phase_profile(torch, AeroInference(
-            dataclasses.replace(cfg, compute_dtype=dtype), params, stats,
-            device=dev), graphs[0][1], dtype)
+        eng = AeroInference(dataclasses.replace(cfg, compute_dtype=dtype),
+                            params, stats, device=dev)
+        phase_profile(torch, f"{dtype} forward",
+                      lambda: eng.predict(graphs[0][1]))
     return launches
 
 
-def phase_profile(torch, eng, graph, dtype: str, top: int = 8):
-    """Where one warm forward's device time goes (torch.profiler)."""
+def phase_profile(torch, label: str, fn, top: int = 8) -> dict:
+    """Where one warm call of ``fn`` spends device time (torch.profiler);
+    returns {"busy_ms", "wall_ms", "kernels": [(ms, count, name), ...]}."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.predict(graph)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.predict(graph)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
-    rows = []  # device-side kernel events only: ops would count them twice
+    # device-side kernel events only: ops, and annotated regions such as
+    # Optimizer.step, would count their kernels twice
+    rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type == DeviceType.CUDA and us > 0:
+        if (ev.device_type == DeviceType.CUDA and us > 0
+                and not getattr(ev, "is_user_annotation", False)):
             rows.append((us / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if not busy:
-        log(f"[profile] {dtype}: the profiler saw no device time "
+        log(f"[profile] {label}: the profiler saw no device time "
             "(not measured)")
-        return
-    log(f"[profile] {dtype} forward: device busy {busy:.2f} ms of "
+        return {"busy_ms": None, "wall_ms": wall_ms, "kernels": []}
+    log(f"[profile] {label}: device busy {busy:.2f} ms of "
         f"{wall_ms:.2f} ms wall (idle share {1 - busy / wall_ms:.1%})")
-    for ms, count, key in sorted(rows, reverse=True)[:top]:
+    rows.sort(reverse=True)
+    for ms, count, key in rows[:top]:
         log(f"[profile]   {ms:8.3f} ms {ms / busy:6.1%} x{count:<4d} "
             f"{key[:90]}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "kernels": rows[:top]}
+
+
+def flagship_config(**kw):
+    """The flagship MeshGraphNet (bench.py:206-219): 15 layers, width 128,
+    2 hidden layers per MLP, concat trick, add aggregation; remat off, as
+    bench.py chooses at 65,536 nodes."""
+    from aero_gnn_tpu_torch.models.mgn import MGNConfig
+
+    return MGNConfig(
+        input_node_dim=6, input_edge_dim=3, output_node_dim=4,
+        processor_size=LAYERS, hidden_dim_processor=HIDDEN,
+        hidden_dim_node_encoder=HIDDEN, hidden_dim_edge_encoder=HIDDEN,
+        hidden_dim_decoder=HIDDEN,
+        num_hidden_layers_node_processor=N_HIDDEN,
+        num_hidden_layers_edge_processor=N_HIDDEN,
+        num_hidden_layers_node_encoder=N_HIDDEN,
+        num_hidden_layers_edge_encoder=N_HIDDEN,
+        num_hidden_layers_decoder=N_HIDDEN,
+        aggregation="add", do_concat_trick=True, remat=False, **kw)
+
+
+def train_counters():
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    return {"fused_edge_fwd": HF.fused_edge_layer,
+            "fused_edge_bwd": HF.fused_edge_layer_bwd,
+            "fused_node_fwd": HN.fused_node_layer,
+            "fused_node_bwd": HN.fused_node_layer_bwd,
+            "segment_sum": HS.segment_sum}
+
+
+def check_train_grads(torch, cfg, params, graph):
+    """One fp32 step's parameter gradients on the kernels against the plain
+    path (use_backend("torch")) on the card, TRAIN_GRAD_TOL per parameter.
+    Comparison launches: not counted on the main path."""
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.training.loop import masked_mse
+
+    counters = train_counters()
+    grads = {}
+    for backend in ("cuda", "torch"):
+        before = {k: f.launches for k, f in counters.items()}
+        params.zero_grad(set_to_none=True)
+        with ops.use_backend(backend):
+            loss = masked_mse(cfg.apply(params, graph), graph.y,
+                              graph.node_mask)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads[backend] = {n: p.grad.clone()
+                          for n, p in params.named_parameters()}
+        if backend == "torch" and any(
+                f.launches != before[k] for k, f in counters.items()):
+            raise AssertionError("the plain path launched a kernel")
+    params.zero_grad(set_to_none=True)
+    worst = 0.0
+    for n, p in grads["torch"].items():
+        err = check_grad(torch, f"train fp32 grad {n}", grads["cuda"][n], p,
+                         TRAIN_GRAD_TOL)
+        worst = max(worst, err / max(float(p.abs().max()), 1e-30))
+    log(f"[train] fp32 step gradients vs plain path: {len(grads['torch'])} "
+        f"parameters within {TRAIN_GRAD_TOL[0]} max|p| + "
+        f"{TRAIN_GRAD_TOL[1]} |p|; worst max abs err {worst:.3e} of max|p|")
+    return worst
+
+
+def phase_train(torch, sample, graph):
+    """Train the flagship model on one mesh through make_step_fns; returns
+    {dtype: {kernel: launches}} and the step record."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    counters = train_counters()
+    launches, record = {}, {}
+    for dtype, n_steps in TRAIN_STEPS.items():
+        cfg = flagship_config(compute_dtype=dtype)
+        params = cfg.init(torch.Generator().manual_seed(0),
+                          device=graph.device)
+        fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                               device=graph.device)
+        worst = (check_train_grads(torch, cfg, params, graph)
+                 if dtype == "float32" else None)
+        for f in counters.values():
+            f.launches = 0
+        losses, times = [], []
+        for step in range(n_steps):
+            before = {k: f.launches for k, f in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fns.train_step(params, graph)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            per_step = {k: f.launches - before[k]
+                        for k, f in counters.items()}
+            if any(v != LAYERS for v in per_step.values()):
+                raise AssertionError(
+                    f"train step {step} {dtype}: launches {per_step}, "
+                    f"expected {LAYERS} of each kernel")
+        launches[dtype] = {k: f.launches for k, f in counters.items()}
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {dtype}: non-finite loss {losses}")
+        if dtype == "bfloat16" and not losses[-1] < losses[0]:
+            raise AssertionError(f"train bf16: the loss did not fall over "
+                                 f"{n_steps} steps: {losses}")
+        ms = statistics.median(times[1:]) * 1e3
+        record[dtype] = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+                         "median_ms": ms,
+                         "edges_per_s": sample.num_edges / ms * 1e3,
+                         "grad_worst_rel_err": worst}
+        log(f"[train] {dtype}: {n_steps} steps, first {times[0] * 1e3:.1f} "
+            f"ms, then {ms:.2f} ms per step (median of {n_steps - 1}), "
+            f"{sample.num_edges / ms * 1e3:.4g} edges/s; loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches per step "
+            f"{LAYERS} of each kernel ({launches[dtype]})")
+        if dtype == "bfloat16":
+            record["profile_bf16"] = phase_profile(
+                torch, "bf16 train step", lambda: fns.train_step(params, graph),
+                top=12)
+        del params, fns
+        torch.cuda.empty_cache()
+    return launches, record
 
 
 def main() -> int:
@@ -429,11 +696,19 @@ def main() -> int:
     kernels = phase_kernels(torch, graphs[0][1])
     phase_shapes(torch, flagship_graph(3, dev, n_nodes=4096)[1])
     launches = phase_serve(torch, graphs)
+    train_launches, train_record = phase_train(torch, *graphs[0])
     for k in kernels:
-        dtype = k["name"].split("[")[1].rstrip("]")
-        k1, k3, n_fwd = launches[dtype]
-        k["launches"] = k1 if k["name"].startswith("fused_edge") else k3
-        k["launches_per_forward"] = k["launches"] / n_fwd
+        base, dtype = k["name"].rstrip("]").split("[")
+        trained = train_launches[dtype][base]
+        if base in ("fused_edge_fwd", "fused_node_fwd"):
+            # serving is this kernel's main path (PR 1); training runs it too
+            k1, k3, n_fwd = launches[dtype]
+            k["launches"] = k1 if base == "fused_edge_fwd" else k3
+            k["launches_per_forward"] = k["launches"] / n_fwd
+        else:
+            k["launches"] = trained
+        k["launches_train"] = trained
+        k["launches_per_train_step"] = trained / TRAIN_STEPS[dtype]
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on the main path")
     if args.record:
@@ -442,6 +717,8 @@ def main() -> int:
         with open(args.record, "w") as f:
             json.dump({"nvidia_smi": smi, "build_s": build_s,
                        "kernels": kernels, "launches": launches,
+                       "train": train_record,
+                       "train_launches": train_launches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")

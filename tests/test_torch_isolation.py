@@ -84,3 +84,26 @@ def test_entry_points_need_explicit_cpu(monkeypatch):
     eng = AeroInference(cfg, params, {"target_mean": 0.0, "target_std": 1.0},
                         device="cpu")
     assert eng.predict_single(gb)[0].shape == (n, 1)
+
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.data.dataset import MeshSample
+    from aero_gnn_tpu_torch.training import loop
+
+    opt = loop.make_optimizer(params, 1e-3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.make_step_fns(cfg, opt)
+    fns = loop.make_step_fns(cfg, opt, device="cpu")
+    assert np.isfinite(float(fns.train_step(params, gb)))
+    sample = MeshSample(pos=g["pos"], normals=g["pos"], senders=s,
+                        receivers=(s + 1) % n, y=np.zeros((n, 1), np.float32),
+                        meta={}, x=g["x"], edge_attr=g["edge_attr"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Loader([sample], 1)
+    loader = Loader([sample], 1, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.fit(model_cfg=cfg, params=params, train_loader=loader,
+                 val_loader=loader, training_config={"epochs": 1})
+    res = loop.fit(model_cfg=cfg, params=params, train_loader=loader,
+                   val_loader=loader, training_config={"epochs": 1},
+                   log_fn=lambda _: None, device="cpu")
+    assert res.epochs_run == 1

@@ -54,7 +54,7 @@ def _run(cfg_kw, jax_backend, port_backend):
     params = params_from_jax(jax.tree.map(np.asarray, tree), tcfg,
                              device="cpu")
     with tops.use_backend(port_backend):
-        out = tcfg.apply(params, tb).numpy()[:n]
+        out = tcfg.apply(params, tb).detach().numpy()[:n]
     return out, ref
 
 
@@ -91,8 +91,8 @@ def test_mgn_unaligned_graph_and_layer_count_check():
     ref = np.asarray(jcfg.apply(tree, jb))[:n]
     params = params_from_jax(jax.tree.map(np.asarray, tree), tcfg,
                              device="cpu")
-    np.testing.assert_allclose(tcfg.apply(params, tb).numpy()[:n], ref,
-                               rtol=RTOL, atol=ATOL)
+    out = tcfg.apply(params, tb).detach().numpy()[:n]
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
     bad = dataclasses.replace(tcfg, processor_size=2)
     with pytest.raises(ValueError, match="processor layers"):
         params_from_jax(jax.tree.map(np.asarray, tree), bad, device="cpu")
@@ -105,18 +105,32 @@ def test_aggregate_edges_rejects_unknown_mode():
                              aggregation="max")
 
 
-def test_aligned_stream_on_card_refuses_unported_kernels():
+def test_aligned_stream_on_card_refuses_unported_kernels(monkeypatch):
     """On the cuda backend an aligned stream on the card must not fall back
-    to the plain ops: K5 (aggregation) and K6 (receiver gather) are not
-    ported yet. The plain ops serve CPU tensors and the torch backend."""
+    to the plain ops: K6 (receiver gather) is not ported yet and refuses.
+    K5 (aggregation) is ported: aggregate_edges on an aligned stream goes to
+    ops.hopper_segment.segment_sum (its plain version on CPU tensors)
+    without a refusal. The plain ops serve CPU tensors and the torch
+    backend."""
     from types import SimpleNamespace
 
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
     on_card = SimpleNamespace(is_cuda=True)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tops.refuse_unported_kernel("aggregate_edges", "K5", on_card)
     with pytest.raises(NotImplementedError, match="K6"):
         tops.refuse_unported_kernel("gather_receivers", "K6", on_card)
     with tops.use_backend("torch"):
-        tops.refuse_unported_kernel("aggregate_edges", "K5", on_card)
-    tops.refuse_unported_kernel("aggregate_edges", "K5",
+        tops.refuse_unported_kernel("gather_receivers", "K6", on_card)
+    tops.refuse_unported_kernel("gather_receivers", "K6",
                                 SimpleNamespace(is_cuda=False))
+    refused, k5 = [], []
+    monkeypatch.setattr(tops, "refuse_unported_kernel",
+                        lambda *a: refused.append(a))
+    plain_k5 = HS.segment_sum
+    monkeypatch.setattr(HS, "segment_sum",
+                        lambda *a, **k: k5.append(a) or plain_k5(*a, **k))
+    out = tops.aggregate_edges(
+        torch.ones(4, 2), torch.tensor([0, 0, 1, 2], dtype=torch.int32), 3,
+        aggregation="mean", edge_mask=torch.ones(4), aligned=True)
+    assert not refused and len(k5) == 2  # the sum and the degree
+    assert torch.equal(out, torch.ones(3, 2))
