@@ -278,11 +278,72 @@ __device__ inline int first_tile(const int* __restrict__ recv, int n_tiles,
   return lo;
 }
 
+// Pad tiles. In the aligned layout (graph/padded.py _align_edge_blocks) a
+// node block's real rows come first and its alignment rows (masked) last,
+// so a tile whose first row is masked holds pad rows only: the alignment
+// tile of a block without an edge, and the tiles of the pad-sink tail the
+// Loader's edge budget leaves after the stream (all keyed by the last pad
+// node, so all in the last block). A block's tiles with a real first row
+// therefore come before its pad tiles. The edge kernels walk only the
+// former, so no CTA walks the tail, and fill_pad_tiles writes the rows of
+// the latter across the whole grid.
+
+// First pad tile in a block's tiles [lo, hi), by binary search.
+template <typename T>
+__device__ inline int first_pad_tile(const T* __restrict__ mask, int lo,
+                                     int hi, int edge_tile) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (Num<T>::load1(mask + int64_t(mid) * edge_tile) != 0.f)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Every pad tile's rows of dst0 = those of src0 and of dst1 = those of
+// src1 (zeros where a source is null; dst1 may be null): one CTA per tile,
+// grid-stride, 16 bytes per thread and store.
+template <typename T>
+__global__ void __launch_bounds__(256)
+fill_pad_tiles(const T* __restrict__ mask, int n_tiles, int edge_tile,
+               int h, T* __restrict__ dst0, const T* __restrict__ src0,
+               T* __restrict__ dst1, const T* __restrict__ src1) {
+  const int64_t vecs = int64_t(edge_tile) * h * sizeof(T) / 16;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    if (Num<T>::load1(mask + int64_t(tile) * edge_tile) != 0.f) continue;
+    const int64_t off = int64_t(tile) * edge_tile * h;
+    uint4* d0 = reinterpret_cast<uint4*>(dst0 + off);
+    uint4* d1 = dst1 ? reinterpret_cast<uint4*>(dst1 + off) : nullptr;
+    const uint4* s0 = src0 ? reinterpret_cast<const uint4*>(src0 + off)
+                           : nullptr;
+    const uint4* s1 = src1 ? reinterpret_cast<const uint4*>(src1 + off)
+                           : nullptr;
+    for (int64_t i = threadIdx.x; i < vecs; i += blockDim.x) {
+      d0[i] = s0 ? s0[i] : zero4;
+      if (d1) d1[i] = s1 ? s1[i] : zero4;
+    }
+  }
+}
+
 __host__ inline int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+template <typename T>
+__host__ inline cudaError_t launch_fill_pad_tiles(
+    const T* mask, int n_tiles, int edge_tile, int h, T* dst0, const T* src0,
+    T* dst1, const T* src1, cudaStream_t stream) {
+  const int grid = n_tiles < 4 * sm_count() ? n_tiles : 4 * sm_count();
+  if (grid == 0) return cudaSuccess;
+  fill_pad_tiles<T><<<grid, 256, 0, stream>>>(mask, n_tiles, edge_tile, h,
+                                              dst0, src0, dst1, src1);
+  return cudaGetLastError();
 }
 
 }  // namespace chain

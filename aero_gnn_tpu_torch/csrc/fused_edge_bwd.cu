@@ -33,7 +33,10 @@
 // stage (8 stages a chunk at two hidden layers), each a 16-byte copy of an
 // operand the wrapper laid out for that product. Weight gradients go to
 // per-CTA fp32 partials and a second kernel sums them in CTA order: the
-// result is the same bits on every launch.
+// result is the same bits on every launch. Pad tiles are skipped as in K1
+// (chain.cuh): fill_pad_tiles gives their d_e rows ct_e and their d_sg rows
+// 0, which is the VJP wherever the cotangent of pad rows is zero, as it is
+// on the training path.
 //
 // Bound on the H100 (flagship E = 264,192, N = 66,048, h = 128, 2 hidden):
 // 3 x 4 products of 2*E*h^2 = 104 GFLOP per launch; bytes: read e, sg,
@@ -103,8 +106,10 @@ fused_edge_bwd_kernel(const T* __restrict__ e, const T* __restrict__ sg,
 
   for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
     if (tid == 0) {
-      range_s[0] = first_tile(recv, n_tiles, edge_tile, node_block, b);
-      range_s[1] = first_tile(recv, n_tiles, edge_tile, node_block, b + 1);
+      const int lo = first_tile(recv, n_tiles, edge_tile, node_block, b);
+      const int hi = first_tile(recv, n_tiles, edge_tile, node_block, b + 1);
+      range_s[0] = lo;
+      range_s[1] = first_pad_tile(mask, lo, hi, edge_tile);
     }
     __syncthreads();
     const int64_t row_lo = int64_t(range_s[0]) * edge_tile;
@@ -313,6 +318,11 @@ cudaError_t launch(const void* e, const void* sg, const void* d_proj,
       part, scratch, int(n_edges / edge_tile), int(n_nodes), n_hidden,
       node_block, edge_tile, p.n_smem, p.part_len);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_fill_pad_tiles<T>(
+      static_cast<const T*>(mask), int(n_edges / edge_tile), edge_tile, H,
+      static_cast<T*>(d_e), static_cast<const T*>(ct_e), static_cast<T*>(d_sg),
+      nullptr, stream);
   if (err != cudaSuccess) return err;
   return launch_reduce(part, p.grid, p.part_len, static_cast<float*>(dw),
                        stream);

@@ -24,7 +24,11 @@
 // column per thread, carrying the open receiver's partial sum to the next
 // chunk. Every agg row of the block is written by that CTA alone (empty
 // nodes, including the pad node, get exact zeros), so there are no atomics
-// and the result is deterministic: the same inputs give the same bits.
+// and the result is deterministic: the same inputs give the same bits. A
+// CTA walks only its block's tiles before the first pad tile (chain.cuh):
+// pad tiles (an empty block's alignment tile, the pad-sink tail) add
+// nothing to agg, and fill_pad_tiles, a second grid-stride kernel, gives
+// their e' rows e (a zero update; pad rows of e' are never observed).
 //
 // Bound on the H100 (flagship E = 264,192, N = 66,048, h = 128, 2 hidden):
 // 4 products of 2*E*h^2 = 34.6 GFLOP per launch. In bf16 the bytes moved
@@ -88,8 +92,10 @@ fused_edge_fwd_kernel(const T* __restrict__ e, const T* __restrict__ sg,
 
   for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
     if (tid == 0) {
-      range_s[0] = first_tile(recv, n_tiles, edge_tile, node_block, b);
-      range_s[1] = first_tile(recv, n_tiles, edge_tile, node_block, b + 1);
+      const int lo = first_tile(recv, n_tiles, edge_tile, node_block, b);
+      const int hi = first_tile(recv, n_tiles, edge_tile, node_block, b + 1);
+      range_s[0] = lo;
+      range_s[1] = first_pad_tile(mask, lo, hi, edge_tile);
     }
     __syncthreads();
     const int64_t row_lo = int64_t(range_s[0]) * edge_tile;
@@ -222,7 +228,12 @@ cudaError_t launch(const void* e, const void* sg, const void* d_proj,
       static_cast<const T*>(ln_bias), static_cast<T*>(e_out),
       static_cast<T*>(agg), int(n_edges / edge_tile), int(n_nodes), n_hidden,
       node_block, edge_tile, resident);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_fill_pad_tiles<T>(
+      static_cast<const T*>(mask), int(n_edges / edge_tile), edge_tile, H,
+      static_cast<T*>(e_out), static_cast<const T*>(e), nullptr, nullptr,
+      stream);
 }
 
 }  // namespace

@@ -10,19 +10,8 @@
 // (i). On the training path it runs the sender gather's backward: data is
 // the cotangent of the gathered rows, rows = sender_perm, ids =
 // senders_sorted, so the permutation gather ct[sender_perm] is read here
-// instead of being written out as an [E, h] copy first.
-//
-// Schedule: one CTA per block of 32 nodes. Thread 0 finds the block's row
-// range by binary search on the sorted ids, so nothing depends on the
-// stream being tile-aligned (the sender stream of a graph without a masked
-// edge row is not). The range's ids, rows and mask are staged in shared
-// memory 256 at a time; each thread owns one column and walks the range in
-// order, issuing the data loads of 8 rows before it adds them, a segmented
-// row sum carried in fp32 and rounded once per output row. Every output
-// row of the block, empty nodes included (exact zeros), is written by that
-// CTA alone: no atomics, the same inputs give the same bits. The TPU
-// kernel accumulates across tiles in the output dtype; this one
-// accumulates in fp32 (a known difference by design).
+// instead of being written out as an [E, h] copy first. Schedule in
+// segment_sum.cuh.
 //
 // Bound on the H100 (flagship sender stream, E_s ~ 270k rows, h = 128):
 // bytes (read data, ids, rows; write out: ~86 MB in bf16, ~26 us at
@@ -30,132 +19,14 @@
 // 4-byte load per thread and row (8 in flight), so load latency, not the
 // bytes, bounds it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "segment_sum.cuh"
 
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kNodes = 32;   // nodes per CTA
-constexpr int kTile = 256;   // ids / rows / mask staged in shared memory
-constexpr int kUnroll = 8;   // data loads in flight per thread
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ int64_t lower_bound(const int* __restrict__ ids, int64_t n,
-                               int key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (ids[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const T* __restrict__ data, const int* __restrict__ ids,
-                   const T* __restrict__ mask, const int* __restrict__ rows,
-                   T* __restrict__ out, int64_t n_ids, int n_nodes, int h) {
-  __shared__ int64_t range_s[2];
-  __shared__ int ids_s[kTile], src_s[kTile];
-  __shared__ float mask_s[kTile];
-  const int node_lo = blockIdx.x * kNodes;
-  const int node_hi = min(node_lo + kNodes, n_nodes);
-  if (threadIdx.x == 0) {
-    range_s[0] = lower_bound(ids, n_ids, node_lo);
-    range_s[1] = lower_bound(ids, n_ids, node_hi);
-  }
-  __syncthreads();
-  const int64_t lo = range_s[0], hi = range_s[1];
-
-  for (int c0 = 0; c0 < h; c0 += kThreads) {
-    const int c = c0 + threadIdx.x;
-    int open = -1;        // node whose sum is being carried
-    int next = node_lo;   // first output row not yet written
-    float sum = 0.f;
-    for (int64_t base = lo; base < hi; base += kTile) {
-      const int cnt = int(min(int64_t(kTile), hi - base));
-      __syncthreads();  // the previous tile has been read
-      for (int i = threadIdx.x; i < cnt; i += kThreads) {
-        ids_s[i] = ids[base + i];
-        src_s[i] = rows ? rows[base + i] : int(base + i);
-        mask_s[i] = mask ? to_f(mask[base + i]) : 1.f;
-      }
-      __syncthreads();
-      if (c >= h) continue;
-      for (int i0 = 0; i0 < cnt; i0 += kUnroll) {
-        float v[kUnroll];  // independent loads, issued before the sums
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int i = min(i0 + u, cnt - 1);
-          v[u] = to_f(data[int64_t(src_s[i]) * h + c]) * mask_s[i];
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (i0 + u >= cnt) break;
-          const int n = ids_s[i0 + u];
-          if (n != open) {
-            if (open >= 0) {
-              put(out + int64_t(open) * h + c, sum);
-              next = open + 1;
-            }
-            for (; next < n; ++next) put(out + int64_t(next) * h + c, 0.f);
-            open = n;
-            sum = 0.f;
-          }
-          sum += v[u];
-        }
-      }
-    }
-    if (c < h) {
-      if (open >= 0) {
-        put(out + int64_t(open) * h + c, sum);
-        next = open + 1;
-      }
-      for (; next < node_hi; ++next) put(out + int64_t(next) * h + c, 0.f);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* data, const int* ids, const void* mask,
-                   const int* rows, void* out, int64_t n_ids, int64_t n_nodes,
-                   int h, cudaStream_t stream) {
-  const int64_t grid = (n_nodes + kNodes - 1) / kNodes;
-  if (grid == 0 || h == 0) return cudaSuccess;
-  segment_sum_kernel<T><<<unsigned(grid), kThreads, 0, stream>>>(
-      static_cast<const T*>(data), ids, static_cast<const T*>(mask), rows,
-      static_cast<T*>(out), n_ids, int(n_nodes), h);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16; mask and rows may be null. Returns a
-// cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; mask and rows may be null; pad_sink
+// (0/1) as in segment_sum.cuh. Returns a cudaError_t (0 = success).
 extern "C" int aero_segment_sum(const void* data, const void* ids,
                                 const void* mask, const void* rows, void* out,
                                 int64_t n_ids, int64_t n_nodes, int h,
-                                int dtype, void* stream) {
-  const int* id = static_cast<const int*>(ids);
-  const int* rw = static_cast<const int*>(rows);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return int(launch<float>(data, id, mask, rw, out, n_ids, n_nodes, h, s));
-  if (dtype == 1)
-    return int(launch<__nv_bfloat16>(data, id, mask, rw, out, n_ids, n_nodes,
-                                     h, s));
-  return int(cudaErrorInvalidValue);
+                                int pad_sink, int dtype, void* stream) {
+  return launch_dtype<false>(data, ids, mask, rows, nullptr, out, n_ids,
+                             n_nodes, h, pad_sink, dtype, stream);
 }

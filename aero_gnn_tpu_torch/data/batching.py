@@ -1,20 +1,25 @@
 """Batching: MeshSample lists -> fixed-shape GraphBatch streams (the port's
-own copy of aero_gnn_tpu.data.batching, without the BSMS hierarchies).
+own copy of aero_gnn_tpu.data.batching).
 
 Every batch of one loader shares one padded shape. Samples are joined by
 ``graph.padded.batch_graphs`` and the batches land on the loader's device
-(CUDA unless ``"cpu"``).
+(CUDA unless ``"cpu"``). For BSMS models (``num_scales > 1``) each
+sample's hierarchy is built once and cached, then collated per batch with
+coarse-id offsets (``graph.hierarchy.collate_hierarchies``) and, with the
+aligned layout, block-aligned at every level (``align_hierarchy``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from aero_gnn_tpu_torch.data.dataset import MeshSample
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
+from aero_gnn_tpu_torch.graph import hierarchy as H
 from aero_gnn_tpu_torch.graph.padded import (
     ALIGN_EDGE_TILE,
     ALIGN_NODE_BLOCK,
@@ -41,14 +46,20 @@ class PadSpec:
     num_nodes_pad: int
     num_edges_pad: int
     num_graphs_pad: int
+    hierarchy_pad_plan: Optional[List[Tuple[int, int]]] = None
+    # fixed aligned coarse-edge counts per level (align_edges loaders), so
+    # every batch has one shape
+    hierarchy_aligned_edges: Optional[List[int]] = None
 
 
 def compute_pad_spec(samples: List[MeshSample], batch_size: int, *,
+                     hierarchy_levels: Optional[List[List[dict]]] = None,
                      align_edges: bool = False) -> PadSpec:
     """One shared padded shape for every batch of up to ``batch_size``
     samples: bucket the worst-case sum of the largest graphs. With
     ``align_edges`` the edge budget covers the worst-case block-alignment
-    overhead (up to one tile per node block)."""
+    overhead (up to one tile per node block); with hierarchies, a pad plan
+    per level and (aligned) a coarse edge budget per level."""
     ns = sorted((s.num_nodes for s in samples), reverse=True)
     es = sorted((s.num_edges for s in samples), reverse=True)
     worst_n = sum(ns[:batch_size])
@@ -61,28 +72,63 @@ def compute_pad_spec(samples: List[MeshSample], batch_size: int, *,
     else:
         nodes_pad = bucket_size(worst_n + 1)
         edges_pad = bucket_size(worst_e)
-    return PadSpec(num_nodes_pad=nodes_pad, num_edges_pad=edges_pad,
+    spec = PadSpec(num_nodes_pad=nodes_pad, num_edges_pad=edges_pad,
                    num_graphs_pad=batch_size + 1)
+    if hierarchy_levels is not None:
+        plan, aligned_plan = [], []
+        for s_idx in range(len(hierarchy_levels[0])):
+            cns = sorted((lv[s_idx]["num_nodes"] for lv in hierarchy_levels),
+                         reverse=True)
+            ces = sorted((lv[s_idx]["num_edges"] for lv in hierarchy_levels),
+                         reverse=True)
+            nc_pad = bucket_size(sum(cns[:batch_size]) + 1)
+            ec_pad = bucket_size(sum(ces[:batch_size]))
+            plan.append((nc_pad, ec_pad))
+            if align_edges:
+                nc2 = max(_round_up(nc_pad, ALIGN_NODE_BLOCK),
+                          ALIGN_NODE_BLOCK)
+                n_blocks = nc2 // ALIGN_NODE_BLOCK
+                worst_ce = sum(ces[:batch_size])
+                # naive worst case: one extra tile per coarse node block
+                naive = _round_up(
+                    worst_ce + n_blocks * ALIGN_EDGE_TILE, ALIGN_EDGE_TILE)
+                # align_hierarchy balances per-block degree sums (greedy
+                # min-load: max block load <= ceil(E/B) + max item weight)
+                dmax = 0
+                for lv in hierarchy_levels:
+                    lvl = lv[s_idx]
+                    if lvl["num_nodes"]:
+                        deg = (np.bincount(lvl["receivers"],
+                                           minlength=lvl["num_nodes"])
+                               + np.bincount(lvl["senders"],
+                                             minlength=lvl["num_nodes"]))
+                        dmax = max(dmax, int(deg.max()))
+                per_block = -(-worst_ce // n_blocks) + dmax
+                balanced = (n_blocks * (-(-per_block // ALIGN_EDGE_TILE))
+                            + 1) * ALIGN_EDGE_TILE
+                aligned_plan.append(min(naive, balanced))
+        spec.hierarchy_pad_plan = plan
+        spec.hierarchy_aligned_edges = aligned_plan if align_edges else None
+    return spec
 
 
 class Loader:
     """Shuffling mini-batch loader with one padded shape. Yields
-    (GraphBatch, aux) with aux["samples"] the batch's samples in order.
-    ``align_edges=None`` means the block-aligned layout on the cuda backend
-    (the fused kernels' layout), the plain one on the torch backend."""
+    (GraphBatch, aux) with aux["samples"] the batch's samples in order and,
+    with ``num_scales > 1``, aux["hierarchy"] a tuple of HierarchyLevel on
+    the loader's device. ``align_edges=None`` means the block-aligned
+    layout on the cuda backend (the fused kernels' layout), the plain one
+    on the torch backend."""
 
     def __init__(self, samples: List[MeshSample], batch_size: int, *,
                  shuffle: bool = False, seed: int = 0,
                  num_scales: Optional[int] = None,
+                 hierarchy_mode: str = "stride", stride: int = 2,
                  pad_spec: Optional[PadSpec] = None,
                  align_edges: Optional[bool] = None,
                  drop_remainder: bool = False, device: DeviceLike = None):
         if not samples:
             raise ValueError("Loader needs at least one sample")
-        if num_scales is not None and num_scales > 1:
-            raise NotImplementedError(
-                "multi-scale (BSMS) hierarchies are not ported yet: they "
-                "belong to the BSMS slice (ROADMAP queue 1 item 7)")
         self.device = resolve_device(device)
         self.samples = samples
         self.batch_size = batch_size
@@ -95,8 +141,19 @@ class Loader:
 
             align_edges = ops.backend() == "cuda"
         self.align_edges = align_edges
+        self._hier: Optional[List[List[dict]]] = None
+        if num_scales is not None and num_scales > 1:
+            self._hier = [
+                H.build_hierarchy_real(
+                    senders=s.senders, receivers=s.receivers,
+                    node_graph=np.zeros(s.num_nodes, np.int64),
+                    num_nodes=s.num_nodes, pos=s.pos.astype(np.float64),
+                    num_scales=num_scales, mode=hierarchy_mode,
+                    stride=stride)
+                for s in samples]
         self.pad_spec = pad_spec or compute_pad_spec(
-            samples, batch_size, align_edges=align_edges)
+            samples, batch_size, hierarchy_levels=self._hier,
+            align_edges=align_edges)
 
     def __len__(self) -> int:
         n = len(self.samples)
@@ -112,12 +169,39 @@ class Loader:
         self._epoch += 1
         bs = self.batch_size
         for b in range(len(self)):
-            batch_samples = [self.samples[i] for i in order[b * bs:
-                                                            (b + 1) * bs]]
-            gb = batch_graphs(
+            idx = order[b * bs:(b + 1) * bs]
+            batch_samples = [self.samples[i] for i in idx]
+            gb, amap = batch_graphs(
                 [sample_to_dict(s) for s in batch_samples],
                 num_nodes_pad=self.pad_spec.num_nodes_pad,
                 num_edges_pad=self.pad_spec.num_edges_pad,
                 num_graphs_pad=self.pad_spec.num_graphs_pad,
-                align_edges=self.align_edges, device=self.device)
-            yield gb, {"samples": batch_samples}
+                align_edges=self.align_edges, return_align_map=True,
+                device=self.device)
+            aux: dict = {"samples": batch_samples}
+            if self._hier is not None:
+                aux["hierarchy"] = tuple(self._levels(idx, amap))
+            yield gb, aux
+
+    def _levels(self, idx, amap) -> List[H.HierarchyLevel]:
+        """The batch's hierarchy: collated, then (aligned layout) aligned at
+        every level; a batch beyond the PadSpec's balanced coarse-edge
+        budget is realigned with per-batch sizes, with a warning."""
+        spec = self.pad_spec
+        aligned = amap is not None
+        levels = H.collate_hierarchies(
+            [self._hier[i] for i in idx],
+            num_fine_nodes_pad=spec.num_nodes_pad,
+            num_fine_edges_pad=spec.num_edges_pad,
+            pad_plan=spec.hierarchy_pad_plan,
+            device="cpu" if aligned else self.device)
+        if not aligned:
+            return levels
+        try:
+            return H.align_hierarchy(
+                levels, amap, edge_pad_targets=spec.hierarchy_aligned_edges,
+                device=self.device)
+        except ValueError:
+            warnings.warn("hierarchy aligned-edge budget exceeded; "
+                          "realigning this batch with per-batch sizes")
+            return H.align_hierarchy(levels, amap, device=self.device)

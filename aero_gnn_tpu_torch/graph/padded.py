@@ -14,7 +14,14 @@ Conventions the kernels and models rely on:
     ``senders[sender_perm]``), the stream of the sender gather's backward
     (a sorted segment sum, ``ops.scatter.gather_senders``). With
     ``align_edges`` it is block-aligned too when the graph has a masked
-    edge row for its pad slots to point at (``senders_aligned``).
+    edge row for its pad slots to point at (``senders_aligned``);
+  * every row of either stream keyed by the pad sink (``num_nodes_pad - 1``)
+    is a pad row, and those rows form the stream's tail; in the aligned
+    layout a node block's alignment rows follow its real rows, so a tile
+    whose first row is masked holds pad rows only. The kernels skip such
+    tiles and the sink's rows (``ops.hopper_fused``,
+    ``ops.hopper_segment``), so a padded batch's tail does not all land on
+    the last node block's CTA.
 
 Host-side construction is numpy; the result is a dataclass of tensors on
 the requested device.
@@ -119,11 +126,18 @@ def build_graph_batch(
     node_graph: Optional[np.ndarray] = None,
     align_edges: bool = False,
     dtype: np.dtype = np.float32,
+    return_align_map: bool = False,
     device: DeviceLike = None,
-) -> GraphBatch:
+):
     """Sort edges by receiver, pad nodes/edges, route pad edges to the last
     pad node and (``align_edges``) pad every node block's edges to whole
-    tiles. The tensors land on ``device`` (CUDA unless ``"cpu"``)."""
+    tiles. The tensors land on ``device`` (CUDA unless ``"cpu"``).
+
+    ``return_align_map=True`` returns ``(GraphBatch, align_src)``:
+    ``align_src`` (int64 numpy, one entry per edge row) maps each aligned
+    row to its plain receiver-sorted row, -1 for pad slots; None without
+    ``align_edges``. It re-indexes the fine-edge-row artifacts of a BSMS
+    hierarchy (``graph.hierarchy.align_hierarchy``)."""
     dev = resolve_device(device)
     senders = np.asarray(senders, dtype=np.int32)
     receivers = np.asarray(receivers, dtype=np.int32)
@@ -178,6 +192,12 @@ def build_graph_batch(
             tf[len(tile_block)] = 1
         tile_block, tile_first = tb, tf
 
+    align_src = None
+    if align_edges:
+        align_src = np.full(ep_pad, -1, dtype=np.int64)
+        valid_rows = np.flatnonzero(edge_valid)
+        align_src[valid_rows] = np.arange(len(valid_rows), dtype=np.int64)
+
     pad_node = np_pad - 1
     n_rows = senders.shape[0]
     s_p = np.full(ep_pad, pad_node, dtype=np.int32)
@@ -213,7 +233,7 @@ def build_graph_batch(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return GraphBatch(
+    gb = GraphBatch(
         senders=t(s_p), receivers=t(r_p),
         sender_perm=t(sender_perm), senders_sorted=t(senders_sorted),
         x=t(pad_rows(x, np_pad)), edge_attr=t(ea_p),
@@ -225,16 +245,18 @@ def build_graph_batch(
         tile_first=None if tile_first is None else t(tile_first),
         senders_aligned=senders_aligned,
     )
+    return (gb, align_src) if return_align_map else gb
 
 
 def batch_graphs(graphs: list, *, num_nodes_pad: Optional[int] = None,
                  num_edges_pad: Optional[int] = None,
                  num_graphs_pad: Optional[int] = None,
                  align_edges: bool = False, dtype: np.dtype = np.float32,
-                 device: DeviceLike = None) -> GraphBatch:
+                 return_align_map: bool = False, device: DeviceLike = None):
     """Disjoint union of host graphs (dicts of numpy arrays: senders,
     receivers, x, edge_attr, pos, y) in one padded GraphBatch, sample i's
-    nodes after those of samples < i and ``node_graph`` = i."""
+    nodes after those of samples < i and ``node_graph`` = i
+    (``return_align_map`` as in build_graph_batch)."""
     offs = np.cumsum([0] + [g["x"].shape[0] for g in graphs[:-1]])
     n_tot = sum(g["x"].shape[0] for g in graphs)
     e_tot = sum(g["senders"].shape[0] for g in graphs)
@@ -254,7 +276,8 @@ def batch_graphs(graphs: list, *, num_nodes_pad: Optional[int] = None,
                         else max(len(graphs) + 1, 2)),
         node_graph=cat([np.full(g["x"].shape[0], i, dtype=np.int32)
                         for i, g in enumerate(graphs)]),
-        align_edges=align_edges, dtype=dtype, device=device)
+        align_edges=align_edges, dtype=dtype,
+        return_align_map=return_align_map, device=device)
 
 
 def _align_sender_stream(sender_perm, senders_sorted, edge_mask,

@@ -2,9 +2,11 @@
 aero_gnn_tpu.inference.engine).
 
 ``AeroInference`` serves one model on one device (CUDA unless the caller
-passes ``device="cpu"``). The parameters are copied to that device in the
-model's compute dtype once, at construction; requests run under
-``torch.inference_mode()``.
+passes ``device="cpu"``). The parameters are copied to that device once, at
+construction, in the model's ``params_dtype`` (the compute dtype; float32
+for BSMS, which computes in float32 as the JAX package's does); requests
+run under ``torch.inference_mode()``. Models that need a graph hierarchy
+(``needs_hierarchy``, BSMS) take it from the Loader's ``aux["hierarchy"]``.
 """
 
 from __future__ import annotations
@@ -17,39 +19,34 @@ import torch
 
 from aero_gnn_tpu_torch.data.dataset import denormalize_predictions
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
-from aero_gnn_tpu_torch.models.mgn import _DTYPES
+from aero_gnn_tpu_torch.models.mgn import apply_model
 
 
 class AeroInference:
     def __init__(self, model_cfg, params, norm_stats: Dict[str, np.ndarray],
                  exp_params: Optional[Dict[str, Any]] = None, *,
                  device: DeviceLike = None, needs_hierarchy: bool = False):
-        if needs_hierarchy:
-            raise NotImplementedError(
-                "models that need a graph hierarchy (BSMS) are not ported yet")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
-        if model_cfg.compute_dtype not in _DTYPES:
-            raise ValueError(
-                f"Unsupported compute_dtype: {model_cfg.compute_dtype}")
         self.params = copy.deepcopy(params).to(
-            device=self.device, dtype=_DTYPES[model_cfg.compute_dtype])
+            device=self.device, dtype=model_cfg.params_dtype)
         self.params.requires_grad_(False)
         self.norm_stats = norm_stats
         self.exp_params = exp_params or {}
+        self.needs_hierarchy = needs_hierarchy
 
-    def predict(self, graph):
+    def predict(self, graph, hierarchy=None):
         """Normalised predictions over the padded graph, on the device."""
-        if graph.device != self.device:
-            graph = graph.to(self.device)
         with torch.inference_mode():
-            return self.model_cfg.apply(self.params, graph)
+            return apply_model(self.model_cfg, self.params, graph, hierarchy,
+                               self.needs_hierarchy, self.device)
 
     def predict_single(self, graph, aux=None, n_nodes: Optional[int] = None):
         """(pred_phys, target_phys, pred_norm, target_norm) as numpy arrays
         over the REAL nodes."""
         n_nodes = graph.n_node if n_nodes is None else n_nodes
-        pred_norm = self.predict(graph)[:n_nodes].cpu().numpy()
+        pred_norm = self.predict(graph, (aux or {}).get("hierarchy"))[
+            :n_nodes].cpu().numpy()
         target_norm = graph.y[:n_nodes].cpu().numpy()
         return (denormalize_predictions(pred_norm, self.norm_stats),
                 denormalize_predictions(target_norm, self.norm_stats),
@@ -59,7 +56,7 @@ class AeroInference:
         """One device pass over a multi-sample batch; per-sample
         (pred_phys, target_phys, pred_norm, target_norm) tuples, the samples
         (``aux["samples"]``) being contiguous row ranges in order."""
-        pred = self.predict(graph).cpu().numpy()
+        pred = self.predict(graph, aux.get("hierarchy")).cpu().numpy()
         target = graph.y.cpu().numpy()
         outs = []
         off = 0

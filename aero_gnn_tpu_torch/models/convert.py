@@ -1,12 +1,14 @@
-"""Carry MGN parameters between the JAX package's tree and the port
-(``params_from_jax``, the inverse of aero_gnn_tpu/utils/torch_import.py, and
-``params_to_jax``).
+"""Carry MGN and BSMS parameters between the JAX package's tree and the
+port (``params_from_jax``, the inverse of aero_gnn_tpu/utils/torch_import.py,
+and ``params_to_jax``).
 
 The JAX tree, as numpy arrays, has the layout of ``MGNConfig.init`` there:
 ``{"node_encoder", "edge_encoder": {"linears": [{"w", "b"}], "ln"},
 "layers": {"edge": ..., "node": ...} with every leaf stacked on a leading
-layer axis, "decoder": MLP tree or a list of them}``. Weights are [in, out]
-in both packages, so each leaf is an exact copy.
+layer axis, "decoder": MLP tree or a list of them}``; ``BSMSConfig.init``'s
+has ``"down": [stacked layers per stage], "bottleneck": stacked layers,
+"up": [stacked layers per stage]`` in place of ``"layers"``. Weights are
+[in, out] in both packages, so each leaf is an exact copy.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
-from aero_gnn_tpu_torch.models.mgn import MeshGraphNet, MGNConfig
+from aero_gnn_tpu_torch.models.bsms import BSMSConfig
+from aero_gnn_tpu_torch.models.mgn import MGNConfig
 from aero_gnn_tpu_torch.nn import blocks as B
 from aero_gnn_tpu_torch.nn import mlp as M
 
@@ -59,32 +62,51 @@ def _layer(tree, i: int):
     return np.asarray(tree)[i]
 
 
-def params_from_jax(tree, cfg: MGNConfig, *,
-                    device: DeviceLike = None) -> MeshGraphNet:
-    """Port parameters equal to a JAX ``cfg.init`` tree, on ``device``."""
+def _load_layer(layer: B.MGNLayer, t, name: str) -> None:
+    if isinstance(layer.edge, B.EdgeBlockSum):
+        p, te = layer.edge, t["edge"]
+        for k in ("w_e", "w_s", "w_d", "b"):
+            _put(getattr(p, k), te[k], f"{name}.edge.{k}")
+        if len(te["stack"]) != len(p.stack):
+            raise ValueError(f"{name}.edge.stack length differs")
+        for j, (lin, tl) in enumerate(zip(p.stack, te["stack"])):
+            _put(lin.w, tl["w"], f"{name}.edge.stack[{j}].w")
+            _put(lin.b, tl["b"], f"{name}.edge.stack[{j}].b")
+        _put_ln(p.ln, te["ln"], f"{name}.edge.ln")
+    else:
+        load_mlp(layer.edge, t["edge"], f"{name}.edge")
+    load_mlp(layer.node, t["node"], f"{name}.node")
+
+
+def _load_stack(layers, tree, name: str) -> None:
+    """Copy a JAX stack (leaves stacked on the leading axis) into a
+    ModuleList of MGNLayers."""
+    n_layers = np.asarray(tree["node"]["linears"][0]["w"]).shape[0]
+    if n_layers != len(layers):
+        raise ValueError(f"{name}: {n_layers} processor layers in JAX, "
+                         f"{len(layers)} in the port")
+    for i, layer in enumerate(layers):
+        _load_layer(layer, _layer(tree, i), f"{name}[{i}]")
+
+
+def params_from_jax(tree, cfg: MGNConfig, *, device: DeviceLike = None):
+    """Port parameters equal to a JAX ``cfg.init`` tree (MGN or BSMS), on
+    ``device``."""
     params = cfg.init(0, device="cpu")
     load_mlp(params.node_encoder, tree["node_encoder"], "node_encoder")
     load_mlp(params.edge_encoder, tree["edge_encoder"], "edge_encoder")
-    n_layers = np.asarray(tree["layers"]["node"]["linears"][0]["w"]).shape[0]
-    if n_layers != len(params.layers):
-        raise ValueError(f"{n_layers} processor layers in JAX, "
-                         f"{len(params.layers)} in the port")
-    for i, layer in enumerate(params.layers):
-        t = _layer(tree["layers"], i)
-        name = f"layers[{i}]"
-        if isinstance(layer.edge, B.EdgeBlockSum):
-            p, te = layer.edge, t["edge"]
-            for k in ("w_e", "w_s", "w_d", "b"):
-                _put(getattr(p, k), te[k], f"{name}.edge.{k}")
-            if len(te["stack"]) != len(p.stack):
-                raise ValueError(f"{name}.edge.stack length differs")
-            for j, (lin, tl) in enumerate(zip(p.stack, te["stack"])):
-                _put(lin.w, tl["w"], f"{name}.edge.stack[{j}].w")
-                _put(lin.b, tl["b"], f"{name}.edge.stack[{j}].b")
-            _put_ln(p.ln, te["ln"], f"{name}.edge.ln")
-        else:
-            load_mlp(layer.edge, t["edge"], f"{name}.edge")
-        load_mlp(layer.node, t["node"], f"{name}.node")
+    if isinstance(cfg, BSMSConfig):
+        for stage in ("down", "up"):
+            if len(tree[stage]) != len(getattr(params, stage)):
+                raise ValueError(f"{stage}: {len(tree[stage])} stages in JAX, "
+                                 f"{len(getattr(params, stage))} in the port")
+            for s, (layers, t) in enumerate(zip(getattr(params, stage),
+                                                tree[stage])):
+                _load_stack(layers, t, f"{stage}[{s}]")
+        _load_stack(params.bottleneck, tree["bottleneck"], "bottleneck")
+        load_mlp(params.decoder, tree["decoder"], "decoder")
+        return params.to(resolve_device(device))
+    _load_stack(params.layers, tree["layers"], "layers")
     if cfg.separate_decoders:
         for i, (d, t) in enumerate(zip(params.decoder, tree["decoder"])):
             load_mlp(d, t, f"decoder[{i}]")
@@ -120,27 +142,38 @@ def _stack(trees):
     return np.stack(trees)
 
 
-def params_to_jax(params: MeshGraphNet, cfg: MGNConfig, *,
-                  grads: bool = False):
+def _layer_tree(layer: B.MGNLayer, grads: bool):
+    if isinstance(layer.edge, B.EdgeBlockSum):
+        p = layer.edge
+        edge = {k: _get(getattr(p, k), grads)
+                for k in ("w_e", "w_s", "w_d", "b")}
+        edge["stack"] = [{"w": _get(lin.w, grads), "b": _get(lin.b, grads)}
+                         for lin in p.stack]
+        edge["ln"] = None if p.ln is None else {
+            "scale": _get(p.ln.scale, grads),
+            "bias": _get(p.ln.bias, grads)}
+    else:
+        edge = _mlp_tree(layer.edge, grads)
+    return {"edge": edge, "node": _mlp_tree(layer.node, grads)}
+
+
+def _stack_tree(layers, grads: bool):
+    return _stack([_layer_tree(layer, grads) for layer in layers])
+
+
+def params_to_jax(params, cfg: MGNConfig, *, grads: bool = False):
     """The port's parameters (``grads=True``: their ``.grad``, zeros where
     there is none) as the JAX package's ``cfg.init`` tree of float32 numpy
     arrays, processor layers stacked on the leading axis."""
-    layers = []
-    for layer in params.layers:
-        if isinstance(layer.edge, B.EdgeBlockSum):
-            p = layer.edge
-            edge = {k: _get(getattr(p, k), grads)
-                    for k in ("w_e", "w_s", "w_d", "b")}
-            edge["stack"] = [{"w": _get(lin.w, grads), "b": _get(lin.b, grads)}
-                             for lin in p.stack]
-            edge["ln"] = None if p.ln is None else {
-                "scale": _get(p.ln.scale, grads),
-                "bias": _get(p.ln.bias, grads)}
-        else:
-            edge = _mlp_tree(layer.edge, grads)
-        layers.append({"edge": edge, "node": _mlp_tree(layer.node, grads)})
+    enc = {"node_encoder": _mlp_tree(params.node_encoder, grads),
+           "edge_encoder": _mlp_tree(params.edge_encoder, grads)}
+    if isinstance(cfg, BSMSConfig):
+        return {**enc,
+                "down": [_stack_tree(s, grads) for s in params.down],
+                "bottleneck": _stack_tree(params.bottleneck, grads),
+                "up": [_stack_tree(s, grads) for s in params.up],
+                "decoder": _mlp_tree(params.decoder, grads)}
     decoder = ([_mlp_tree(d, grads) for d in params.decoder]
                if cfg.separate_decoders else _mlp_tree(params.decoder, grads))
-    return {"node_encoder": _mlp_tree(params.node_encoder, grads),
-            "edge_encoder": _mlp_tree(params.edge_encoder, grads),
-            "layers": _stack(layers), "decoder": decoder}
+    return {**enc, "layers": _stack_tree(params.layers, grads),
+            "decoder": decoder}

@@ -87,6 +87,13 @@ class MGNConfig:
             do_concat_trick=self.do_concat_trick,
         )
 
+    @property
+    def params_dtype(self) -> torch.dtype:
+        """The dtype AeroInference keeps the parameters in."""
+        if self.compute_dtype not in _DTYPES:
+            raise ValueError(f"Unsupported compute_dtype: {self.compute_dtype}")
+        return _DTYPES[self.compute_dtype]
+
     def init(self, generator: Union[torch.Generator, int, None] = None, *,
              device: DeviceLike = None) -> "MeshGraphNet":
         """Random parameters (torch.nn.Linear-style init) drawn on the CPU
@@ -179,6 +186,23 @@ class MeshGraphNet(nn.Module):
         """``fn(self, *args)``: lets torch.func.functional_call run a
         function of the module with substituted parameters."""
         return fn(self, *args)
+
+
+def apply_model(model_cfg, params, graph: GraphBatch, hierarchy,
+                needs_hierarchy: bool, device: torch.device, **kw):
+    """``model_cfg.apply`` (an MGNConfig or a subclass) with the graph (and
+    the hierarchy) moved to ``device``; ``needs_hierarchy`` models (BSMS)
+    require the hierarchy. The entry point of the engine and the steps."""
+    if graph.device != device:
+        graph = graph.to(device)
+    if not needs_hierarchy:
+        return model_cfg.apply(params, graph, **kw)
+    if hierarchy is None:
+        raise ValueError("this model needs a graph hierarchy: pass the "
+                         "Loader's aux (num_scales > 1)")
+    hierarchy = tuple(lv if lv.device == device else lv.to(device)
+                      for lv in hierarchy)
+    return model_cfg.apply(params, graph, hierarchy=hierarchy, **kw)
 
 
 def run_processor(layers: nn.ModuleList, layer_cfg: B.MGNLayerConfig,

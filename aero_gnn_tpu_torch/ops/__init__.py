@@ -22,10 +22,14 @@ import torch
 
 from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     degree,
+    gather,
     gather_receivers,
     gather_senders,
+    segment_mean,
+    segment_sum,
     segment_sum_masked,
     segment_sum_sorted,
+    segment_sum_weighted,
 )
 
 _BACKENDS = ("torch", "cuda")
@@ -93,3 +97,25 @@ def aggregate_edges(messages: torch.Tensor, receivers: torch.Tensor,
         summed = summed / torch.clamp(deg, min=1.0)[:, None]
     return summed
 
+
+def aggregate_edges_weighted(messages: torch.Tensor, weights: torch.Tensor,
+                             receivers: torch.Tensor, num_nodes: int, *,
+                             aligned: bool = False,
+                             mask: Optional[torch.Tensor] = None,
+                             rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """``out[n] = sum_{e: recv(e) = n} weights[e] * messages[e]``, the
+    messages ``messages[rows[e]]`` when ``rows`` is given. On the cuda
+    backend an aligned stream takes kernel K7 (its plain version on CPU
+    tensors; the gather read inside the kernel), the weight at the
+    messages' precision, differentiable in both with the JAX package's
+    ``_sswp_bwd``. Elsewhere an explicit gather, multiply and sorted
+    segment sum. Pad edges: pass ``mask``, or give them zero weights."""
+    if aligned and _BACKEND == "cuda":
+        return segment_sum_weighted(messages, weights, receivers, num_nodes,
+                                    mask=mask, rows=rows)
+    m = messages if rows is None else gather(messages, rows)
+    if mask is not None:
+        m = m * mask[:, None].to(m.dtype)
+    return segment_sum_sorted(m * weights[:, None].to(m.dtype), receivers,
+                              num_nodes)

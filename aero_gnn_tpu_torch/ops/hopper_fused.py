@@ -18,6 +18,14 @@ differentiable layer (forward K1, backward K2), saving the layer's inputs
 only, as the JAX package's ``_fel_fwd`` does. Pad-edge rows of e' are never
 observed (every consumer masks by edge_mask); agg is defined on every row,
 with exact zeros for nodes without a real edge.
+
+The kernels skip pad tiles, tiles whose first row is masked (in the
+aligned layout those hold pad rows only: an empty node block's alignment
+tile, and the pad-sink tail a Loader batch leaves after its stream, which
+would otherwise all fall to the last node block's CTA), and fill their rows
+across the grid: e' = e (a zero update), d_e = ct_e and d_sg = 0, which is
+the VJP wherever the cotangent of pad rows is zero, as it is on the
+training path. The plain versions compute every row.
 """
 
 from __future__ import annotations

@@ -1,14 +1,26 @@
-"""Sorted masked segment sum: Hopper kernel K5 and its plain version
-(counterpart of aero_gnn_tpu.ops.pallas_segment.segment_agg_pallas).
+"""Sorted masked segment sums: Hopper kernels K5 and K7 and their plain
+versions (counterparts of aero_gnn_tpu.ops.pallas_segment.segment_agg_pallas
+and segment_agg_weighted_pallas).
 
-    out[n] = sum over i with ids[i] == n of mask[i] * data[rows[i]]
+    K5:  out[n] = sum over i with ids[i] == n of mask[i] * data[rows[i]]
+    K7:  out[n] = sum over i with ids[i] == n of mask[i] * w[i] * data[rows[i]]
 
 ``ids`` ascending, [E_s] -> [N, D]; ``mask`` defaults to ones and ``rows``
-to ``i`` (the optional ``rows`` folds the sender backward's permutation
-gather ``ct[sender_perm]`` into the kernel). Accumulation is in fp32 with
-one rounding to the data's dtype per output row; nodes without a row get
-exact zeros. ``segment_sum`` launches ``csrc/segment_sum.cu`` on CUDA
-tensors and runs ``segment_sum_ref`` on CPU tensors.
+to ``i`` (the optional ``rows`` folds a row gather into the kernel: the
+sender backward's ``ct[sender_perm]`` for K5, the WeightedEdgeConv's
+``x[senders]`` for K7). K7's fp32 weight is rounded to the data's dtype
+before the product, as the TPU kernel's weighted one-hot is. Accumulation
+is in fp32 with one rounding to the data's dtype per output row; nodes
+without a row get exact zeros. ``segment_sum`` / ``segment_sum_weighted``
+launch ``csrc/segment_sum.cu`` / ``csrc/segment_sum_weighted.cu`` on CUDA
+tensors and run ``segment_sum_ref`` / ``segment_sum_weighted_ref`` on CPU
+tensors.
+
+``pad_sink=True`` declares ``ids`` a stream of the aligned layout
+(``graph.padded``), whose last segment is the pad sink: its rows are pad
+rows adding zero, and a Loader batch puts the tail of its edge budget there.
+The kernels then skip them (the last node group's CTA stops its range
+before them) and write the sink's row as 0, and so do the plain versions.
 """
 
 from __future__ import annotations
@@ -22,12 +34,14 @@ from aero_gnn_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I64, _I64, _I, _I, _P]
+_ARGTYPES = [_P] * 5 + [_I64, _I64, _I, _I, _I, _P]
+_W_ARGTYPES = [_P] * 6 + [_I64, _I64, _I, _I, _I, _P]
 
 
 def segment_sum_ref(data: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int, *, mask: Optional[torch.Tensor] = None,
-                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    rows: Optional[torch.Tensor] = None,
+                    pad_sink: bool = False) -> torch.Tensor:
     """Plain version: gather ``rows``, mask, ``index_add_`` into an fp32
     buffer, round once. Any trailing shape of ``data``."""
     if rows is not None:
@@ -38,19 +52,33 @@ def segment_sum_ref(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=torch.float32, device=data.device)
     out.index_add_(0, segment_ids, data.float())
+    if pad_sink:
+        out[-1] = 0.0
     return out.to(data.dtype)
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, *, mask: Optional[torch.Tensor] = None,
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[*, D] data -> [num_segments, D]. CUDA tensors launch kernel K5 (2-D
-    float32/bfloat16 data, int32 ids and rows, mask of the data's dtype);
-    CPU tensors run the plain version. No backward of its own (see
-    ops.scatter)."""
-    if not data.is_cuda:
-        return segment_sum_ref(data, segment_ids, num_segments, mask=mask,
-                               rows=rows)
+def segment_sum_weighted_ref(data: torch.Tensor, segment_ids: torch.Tensor,
+                             weights: torch.Tensor, num_segments: int, *,
+                             mask: Optional[torch.Tensor] = None,
+                             rows: Optional[torch.Tensor] = None,
+                             pad_sink: bool = False) -> torch.Tensor:
+    """Plain version of K7: gather ``rows``, the weight rounded to the
+    data's dtype, the masked product and the sum in fp32, one rounding."""
+    if rows is not None:
+        data = data.index_select(0, rows)
+    w = weights.to(data.dtype).float()
+    if mask is not None:
+        w = w * mask.float()
+    out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
+                      device=data.device)
+    out.index_add_(0, segment_ids, data.float() * w[:, None])
+    if pad_sink:
+        out[-1] = 0.0
+    return out.to(data.dtype)
+
+
+def _check_segment_args(data, segment_ids, mask, rows, **extra):
+    """Validate a K5 / K7 launch's tensors; returns the id count."""
     if data.dtype not in _DTYPE_CODE:
         raise ValueError(f"segment-sum kernel takes float32 or bfloat16, "
                          f"not {data.dtype}")
@@ -76,7 +104,26 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                              f"({n_ids},)")
         floats["mask"] = mask
     _build.check_tensors(data.device, data.dtype, **floats)
+    for name, t in extra.items():
+        if tuple(t.shape) != (n_ids,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"({n_ids},)")
+        _build.check_tensors(data.device, torch.float32, **{name: t})
+    return n_ids
 
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, *, mask: Optional[torch.Tensor] = None,
+                rows: Optional[torch.Tensor] = None,
+                pad_sink: bool = False) -> torch.Tensor:
+    """[*, D] data -> [num_segments, D]. CUDA tensors launch kernel K5 (2-D
+    float32/bfloat16 data, int32 ids and rows, mask of the data's dtype);
+    CPU tensors run the plain version. No backward of its own (see
+    ops.scatter)."""
+    if not data.is_cuda:
+        return segment_sum_ref(data, segment_ids, num_segments, mask=mask,
+                               rows=rows, pad_sink=pad_sink)
+    n_ids = _check_segment_args(data, segment_ids, mask, rows)
     out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
                       device=data.device)
     fn = _build.c_function("segment_sum", "aero_segment_sum", _ARGTYPES)
@@ -85,12 +132,44 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
         err = fn(data.data_ptr(), segment_ids.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  None if rows is None else rows.data_ptr(), out.data_ptr(),
-                 n_ids, num_segments, data.shape[1],
+                 n_ids, num_segments, data.shape[1], int(pad_sink),
                  _DTYPE_CODE[data.dtype], stream)
     _build.check_launch("aero_segment_sum", err)
     segment_sum.launches += 1
     return out
 
 
-# launches of kernel K5 since the count was last set to 0
+def segment_sum_weighted(data: torch.Tensor, segment_ids: torch.Tensor,
+                         weights: torch.Tensor, num_segments: int, *,
+                         mask: Optional[torch.Tensor] = None,
+                         rows: Optional[torch.Tensor] = None,
+                         pad_sink: bool = False) -> torch.Tensor:
+    """[*, D] data -> [num_segments, D], each row times its fp32 weight.
+    CUDA tensors launch kernel K7 (2-D float32/bfloat16 data, int32 ids
+    and rows, float32 weights, mask of the data's dtype); CPU tensors run
+    the plain version. No backward of its own (see ops.scatter)."""
+    if not data.is_cuda:
+        return segment_sum_weighted_ref(data, segment_ids, weights,
+                                        num_segments, mask=mask, rows=rows,
+                                        pad_sink=pad_sink)
+    n_ids = _check_segment_args(data, segment_ids, mask, rows,
+                                weights=weights)
+    out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
+                      device=data.device)
+    fn = _build.c_function("segment_sum_weighted",
+                           "aero_segment_sum_weighted", _W_ARGTYPES)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(data.data_ptr(), segment_ids.data_ptr(), weights.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 None if rows is None else rows.data_ptr(), out.data_ptr(),
+                 n_ids, num_segments, data.shape[1], int(pad_sink),
+                 _DTYPE_CODE[data.dtype], stream)
+    _build.check_launch("aero_segment_sum_weighted", err)
+    segment_sum_weighted.launches += 1
+    return out
+
+
+# launches of kernels K5 / K7 since the counts were last set to 0
 segment_sum.launches = 0
+segment_sum_weighted.launches = 0

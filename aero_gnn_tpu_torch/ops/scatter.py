@@ -15,7 +15,19 @@ transpose the JAX package defines:
   * ``gather_receivers``: ``x[receivers]``; backward a sorted segment sum;
   * ``segment_sum_sorted``: backward a sorted gather;
   * ``segment_sum_masked``: the masked sum of ``aggregate_edges`` on an
-    aligned stream, forward on K5; backward ``mask * ct[ids]``.
+    aligned stream, forward on K5; backward ``mask * ct[ids]``;
+  * ``segment_sum_weighted``: ``aggregate_edges_weighted`` on an aligned
+    stream, forward on K7; backward the JAX package's ``_sswp_bwd``
+    (``d_msgs = ct[ids] * w * mask``, ``d_w = <ct[ids], msgs> * mask``).
+
+The sender backward and ``segment_sum_weighted`` run on streams of the
+aligned layout, whose last segment is the pad sink: they pass
+``pad_sink=True`` (``ops.hopper_segment``), so the pad tail of a Loader
+batch is not walked.
+
+``segment_sum`` / ``segment_mean`` over unsorted ids (the BSMS pools) stay
+plain ``index_add_`` with the autograd of the gather: the JAX package
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -38,6 +50,30 @@ def _backend() -> str:
     return _ops.backend()
 
 
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, *,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked segment sum over ids in any order: [E, D] -> [N, D], zero rows
+    for empty segments; fp32 accumulation, one rounding."""
+    if mask is not None:
+        data = data * mask.to(data.dtype).reshape(
+            (-1,) + (1,) * (data.dim() - 1))
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=torch.float32, device=data.device)
+    return out.index_add(0, segment_ids, data.float()).to(data.dtype)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, *,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked segment mean; empty segments give zeros (scatter_mean)."""
+    summed = segment_sum(data, segment_ids, num_segments, mask=mask)
+    ones = (torch.ones(data.shape[0], dtype=data.dtype, device=data.device)
+            if mask is None else mask)
+    counts = segment_sum(ones, segment_ids, num_segments)
+    return summed / torch.clamp(counts, min=1.0)[:, None]
+
+
 class _GatherSenders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, senders, sender_perm, senders_sorted, use_kernel):
@@ -53,7 +89,7 @@ class _GatherSenders(torch.autograd.Function):
         if ctx.use_kernel:
             # K5 reads ct[sender_perm[i]] itself: no [E, h] permuted copy
             dx = HS.segment_sum(ct, senders_sorted, ctx.num_nodes,
-                                rows=sender_perm)
+                                rows=sender_perm, pad_sink=True)
         else:
             dx = HS.segment_sum_ref(gather(ct, sender_perm), senders_sorted,
                                     ctx.num_nodes)
@@ -141,6 +177,47 @@ def segment_sum_masked(data: torch.Tensor, segment_ids: torch.Tensor,
     return _SegmentSumMasked.apply(data.contiguous(), segment_ids,
                                    mask.to(data.dtype).contiguous(),
                                    num_segments)
+
+
+class _SegmentSumWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, weights, segment_ids, mask, rows, num_segments):
+        ctx.save_for_backward(data, weights, segment_ids, mask, rows)
+        return HS.segment_sum_weighted(data, segment_ids, weights,
+                                       num_segments, mask=mask, rows=rows,
+                                       pad_sink=True)
+
+    @staticmethod
+    def backward(ctx, ct):
+        data, weights, segment_ids, mask, rows = ctx.saved_tensors
+        ctg = gather(ct, segment_ids)
+        d_rows = ctg * weights.float()[:, None]
+        if mask is not None:
+            d_rows = d_rows * mask.float()[:, None]
+        msgs = data if rows is None else gather(data, rows)
+        d_w = (ctg.float() * msgs.float()).sum(1)
+        if mask is not None:
+            d_w = d_w * mask.float()
+        d_rows = d_rows.to(ctg.dtype)
+        d_data = d_rows if rows is None else torch.zeros_like(
+            data).index_add(0, rows, d_rows)
+        return d_data, d_w.to(weights.dtype), None, None, None, None
+
+
+def segment_sum_weighted(data: torch.Tensor, weights: torch.Tensor,
+                         segment_ids: torch.Tensor, num_segments: int, *,
+                         mask: Optional[torch.Tensor] = None,
+                         rows: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """``out[n] = sum_{ids[i] = n} mask[i] * w[i] * data[rows[i]]``
+    (ascending ids of an aligned stream; ``rows`` defaults to i) on kernel
+    K7 (CUDA tensors) or its plain version (CPU tensors); differentiable in
+    ``data`` and ``weights`` with the JAX package's ``_sswp_bwd`` (and the
+    scatter of the gather's transpose through ``rows``)."""
+    return _SegmentSumWeighted.apply(
+        data.contiguous(), weights.float().contiguous(), segment_ids,
+        None if mask is None else mask.to(data.dtype).contiguous(),
+        None if rows is None else rows.contiguous(), num_segments)
 
 
 def degree(segment_ids: torch.Tensor, num_segments: int, *,

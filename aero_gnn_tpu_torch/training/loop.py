@@ -20,6 +20,7 @@ import torch
 
 from aero_gnn_tpu_torch.data.batching import Loader
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
+from aero_gnn_tpu_torch.models.mgn import apply_model
 from aero_gnn_tpu_torch.training.schedulers import (
     EarlyStopping,
     ReduceLROnPlateau,
@@ -48,18 +49,14 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _no_hierarchy(needs_hierarchy: bool) -> None:
-    if needs_hierarchy:
-        raise NotImplementedError(
-            "models that need a graph hierarchy (BSMS) are not ported yet")
-
-
 @dataclasses.dataclass
 class StepFns:
-    """``train_step(params, graph, generator=None)`` runs forward, backward
-    and the optimizer step and returns the loss (a 0-d tensor on the
-    device); ``eval_step(params, graph)`` the loss without gradients;
-    ``predict(params, graph)`` the fp32 predictions."""
+    """``train_step(params, graph, hierarchy=None, generator=None)`` runs
+    forward, backward and the optimizer step and returns the loss (a 0-d
+    tensor on the device); ``eval_step(params, graph, hierarchy=None)`` the
+    loss without gradients; ``predict(params, graph, hierarchy=None)`` the
+    fp32 predictions. ``hierarchy`` (the Loader's ``aux["hierarchy"]``) is
+    required by ``needs_hierarchy`` models (BSMS)."""
 
     train_step: Callable
     eval_step: Callable
@@ -71,36 +68,34 @@ def make_step_fns(model_cfg, optimizer: torch.optim.Optimizer, *,
                   device: DeviceLike = None,
                   needs_hierarchy: bool = False) -> StepFns:
     """Steps of ``model_cfg`` on ``device`` (CUDA unless ``"cpu"``);
-    ``optimizer`` holds the parameters the train step updates. Graphs are
-    moved to the device when they are not on it."""
-    _no_hierarchy(needs_hierarchy)
+    ``optimizer`` holds the parameters the train step updates. Graphs and
+    hierarchies are moved to the device when they are not on it."""
     dev = resolve_device(device)
 
-    def on_device(params, graph):
+    def apply(params, graph, hierarchy, generator=None):
         if params.device != dev:
             raise ValueError(f"params are on {params.device}, the steps run "
                              f"on {dev}")
-        return graph if graph.device == dev else graph.to(dev)
+        return apply_model(model_cfg, params, graph, hierarchy,
+                           needs_hierarchy, dev, generator=generator)
 
-    def train_step(params, graph, generator: Optional[torch.Generator] = None):
-        graph = on_device(params, graph)
+    def train_step(params, graph, hierarchy=None,
+                   generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
-        pred = model_cfg.apply(params, graph, generator=generator)
-        loss = masked_mse(pred, graph.y, graph.node_mask)
+        pred = apply(params, graph, hierarchy, generator)
+        loss = masked_mse(pred, graph.y.to(dev), graph.node_mask.to(dev))
         loss.backward()
         optimizer.step()
         return loss.detach()
 
-    def eval_step(params, graph):
-        graph = on_device(params, graph)
+    def eval_step(params, graph, hierarchy=None):
         with torch.no_grad():
-            pred = model_cfg.apply(params, graph)
-            return masked_mse(pred, graph.y, graph.node_mask)
+            pred = apply(params, graph, hierarchy)
+            return masked_mse(pred, graph.y.to(dev), graph.node_mask.to(dev))
 
-    def predict(params, graph):
-        graph = on_device(params, graph)
+    def predict(params, graph, hierarchy=None):
         with torch.no_grad():
-            return model_cfg.apply(params, graph)
+            return apply(params, graph, hierarchy)
 
     return StepFns(train_step=train_step, eval_step=eval_step,
                    predict=predict, device=dev)
@@ -109,16 +104,17 @@ def make_step_fns(model_cfg, optimizer: torch.optim.Optimizer, *,
 def run_epoch_train(fns: StepFns, params, loader: Loader,
                     generator: Optional[torch.Generator] = None) -> float:
     total, count = 0.0, 0
-    for graph, _aux in loader:
-        total += float(fns.train_step(params, graph, generator))
+    for graph, aux in loader:
+        total += float(fns.train_step(params, graph, aux.get("hierarchy"),
+                                      generator))
         count += 1
     return total / max(count, 1)
 
 
 def run_epoch_eval(fns: StepFns, params, loader: Loader) -> float:
     total, count = 0.0, 0
-    for graph, _aux in loader:
-        total += float(fns.eval_step(params, graph))
+    for graph, aux in loader:
+        total += float(fns.eval_step(params, graph, aux.get("hierarchy")))
         count += 1
     return total / max(count, 1)
 
@@ -147,13 +143,13 @@ def fit(*, model_cfg, params, train_loader: Loader, val_loader: Loader,
         raise NotImplementedError(
             "checkpoints (training/checkpoint.py) are not ported yet "
             "(ROADMAP queue 1 item 5)")
-    _no_hierarchy(needs_hierarchy)
     dev = resolve_device(device)
     params = params.to(dev)
     lr = training_config.get("learning_rate", 1e-3)
     optimizer = make_optimizer(params, lr,
                                training_config.get("weight_decay", 0.0))
-    fns = make_step_fns(model_cfg, optimizer, device=dev)
+    fns = make_step_fns(model_cfg, optimizer, device=dev,
+                        needs_hierarchy=needs_hierarchy)
     plateau = ReduceLROnPlateau(
         lr=lr, factor=training_config.get("lr_scheduler_gamma", 0.8),
         patience=training_config.get("lr_scheduler_step_size", 50),

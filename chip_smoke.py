@@ -1,33 +1,44 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--tail-only]
 
 ``--record PATH`` also writes the full record (every kernel's operations
 and bytes, launch counts, step times, build and total seconds) as JSON to
-PATH.
+PATH. ``--tail-only`` runs the device, build and tail phases and prints the
+tail record (it also runs on a tree from before the pad-tail repair).
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
   1. device  — nvidia-smi name and power limit, CUDA and card names;
   2. build   — compile every kernel in aero_gnn_tpu_torch/csrc with nvcc
                (sm_90a), one process per source, and report the time;
-  3. kernels — each Hopper kernel against its plain PyTorch version on the
+  3. tail    — K1, K2 and K5 on the Loader-padded 65,536-node graph (whose
+               edge stream ends in a tail of pad rows keyed by the pad
+               sink) against the tight aligned graph, both dtypes, checked
+               against the plain versions and timed; one bf16 MGN train
+               step through each graph;
+  4. kernels — each Hopper kernel against its plain PyTorch version on the
                card, at the flagship shapes (the 65,536-node mesh's aligned
                layout, h = 128, 2 hidden layers; K5 on its aligned sender
                stream), fp32 and bf16, timed with CUDA events (median of 20
                after warm-up) beside the bound and, for K5, the library
                call torch.segment_reduce; K1's agg and K2's / K4's weight
-               gradients must be bit-equal across two launches;
-  3b. shapes — the kernels' other configurations (no hidden layer, weights
+               gradients must be bit-equal across two launches. K7 at the
+               BSMS path's shapes (fine level, level 1, level 2 of mesh 0's
+               Loader batch, WEC weights from its hierarchy), with and
+               without ``rows``, bit-equal across launches, timed at the
+               fine level beside its bound, its plain version and
+               torch.sparse.mm of a CSR matrix;
+  4b. shapes — the kernels' other configurations (no hidden layer, weights
                streamed per stage, h = 64) against the plain versions on a
                4,096-node mesh;
-  4. serve   — the flagship MeshGraphNet (15 layers, width 128) from a seeded
+  5. serve   — the flagship MeshGraphNet (15 layers, width 128) from a seeded
                init served through AeroInference on the card: 3 requests of
                65,536-node meshes in bf16 and in fp32. Launch counters are set
                to 0 before each dtype's run and read after it; every forward
                must launch K1 and K3 exactly 15 times each. Request 0 in fp32
                is cross-checked against the plain path (use_backend("torch"));
-  5. profile — torch.profiler over one warm forward per dtype: device busy
+               torch.profiler over one warm forward per dtype: device busy
                time, idle share and the kernels that take the most time;
   6. train   — the flagship MeshGraphNet trained on mesh 0 through
                training.loop.make_step_fns (Adam, lr 1e-3, fp32 masters,
@@ -35,7 +46,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                against the plain path and 3 fp32 steps. Every step must
                launch K1-K5 exactly 15 times each; the loss must be finite
                and fall over the bf16 steps; one warm bf16 step is
-               profiled.
+               profiled;
+  7. bsms serve — the flagship BSMS (3 bistride scales, WeightedEdgeConv,
+               fp32) served through AeroInference(needs_hierarchy=True) for
+               the three meshes, each through its own Loader (num_scales=3):
+               every forward launches K1 and K3 15 times and K7 4 times;
+               request 0 against the plain path; one forward profiled;
+  8. bsms train — the flagship BSMS trained on mesh 0's Loader batch
+               through make_step_fns(needs_hierarchy=True): fp32 first-step
+               gradients against the plain path, 5 steps each launching
+               K1-K5 15 times and K7 8 times, finite losses, peak device
+               memory, one step profiled.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or aero_gnn_tpu is imported.
@@ -45,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -80,6 +102,9 @@ N_NODES = 65536
 HIDDEN = 128
 N_HIDDEN = 2
 LAYERS = 15
+BSMS_SCALES = 3
+# K7 launches: 2 transfers down + 2 up per forward; a step adds their VJPs
+K7_PER_FORWARD = 2 * (BSMS_SCALES - 1)
 
 
 def log(msg: str) -> None:
@@ -282,8 +307,8 @@ def check_backward_kernels(torch, tag, dtype_name, graph, edge_bwd, node_bwd,
     p2 = HF.fused_edge_layer_bwd_ref(*edge_bwd)
     k4 = HN.fused_node_layer_bwd(*node_bwd)
     p4 = HN.fused_node_layer_bwd_ref(*node_bwd)
-    k5 = HS.segment_sum(*seg, rows=graph.sender_perm)
-    p5 = HS.segment_sum_ref(*seg, rows=graph.sender_perm)
+    k5 = HS.segment_sum(*seg, rows=graph.sender_perm, pad_sink=True)
+    p5 = HS.segment_sum_ref(*seg, rows=graph.sender_perm, pad_sink=True)
     torch.cuda.synchronize()
     e2 = check_bwd(torch, f"K2 {tag}", k2, p2, dtype_name, 3)
     e4 = check_bwd(torch, f"K4 {tag}", k4, p4, dtype_name, 2)
@@ -299,6 +324,115 @@ def check_backward_kernels(torch, tag, dtype_name, graph, edge_bwd, node_bwd,
         raise AssertionError(f"K5 {tag}: rows of nodes without a row are "
                              "not exactly 0")
     return e2, e4, e5
+
+
+def sink_kw(HS):
+    """K5's ``pad_sink`` keyword as the sender backward passes it (empty on
+    a tree from before the pad-tail repair, whose K5 has no such option, so
+    the tail phase also times such a tree)."""
+    import inspect
+
+    params = inspect.signature(HS.segment_sum).parameters
+    return {"pad_sink": True} if "pad_sink" in params else {}
+
+
+def phase_tail(torch, sample, tight):
+    """K1, K2 and K5 on the Loader-padded graph of ``sample`` against the
+    tight aligned graph, both dtypes, checked against the plain versions;
+    then one bf16 MGN train step through each graph. The Loader budgets an
+    extra tile per node block, so its stream ends in a tail of pad rows
+    that all have the pad sink as receiver."""
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    dev = tight.device
+    loader = Loader([sample], 1, align_edges=True, device=dev)
+    padded = next(iter(loader))[0]
+    sink = padded.num_nodes_pad - 1
+    graphs = {"tight": tight, "loader": padded}
+    rec = {}
+    for name, g in graphs.items():
+        live = int((g.receivers != g.num_nodes_pad - 1).sum())
+        rec[name] = {"E": g.num_edges_pad, "N": g.num_nodes_pad,
+                     "live_rows": live,
+                     "sender_rows": g.senders_sorted.shape[0]}
+        log(f"[tail] {name} graph: E={g.num_edges_pad}, N={g.num_nodes_pad}, "
+            f"{live} rows before the sink tail, sender stream "
+            f"{g.senders_sorted.shape[0]} rows")
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for name, g in graphs.items():
+            gen = torch.Generator(device=dev).manual_seed(4321)
+
+            def randn(*shape, scale=1.0):
+                return (torch.randn(*shape, generator=gen, device=dev)
+                        * scale).to(dt)
+
+            edge_args, edge_bwd, _, _, seg = bwd_cases(
+                torch, g, dt, randn, HIDDEN, N_HIDDEN)
+            real = g.edge_mask > 0
+            # the sender backward reads d_sg, which is 0 on pad rows
+            data = seg[0] * real[:, None].to(dt)
+            ids, rows, kw = g.senders_sorted, g.sender_perm, sink_kw(HS)
+            ek, ak = HF.fused_edge_layer(*edge_args)
+            ep, ap = HF.fused_edge_layer_ref(*edge_args)
+            k2 = HF.fused_edge_layer_bwd(*edge_bwd)
+            p2 = HF.fused_edge_layer_bwd_ref(*edge_bwd)
+            k5 = HS.segment_sum(data, ids, g.num_nodes_pad, rows=rows, **kw)
+            p5 = HS.segment_sum_ref(data, ids, g.num_nodes_pad, rows=rows,
+                                    **kw)
+            torch.cuda.synchronize()
+            tag = f"{name} {dtype_name}"
+            check_close(torch, f"tail K1 {tag} e'", ek, ep, dtype_name,
+                        rows=real)
+            check_close(torch, f"tail K1 {tag} agg", ak, ap, dtype_name)
+            check_bwd(torch, f"tail K2 {tag}", k2, p2, dtype_name, 3)
+            check_close(torch, f"tail K5 {tag}", k5, p5, dtype_name)
+            if name == "loader" and not (ak[sink] == 0).all():
+                raise AssertionError(f"tail K1 {tag}: the sink's agg is not 0")
+            del ep, ap, p2, p5
+            reps = {"reps": 10, "warmup": 2}
+            times = {
+                "K1": cuda_time_ms(torch, lambda: HF.fused_edge_layer(
+                    *edge_args), **reps),
+                "K2": cuda_time_ms(torch, lambda: HF.fused_edge_layer_bwd(
+                    *edge_bwd), **reps),
+                "K5": cuda_time_ms(torch, lambda: HS.segment_sum(
+                    data, ids, g.num_nodes_pad, rows=rows, **kw), **reps)}
+            rec[name][dtype_name] = times
+            log(f"[tail] {tag}: K1 {times['K1']:.3f} ms, K2 "
+                f"{times['K2']:.3f} ms, K5 {times['K5']:.3f} ms")
+            del edge_args, edge_bwd, seg, data, ek, ak, k2, k5
+            torch.cuda.empty_cache()
+    for k in ("K1", "K2", "K5"):
+        for dtype_name in ("bfloat16", "float32"):
+            ratio = (rec["loader"][dtype_name][k]
+                     / rec["tight"][dtype_name][k])
+            rec.setdefault("ratio", {})[f"{k}[{dtype_name}]"] = ratio
+    log(f"[tail] loader / tight time: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in rec["ratio"].items()))
+    cfg = flagship_config(compute_dtype="bfloat16")
+    for name, g in graphs.items():
+        params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+        fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                               device=dev)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(fns.train_step(params, g))
+            times.append(time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise AssertionError(f"tail train step {name}: loss {loss}")
+        rec[name]["bf16_step_ms"] = statistics.median(times[1:]) * 1e3
+        log(f"[tail] bf16 MGN train step through the {name} graph: "
+            f"{rec[name]['bf16_step_ms']:.2f} ms (median of 2 warm steps; "
+            f"loss {loss:.5f})")
+        del params, fns
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_kernels(torch, graph):
@@ -382,8 +516,10 @@ def phase_kernels(torch, graph):
              3 * 2 * N * h * h * (3 + nh),
              (5 * N * h + w_node) * isz + 4 * dw_node, e4[0]),
             ("segment_sum", "aero_gnn_tpu/ops/pallas_segment.py:428",
-             lambda: HS.segment_sum(*seg, rows=graph.sender_perm),
-             lambda: HS.segment_sum_ref(*seg, rows=graph.sender_perm),
+             lambda: HS.segment_sum(*seg, rows=graph.sender_perm,
+                                    pad_sink=True),
+             lambda: HS.segment_sum_ref(*seg, rows=graph.sender_perm,
+                                        pad_sink=True),
              lambda: torch.segment_reduce(gathered, "sum", lengths=lengths),
              Es * h, (E * h + N * h) * isz + 8 * Es, e5),
         )
@@ -407,7 +543,8 @@ def phase_kernels(torch, graph):
                 # what folding ct[sender_perm] into K5 saves: K5 on the
                 # pre-gathered rows, and the [E, h] permutation gather alone
                 results[-1]["ms_without_rows"] = cuda_time_ms(
-                    torch, lambda: HS.segment_sum(gathered, *seg[1:]))
+                    torch, lambda: HS.segment_sum(gathered, *seg[1:],
+                                                  pad_sink=True))
                 results[-1]["perm_gather_ms"] = cuda_time_ms(
                     torch, lambda: seg[0].index_select(0, graph.sender_perm))
                 log(f"[kernels] segment_sum {dtype_name} on the pre-gathered "
@@ -548,23 +685,39 @@ def phase_profile(torch, label: str, fn, top: int = 8) -> dict:
     return {"busy_ms": busy, "wall_ms": wall_ms, "kernels": rows[:top]}
 
 
+FLAGSHIP = dict(
+    input_node_dim=6, input_edge_dim=3, output_node_dim=4,
+    processor_size=LAYERS, hidden_dim_processor=HIDDEN,
+    hidden_dim_node_encoder=HIDDEN, hidden_dim_edge_encoder=HIDDEN,
+    hidden_dim_decoder=HIDDEN,
+    num_hidden_layers_node_processor=N_HIDDEN,
+    num_hidden_layers_edge_processor=N_HIDDEN,
+    num_hidden_layers_node_encoder=N_HIDDEN,
+    num_hidden_layers_edge_encoder=N_HIDDEN,
+    num_hidden_layers_decoder=N_HIDDEN,
+    aggregation="add", do_concat_trick=True, remat=False)
+
+
 def flagship_config(**kw):
     """The flagship MeshGraphNet (bench.py:206-219): 15 layers, width 128,
     2 hidden layers per MLP, concat trick, add aggregation; remat off, as
     bench.py chooses at 65,536 nodes."""
     from aero_gnn_tpu_torch.models.mgn import MGNConfig
 
-    return MGNConfig(
-        input_node_dim=6, input_edge_dim=3, output_node_dim=4,
-        processor_size=LAYERS, hidden_dim_processor=HIDDEN,
-        hidden_dim_node_encoder=HIDDEN, hidden_dim_edge_encoder=HIDDEN,
-        hidden_dim_decoder=HIDDEN,
-        num_hidden_layers_node_processor=N_HIDDEN,
-        num_hidden_layers_edge_processor=N_HIDDEN,
-        num_hidden_layers_node_encoder=N_HIDDEN,
-        num_hidden_layers_edge_encoder=N_HIDDEN,
-        num_hidden_layers_decoder=N_HIDDEN,
-        aggregation="add", do_concat_trick=True, remat=False, **kw)
+    return MGNConfig(**FLAGSHIP, **kw)
+
+
+def bsms_config():
+    """The flagship BSMS (benchmarks/bench_bsms.py:74-89,
+    trained_parity_bsms.py:96-110,158-159): the flagship MGN's widths, 3
+    scales of 2 layers per stage (2 + 2 down, 7 bottleneck, 2 + 2 up),
+    bistride hierarchy, WeightedEdgeConv transfer, remat off; fp32, as the
+    JAX package's BSMS computes whatever compute_dtype says."""
+    from aero_gnn_tpu_torch.models.bsms import BSMSConfig
+
+    return BSMSConfig(**FLAGSHIP, num_scales=BSMS_SCALES, layers_per_scale=2,
+                      stride=2, hierarchy_mode="bistride",
+                      transfer="weighted")
 
 
 def train_counters():
@@ -576,40 +729,49 @@ def train_counters():
             "fused_edge_bwd": HF.fused_edge_layer_bwd,
             "fused_node_fwd": HN.fused_node_layer,
             "fused_node_bwd": HN.fused_node_layer_bwd,
-            "segment_sum": HS.segment_sum}
+            "segment_sum": HS.segment_sum,
+            "segment_sum_weighted": HS.segment_sum_weighted}
 
 
-def check_train_grads(torch, cfg, params, graph):
+def zero_counters():
+    for f in train_counters().values():
+        f.launches = 0
+
+
+def read_counters():
+    return {k: f.launches for k, f in train_counters().items()}
+
+
+def check_train_grads(torch, cfg, params, graph, label="train", **apply_kw):
     """One fp32 step's parameter gradients on the kernels against the plain
     path (use_backend("torch")) on the card, TRAIN_GRAD_TOL per parameter.
     Comparison launches: not counted on the main path."""
     from aero_gnn_tpu_torch import ops
     from aero_gnn_tpu_torch.training.loop import masked_mse
 
-    counters = train_counters()
     grads = {}
     for backend in ("cuda", "torch"):
-        before = {k: f.launches for k, f in counters.items()}
+        before = read_counters()
         params.zero_grad(set_to_none=True)
         with ops.use_backend(backend):
-            loss = masked_mse(cfg.apply(params, graph), graph.y,
+            loss = masked_mse(cfg.apply(params, graph, **apply_kw), graph.y,
                               graph.node_mask)
             loss.backward()
         torch.cuda.synchronize()
         grads[backend] = {n: p.grad.clone()
                           for n, p in params.named_parameters()}
-        if backend == "torch" and any(
-                f.launches != before[k] for k, f in counters.items()):
+        if backend == "torch" and read_counters() != before:
             raise AssertionError("the plain path launched a kernel")
     params.zero_grad(set_to_none=True)
     worst = 0.0
     for n, p in grads["torch"].items():
-        err = check_grad(torch, f"train fp32 grad {n}", grads["cuda"][n], p,
+        err = check_grad(torch, f"{label} fp32 grad {n}", grads["cuda"][n], p,
                          TRAIN_GRAD_TOL)
         worst = max(worst, err / max(float(p.abs().max()), 1e-30))
-    log(f"[train] fp32 step gradients vs plain path: {len(grads['torch'])} "
-        f"parameters within {TRAIN_GRAD_TOL[0]} max|p| + "
-        f"{TRAIN_GRAD_TOL[1]} |p|; worst max abs err {worst:.3e} of max|p|")
+    log(f"[{label}] fp32 step gradients vs plain path: "
+        f"{len(grads['torch'])} parameters within {TRAIN_GRAD_TOL[0]} "
+        f"max|p| + {TRAIN_GRAD_TOL[1]} |p|; worst max abs err {worst:.3e} "
+        f"of max|p|")
     return worst
 
 
@@ -621,6 +783,7 @@ def phase_train(torch, sample, graph):
     from aero_gnn_tpu_torch.training import loop as TL
 
     counters = train_counters()
+    del counters["segment_sum_weighted"]  # the MGN has no K7
     launches, record = {}, {}
     for dtype, n_steps in TRAIN_STEPS.items():
         cfg = flagship_config(compute_dtype=dtype)
@@ -672,9 +835,293 @@ def phase_train(torch, sample, graph):
     return launches, record
 
 
+def bsms_requests(torch, samples, dev):
+    """Each sample through its own BSMS Loader (3 scales, bistride): the
+    (sample, GraphBatch, aux) of the request and the host seconds that the
+    hierarchies and batches took."""
+    from aero_gnn_tpu_torch.data.batching import Loader
+
+    out = []
+    t0 = time.perf_counter()
+    for s in samples:
+        loader = Loader([s], 1, num_scales=BSMS_SCALES,
+                        hierarchy_mode="bistride", align_edges=True,
+                        device=dev)
+        g, aux = next(iter(loader))
+        out.append((s, g, aux))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    g, aux = out[0][1:]
+    def before_tail(st, n_pad):
+        return int((st.receivers != n_pad - 1).sum())
+
+    shapes = [(g.num_nodes_pad, g.num_edges_pad,
+               before_tail(g, g.num_nodes_pad), g.n_node, g.n_edge)]
+    shapes += [(lv.num_coarse_nodes_pad, lv.num_coarse_edges_pad,
+                before_tail(lv, lv.num_coarse_nodes_pad), lv.n_node,
+                lv.n_edge)
+               for lv in aux["hierarchy"]]
+    for i, (n, e, live, rn, re) in enumerate(shapes):
+        log(f"[bsms] level {i}: {n} padded nodes / {e} edge rows ({live} "
+            f"before the sink tail); {rn} real nodes / {re} real edges")
+    log(f"[bsms] {len(samples)} requests: hierarchies and batches built in "
+        f"{host_s:.2f} s on the host")
+    return out, {"levels": shapes, "host_s": host_s}
+
+
+def weighted_streams(torch, g, hierarchy):
+    """K7's streams on the BSMS path of one request, as wec_down / wec_up
+    call it: (label, rows of data, ids, rows, weights) for the fine level,
+    level 1 (both with the hierarchy's conv weights) and level 2 (the
+    coarsest stream, no transfer runs there: random weights)."""
+    lv0, lv1 = hierarchy
+    gen = torch.Generator(device=g.device).manual_seed(77)
+    out = []
+    for label, st, w in (("fine", g, lv0.conv_edge), ("level1", lv0,
+                                                      lv1.conv_edge),
+                         ("level2", lv1, None)):
+        n_data = (st.num_nodes_pad if label == "fine"
+                  else st.num_coarse_nodes_pad)
+        if w is None:
+            w = torch.rand(st.receivers.shape[0], generator=gen,
+                           device=g.device) * st.edge_mask
+        out.append((label, n_data, st.receivers, st.senders, w))
+    return out
+
+
+def phase_weighted(torch, g, hierarchy):
+    """K7 against its plain version at the BSMS path's shapes (fine, level
+    1, level 2), bf16 and fp32, with and without ``rows``; bit-equal across
+    two launches; timed at the fine level with ``rows`` (the main path's
+    call) beside its bound, the plain version and torch.sparse.mm (cuSPARSE
+    SpMM) of a CSR matrix built outside the timing. Returns the fp32 entry
+    of the kernels' JSON and the full record."""
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    dev = g.device
+    streams = weighted_streams(torch, g, hierarchy)
+    results, record = [], {}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(2024)
+        for label, n, ids, rows, w in streams:
+            data = torch.randn(n, HIDDEN, generator=gen, device=dev).to(dt)
+            gathered = data.index_select(0, rows)
+            errs = []
+            for variant, args, kw in (
+                    ("rows", (data, ids, w, n),
+                     {"rows": rows, "pad_sink": True}),
+                    ("gathered", (gathered, ids, w, n), {"pad_sink": True})):
+                k = HS.segment_sum_weighted(*args, **kw)
+                k2 = HS.segment_sum_weighted(*args, **kw)
+                p = HS.segment_sum_weighted_ref(*args, **kw)
+                torch.cuda.synchronize()
+                tag = f"K7 {label} {variant} {dtype_name}"
+                errs.append(check_close(torch, tag, k, p, dtype_name))
+                if not torch.equal(k, k2):
+                    raise AssertionError(f"{tag}: differs between two "
+                                         "launches on the same inputs")
+                empty = torch.bincount(ids, minlength=n) == 0
+                if not (k[empty] == 0).all():
+                    raise AssertionError(f"{tag}: rows of nodes without a "
+                                         "row are not exactly 0")
+            # rows before the pad-sink tail, which the kernel skips
+            e_live = int((ids != n - 1).sum())
+            rec = {"rows": int(ids.shape[0]), "live_rows": e_live,
+                   "nodes": n, "max_abs_err": max(errs),
+                   "ms": cuda_time_ms(torch, lambda: HS.segment_sum_weighted(
+                       data, ids, w, n, rows=rows, pad_sink=True)),
+                   "ms_without_rows": cuda_time_ms(
+                       torch, lambda: HS.segment_sum_weighted(
+                           gathered, ids, w, n, pad_sink=True))}
+            if label == "fine":
+                isz = torch.finfo(dt).bits // 8
+                # inputs read once (the node table, ids, rows, weights),
+                # the output written once
+                nbytes = 2 * n * HIDDEN * isz + 12 * e_live
+                flops = 2 * e_live * HIDDEN
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+                rec["plain_ms"] = cuda_time_ms(
+                    torch, lambda: HS.segment_sum_weighted_ref(
+                        data, ids, w, n, rows=rows, pad_sink=True))
+                # the library on the rows before the tail (the tail's
+                # weights are 0: the same function)
+                crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+                crow[1:] = torch.cumsum(
+                    torch.bincount(ids[:e_live], minlength=n), 0)
+                csr = torch.sparse_csr_tensor(
+                    crow, torch.arange(e_live, device=dev),
+                    w[:e_live].to(dt), size=(n, e_live))
+                live_rows = gathered[:e_live]
+                try:
+                    torch.sparse.mm(csr, live_rows)
+                    rec["library_ms"] = cuda_time_ms(
+                        torch, lambda: torch.sparse.mm(csr, live_rows))
+                except (RuntimeError, NotImplementedError) as exc:
+                    rec["library_ms"] = None
+                    log(f"[kernels] K7 {dtype_name}: no sparse.mm "
+                        f"({str(exc).splitlines()[0][:80]})")
+                rec.update(bound_ms=max(t_bytes, t_ops), flops=flops,
+                           bytes=nbytes,
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+                if dtype_name == "float32":
+                    results.append({
+                        "name": f"segment_sum_weighted[{dtype_name}]",
+                        "route": "cuda",
+                        "source": "aero_gnn_tpu_torch/csrc/"
+                                  "segment_sum_weighted.cu",
+                        "replaces": "aero_gnn_tpu/ops/pallas_segment.py:316",
+                        "launches": None, "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"], "flops": flops,
+                        "bytes": nbytes})
+            record[f"{label}[{dtype_name}]"] = rec
+            extra = "" if label != "fine" else (
+                f", plain {rec['plain_ms']:.3f} ms, library "
+                f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 3)}"
+                f" ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+            log(f"[kernels] segment_sum_weighted {label} {dtype_name}: "
+                f"{rec['rows']} rows ({e_live} before the sink tail) -> {n} "
+                f"nodes, {rec['ms']:.3f} ms with "
+                f"rows ({rec['ms_without_rows']:.3f} ms on gathered rows)"
+                f"{extra}, max abs err {rec['max_abs_err']:.3e}, bit-equal "
+                f"across launches")
+            del data, gathered
+        torch.cuda.empty_cache()
+    return results, record
+
+
+def phase_bsms_serve(torch, requests):
+    """Serve the flagship BSMS through AeroInference(needs_hierarchy=True)
+    for each request's Loader batch: 3 warm forwards per request after the
+    first, K1 and K3 15 launches and K7 4 per forward; request 0 against the
+    plain path. Returns the main path's launch counts and the record."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+
+    cfg = bsms_config()
+    dev = requests[0][1].device
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    stats = {"target_mean": np.zeros(4, np.float32),
+             "target_std": np.ones(4, np.float32)}
+    eng = AeroInference(cfg, params, stats, device=dev, needs_hierarchy=True)
+    want = {"fused_edge_fwd": LAYERS, "fused_node_fwd": LAYERS,
+            "segment_sum_weighted": K7_PER_FORWARD}
+    record, preds, n_fwd = {"ms": []}, [], 0
+    zero_counters()
+    for i, (sample, g, aux) in enumerate(requests):
+        times = []
+        for rep in range(4):
+            before = read_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rep == 0:
+                pred = eng.predict_single(g, aux)[2]
+            else:
+                eng.predict(g, aux["hierarchy"])
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_fwd += 1
+            delta = {k: v - before[k] for k, v in read_counters().items()}
+            if any(delta[k] != v for k, v in want.items()):
+                raise AssertionError(f"bsms request {i}: launches {delta} in "
+                                     f"one forward, expected {want}")
+        if pred.shape != (sample.num_nodes, 4) or not np.isfinite(pred).all():
+            raise AssertionError(f"bsms request {i}: bad predictions "
+                                 f"{pred.shape}")
+        preds.append(pred)
+        ms = statistics.median(times[1:]) * 1e3
+        record["ms"].append(ms)
+        log(f"[bsms serve] request {i}: {sample.num_nodes} nodes, "
+            f"{sample.num_edges} edges, first call {times[0] * 1e3:.1f} ms, "
+            f"then {ms:.2f} ms per forward (median of 3), "
+            f"{sample.num_edges / ms * 1e3:.4g} edges/s")
+    launches = read_counters()
+    log(f"[bsms serve] launches over {n_fwd} forwards: {launches}")
+    with ops.use_backend("torch"):
+        before = read_counters()
+        ref = eng.predict_single(requests[0][1], requests[0][2])[2]
+        if read_counters() != before:
+            raise AssertionError("the plain path launched a kernel")
+    atol, rtol = SERVE_TOL
+    err = np.abs(preds[0] - ref)
+    if (err > atol + rtol * np.abs(ref)).any():
+        raise AssertionError(f"bsms serve vs plain path: max abs err "
+                             f"{err.max():.3e} beyond atol={atol} rtol={rtol}")
+    log(f"[bsms serve] fp32 request 0 vs plain path: max abs err "
+        f"{err.max():.3e} (atol={atol}, rtol={rtol})")
+    record.update(n_forwards=n_fwd, max_abs_err_vs_plain=float(err.max()))
+    g, aux = requests[0][1:]
+    record["profile"] = phase_profile(
+        torch, "bsms fp32 forward",
+        lambda: eng.predict(g, aux["hierarchy"]), top=10)
+    return launches, record
+
+
+def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
+    """Train the flagship BSMS on one request's Loader batch through
+    make_step_fns(needs_hierarchy=True): first-step fp32 gradients against
+    the plain path, then ``n_steps`` steps, each launching K1-K5 15 times
+    and K7 8 times; one warm step profiled."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    cfg = bsms_config()
+    dev = g.device
+    hier = aux["hierarchy"]
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3), device=dev,
+                           needs_hierarchy=True)
+    worst = check_train_grads(torch, cfg, params, g, label="bsms train",
+                              hierarchy=hier)
+    want = {k: LAYERS for k in train_counters()}
+    want["segment_sum_weighted"] = 2 * K7_PER_FORWARD
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    for step in range(n_steps):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fns.train_step(params, g, hier)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        delta = {k: v - before[k] for k, v in read_counters().items()}
+        if delta != want:
+            raise AssertionError(f"bsms train step {step}: launches {delta}, "
+                                 f"expected {want}")
+    launches = read_counters()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bsms train: non-finite loss {losses}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = statistics.median(times[1:]) * 1e3
+    log(f"[bsms train] fp32: {n_steps} steps, first {times[0] * 1e3:.1f} ms, "
+        f"then {ms:.2f} ms per step (median of {n_steps - 1}), "
+        f"{sample.num_edges / ms * 1e3:.4g} edges/s; losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    record = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+              "n_steps": n_steps, "median_ms": ms, "peak_bytes": peak,
+              "grad_worst_rel_err": worst,
+              "profile": phase_profile(torch, "bsms fp32 train step",
+                                       lambda: fns.train_step(params, g,
+                                                              hier), top=12)}
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", help="write the full JSON record here")
+    ap.add_argument("--tail-only", action="store_true",
+                    help="run only the device, build and tail phases")
     args = ap.parse_args()
     import torch
 
@@ -693,22 +1140,44 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs = [flagship_graph(seed, dev) for seed in (0, 1, 2)]
     log(f"[serve] 3 meshes built in {time.perf_counter() - t0:.1f} s")
+    tail = phase_tail(torch, *graphs[0])
+    if args.tail_only:
+        print(json.dumps({"tail": tail}))
+        return 0
     kernels = phase_kernels(torch, graphs[0][1])
+    requests, bsms_host = bsms_requests(torch, [s for s, _ in graphs], dev)
+    k7, k7_record = phase_weighted(torch, requests[0][1],
+                                   requests[0][2]["hierarchy"])
+    kernels += k7
     phase_shapes(torch, flagship_graph(3, dev, n_nodes=4096)[1])
     launches = phase_serve(torch, graphs)
     train_launches, train_record = phase_train(torch, *graphs[0])
+    bsms_serve, bsms_serve_record = phase_bsms_serve(torch, requests)
+    bsms_train, bsms_train_record = phase_bsms_train(torch, *requests[0])
     for k in kernels:
         base, dtype = k["name"].rstrip("]").split("[")
-        trained = train_launches[dtype][base]
-        if base in ("fused_edge_fwd", "fused_node_fwd"):
-            # serving is this kernel's main path (PR 1); training runs it too
-            k1, k3, n_fwd = launches[dtype]
-            k["launches"] = k1 if base == "fused_edge_fwd" else k3
-            k["launches_per_forward"] = k["launches"] / n_fwd
+        if base == "segment_sum_weighted":
+            # BSMS serving is K7's main path (this slice); training runs it
+            k["launches"] = bsms_serve[base]
+            k["launches_per_forward"] = (
+                bsms_serve[base] / bsms_serve_record["n_forwards"])
+            k["launches_train"] = bsms_train[base]
+            k["launches_per_train_step"] = (
+                bsms_train[base] / bsms_train_record["n_steps"])
         else:
-            k["launches"] = trained
-        k["launches_train"] = trained
-        k["launches_per_train_step"] = trained / TRAIN_STEPS[dtype]
+            trained = train_launches[dtype][base]
+            if base in ("fused_edge_fwd", "fused_node_fwd"):
+                # serving is this kernel's main path (PR 1); training runs it
+                k1, k3, n_fwd = launches[dtype]
+                k["launches"] = k1 if base == "fused_edge_fwd" else k3
+                k["launches_per_forward"] = k["launches"] / n_fwd
+            else:
+                k["launches"] = trained
+            k["launches_train"] = trained
+            k["launches_per_train_step"] = trained / TRAIN_STEPS[dtype]
+            if dtype == "float32":  # the BSMS path computes in fp32
+                k["launches_bsms_serve"] = bsms_serve[base]
+                k["launches_bsms_train"] = bsms_train[base]
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched on the main path")
     if args.record:
@@ -718,7 +1187,12 @@ def main() -> int:
             json.dump({"nvidia_smi": smi, "build_s": build_s,
                        "kernels": kernels, "launches": launches,
                        "train": train_record,
-                       "train_launches": train_launches,
+                       "train_launches": train_launches, "tail": tail,
+                       "k7": k7_record, "bsms_host": bsms_host,
+                       "bsms_serve": bsms_serve_record,
+                       "bsms_serve_launches": bsms_serve,
+                       "bsms_train": bsms_train_record,
+                       "bsms_train_launches": bsms_train,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")

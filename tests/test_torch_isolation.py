@@ -107,3 +107,68 @@ def test_entry_points_need_explicit_cpu(monkeypatch):
                    val_loader=loader, training_config={"epochs": 1},
                    log_fn=lambda _: None, device="cpu")
     assert res.epochs_run == 1
+
+
+def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
+    """The BSMS entry points (the Loader with hierarchies, the hierarchy
+    builders, BSMSConfig.init, the engine and the steps with
+    needs_hierarchy) raise without device="cpu" when there is no CUDA
+    device, and run with it."""
+    from aero_gnn_tpu_torch.data import dataset as D
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
+    from aero_gnn_tpu_torch.graph import hierarchy as H
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+    from aero_gnn_tpu_torch.models.bsms import BSMSConfig
+    from aero_gnn_tpu_torch.training import loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = make_random_mesh_sample(n_nodes=300, seed=0)
+    D.compute_features([s], ["mach", "alpha"])
+    kw = dict(senders=s.senders, receivers=s.receivers,
+              node_graph=np.zeros(s.num_nodes, np.int64),
+              num_nodes=s.num_nodes, pos=s.pos, num_scales=3,
+              mode="bistride")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Loader([s], 1, num_scales=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.build_hierarchy(**kw)
+    levels = H.build_hierarchy(**kw, device="cpu")
+    real = [H.build_hierarchy_real(**kw)]
+    plan = [(lv.num_coarse_nodes_pad, lv.num_coarse_edges_pad)
+            for lv in levels]
+    ckw = dict(num_fine_nodes_pad=512, num_fine_edges_pad=2048,
+               pad_plan=plan)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.collate_hierarchies(real, **ckw)
+    collated = H.collate_hierarchies(real, **ckw, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.align_hierarchy(collated)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        levels[0].to(None)
+    cfg = BSMSConfig(input_node_dim=6, input_edge_dim=3, output_node_dim=4,
+                     processor_size=3, num_scales=3, layers_per_scale=1,
+                     hidden_dim_processor=8, hidden_dim_node_encoder=8,
+                     hidden_dim_edge_encoder=8, hidden_dim_decoder=8,
+                     hierarchy_mode="bistride", transfer="weighted")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cfg.init(0)
+    params = cfg.init(0, device="cpu")
+    stats = {"target_mean": 0.0, "target_std": 1.0}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AeroInference(cfg, params, stats, needs_hierarchy=True)
+    opt = loop.make_optimizer(params, 1e-3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.make_step_fns(cfg, opt, needs_hierarchy=True)
+    loader = Loader([s], 1, num_scales=3, hierarchy_mode="bistride",
+                    device="cpu")
+    g, aux = next(iter(loader))
+    eng = AeroInference(cfg, params, stats, device="cpu",
+                        needs_hierarchy=True)
+    assert eng.predict_single(g, aux)[0].shape == (s.num_nodes, 4)
+    fns = loop.make_step_fns(cfg, opt, device="cpu", needs_hierarchy=True)
+    assert np.isfinite(float(fns.train_step(params, g, aux["hierarchy"])))
+    res = loop.fit(model_cfg=cfg, params=params, train_loader=loader,
+                   val_loader=loader, training_config={"epochs": 1},
+                   needs_hierarchy=True, log_fn=lambda _: None, device="cpu")
+    assert res.epochs_run == 1

@@ -197,9 +197,7 @@ def test_loader_matches_jax(align):
     tl = TB.Loader(tsam, 2, shuffle=True, seed=3, align_edges=align,
                    device="cpu")
     assert len(tl) == len(jl) == 3
-    assert dataclasses.asdict(tl.pad_spec) == {
-        k: v for k, v in dataclasses.asdict(jl.pad_spec).items()
-        if not k.startswith("hierarchy")}
+    assert dataclasses.asdict(tl.pad_spec) == dataclasses.asdict(jl.pad_spec)
     for _ in range(2):  # two epochs: the shuffle follows the epoch
         for (jg, jaux), (tg, taux) in zip(jl, tl):
             assert [s.meta for s in jaux["samples"]] == \
@@ -211,8 +209,10 @@ def test_loader_matches_jax(align):
                 np.testing.assert_array_equal(
                     getattr(tg, name).numpy(), np.asarray(getattr(jg, name)),
                     err_msg=name)
-    with pytest.raises(NotImplementedError, match="BSMS"):
-        TB.Loader(tsam, 2, num_scales=2, device="cpu")
+    # with num_scales > 1 the batches carry the hierarchy (BSMS); its
+    # arrays are compared with JAX's in test_torch_hierarchy.py
+    _, aux = next(iter(TB.Loader(tsam, 2, num_scales=2, device="cpu")))
+    assert len(aux["hierarchy"]) == 1
 
 
 def test_fit_on_cpu_and_dropout():
