@@ -93,6 +93,10 @@ class GraphBatch:
         return self.senders.shape[0]
 
     @property
+    def num_graphs_pad(self) -> int:
+        return self.graph_mask.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.x.device
 

@@ -42,10 +42,17 @@ import torch
 from torch import nn
 
 from aero_gnn_tpu_torch import ops
-from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
+from aero_gnn_tpu_torch.device import DeviceLike
 from aero_gnn_tpu_torch.graph.hierarchy import HierarchyLevel
 from aero_gnn_tpu_torch.graph.padded import GraphBatch
-from aero_gnn_tpu_torch.models.mgn import MGNConfig, cast_params, run_processor
+from aero_gnn_tpu_torch.models.mgn import (
+    MGNConfig,
+    ModelParams,
+    cast_params,
+    check_apply,
+    init_params,
+    run_processor,
+)
 from aero_gnn_tpu_torch.nn import blocks as B
 from aero_gnn_tpu_torch.nn import mlp as M
 from aero_gnn_tpu_torch.ops.scatter import gather, segment_mean, segment_sum
@@ -182,11 +189,7 @@ class BSMSConfig(MGNConfig):
         """Random parameters drawn on the CPU from ``generator`` (a CPU
         torch.Generator or an int seed), moved to ``device`` (CUDA unless
         ``"cpu"``)."""
-        dev = resolve_device(device)
-        if not isinstance(generator, torch.Generator):
-            seed = 0 if generator is None else int(generator)
-            generator = torch.Generator().manual_seed(seed)
-        return BSMS(self, generator).to(dev)
+        return init_params(BSMS, self, generator, device)
 
     def apply(self, params: "BSMS", graph: GraphBatch, *,
               hierarchy: Tuple[HierarchyLevel, ...],
@@ -196,17 +199,12 @@ class BSMSConfig(MGNConfig):
         if len(hierarchy) != self.num_scales - 1:
             raise ValueError(f"hierarchy has {len(hierarchy)} levels, "
                              f"expected {self.num_scales - 1}")
-        if params.device != graph.device or any(
-                lv.device != graph.device for lv in hierarchy):
-            raise ValueError(f"params are on {params.device}, the graph on "
-                             f"{graph.device}, the hierarchy on "
-                             f"{[str(lv.device) for lv in hierarchy]}")
+        if any(lv.device != graph.device for lv in hierarchy):
+            raise ValueError(f"the graph is on {graph.device}, the hierarchy "
+                             f"on {[str(lv.device) for lv in hierarchy]}")
         if self.transfer not in ("mean", "weighted"):
             raise ValueError(f"Unknown transfer: {self.transfer}")
-        if self.remat and (self.remat_group > 1 or self.remat_offload):
-            raise NotImplementedError(
-                "remat_group > 1 and remat_offload (grouped / host-offloaded "
-                "remat) are not ported yet (ROADMAP queue 1)")
+        check_apply(self, params, graph)
         casted = cast_params(params, "float32")
         if casted:
             return torch.func.functional_call(
@@ -269,7 +267,7 @@ class BSMSConfig(MGNConfig):
                            activation=self.activation).float()
 
 
-class BSMS(nn.Module):
+class BSMS(ModelParams):
     """Parameters of a BSMSConfig: node / edge encoders, ``down`` (one
     ModuleList of MGNLayers per down stage), ``bottleneck``, ``up`` (one
     per up stage, coarsest first) and the decoder."""
@@ -296,15 +294,6 @@ class BSMS(nn.Module):
         self.down = nn.ModuleList(stack(c) for c in cfg.down_counts)
         self.bottleneck = stack(cfg.bottleneck_count)
         self.up = nn.ModuleList(stack(c) for c in reversed(cfg.down_counts))
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.parameters()).device
-
-    def forward(self, fn, *args):
-        """``fn(self, *args)``: lets torch.func.functional_call run a
-        function of the module with substituted parameters."""
-        return fn(self, *args)
 
 
 def _dropout(x: torch.Tensor, rate: float,

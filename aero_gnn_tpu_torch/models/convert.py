@@ -1,14 +1,18 @@
-"""Carry MGN and BSMS parameters between the JAX package's tree and the
+"""Carry the model zoo's parameters between the JAX package's tree and the
 port (``params_from_jax``, the inverse of aero_gnn_tpu/utils/torch_import.py,
 and ``params_to_jax``).
 
 The JAX tree, as numpy arrays, has the layout of ``MGNConfig.init`` there:
 ``{"node_encoder", "edge_encoder": {"linears": [{"w", "b"}], "ln"},
 "layers": {"edge": ..., "node": ...} with every leaf stacked on a leading
-layer axis, "decoder": MLP tree or a list of them}``; ``BSMSConfig.init``'s
-has ``"down": [stacked layers per stage], "bottleneck": stacked layers,
-"up": [stacked layers per stage]`` in place of ``"layers"``. Weights are
-[in, out] in both packages, so each leaf is an exact copy.
+layer axis, "decoder": MLP tree or a list of them}``. FourierMGN's is the
+MGN tree over the expanded input; poolMGN's adds ``"global_encoder"``;
+``BSMSConfig.init``'s has ``"down": [stacked layers per stage],
+"bottleneck": stacked layers, "up": [stacked layers per stage]`` in place
+of ``"layers"``; MGNv2's is ``{"node_encoder", "edge_encoder",
+"global_encoder", "global_linout": {"w", "b"}, "layers": {"edge_mlp",
+"node_mlp"} stacked, "decoder"}``; MLPNet's ``{"encoder", "decoder"}``.
+Weights are [in, out] in both packages, so each leaf is an exact copy.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
 from aero_gnn_tpu_torch.models.bsms import BSMSConfig
-from aero_gnn_tpu_torch.models.mgn import MGNConfig
+from aero_gnn_tpu_torch.models.mgn_v2 import MGNv2Config
+from aero_gnn_tpu_torch.models.mlpnet import MLPNetConfig
+from aero_gnn_tpu_torch.models.poolmgn import PoolMGNConfig
 from aero_gnn_tpu_torch.nn import blocks as B
 from aero_gnn_tpu_torch.nn import mlp as M
 
@@ -81,18 +87,44 @@ def _load_layer(layer: B.MGNLayer, t, name: str) -> None:
 def _load_stack(layers, tree, name: str) -> None:
     """Copy a JAX stack (leaves stacked on the leading axis) into a
     ModuleList of MGNLayers."""
-    n_layers = np.asarray(tree["node"]["linears"][0]["w"]).shape[0]
-    if n_layers != len(layers):
-        raise ValueError(f"{name}: {n_layers} processor layers in JAX, "
-                         f"{len(layers)} in the port")
+    _check_depth(np.asarray(tree["node"]["linears"][0]["w"]).shape[0],
+                 len(layers), name)
     for i, layer in enumerate(layers):
         _load_layer(layer, _layer(tree, i), f"{name}[{i}]")
 
 
-def params_from_jax(tree, cfg: MGNConfig, *, device: DeviceLike = None):
-    """Port parameters equal to a JAX ``cfg.init`` tree (MGN or BSMS), on
-    ``device``."""
+def _check_depth(tree_layers: int, port_layers: int, name: str) -> None:
+    if tree_layers != port_layers:
+        raise ValueError(f"{name}: {tree_layers} processor layers in JAX, "
+                         f"{port_layers} in the port")
+
+
+def params_from_jax(tree, cfg, *, device: DeviceLike = None):
+    """Port parameters equal to a JAX ``cfg.init`` tree (any config of
+    ``models.registry``), on ``device``."""
     params = cfg.init(0, device="cpu")
+    if isinstance(cfg, MLPNetConfig):
+        load_mlp(params.encoder, tree["encoder"], "encoder")
+        load_mlp(params.decoder, tree["decoder"], "decoder")
+        return params.to(resolve_device(device))
+    if isinstance(cfg, MGNv2Config):
+        for k in ("node_encoder", "edge_encoder", "global_encoder",
+                  "decoder"):
+            load_mlp(getattr(params, k), tree[k], k)
+        _put(params.global_linout.w, tree["global_linout"]["w"],
+             "global_linout.w")
+        _put(params.global_linout.b, tree["global_linout"]["b"],
+             "global_linout.b")
+        _check_depth(np.asarray(tree["layers"]["edge_mlp"]["linears"][0][
+            "w"]).shape[0], len(params.layers), "layers")
+        for i, layer in enumerate(params.layers):
+            t = _layer(tree["layers"], i)
+            load_mlp(layer.edge_mlp, t["edge_mlp"], f"layers[{i}].edge_mlp")
+            load_mlp(layer.node_mlp, t["node_mlp"], f"layers[{i}].node_mlp")
+        return params.to(resolve_device(device))
+    if isinstance(cfg, PoolMGNConfig):
+        load_mlp(params.global_encoder, tree["global_encoder"],
+                 "global_encoder")
     load_mlp(params.node_encoder, tree["node_encoder"], "node_encoder")
     load_mlp(params.edge_encoder, tree["edge_encoder"], "edge_encoder")
     if isinstance(cfg, BSMSConfig):
@@ -161,12 +193,28 @@ def _stack_tree(layers, grads: bool):
     return _stack([_layer_tree(layer, grads) for layer in layers])
 
 
-def params_to_jax(params, cfg: MGNConfig, *, grads: bool = False):
+def params_to_jax(params, cfg, *, grads: bool = False):
     """The port's parameters (``grads=True``: their ``.grad``, zeros where
     there is none) as the JAX package's ``cfg.init`` tree of float32 numpy
     arrays, processor layers stacked on the leading axis."""
+    if isinstance(cfg, MLPNetConfig):
+        return {"encoder": _mlp_tree(params.encoder, grads),
+                "decoder": _mlp_tree(params.decoder, grads)}
+    if isinstance(cfg, MGNv2Config):
+        tree = {k: _mlp_tree(getattr(params, k), grads)
+                for k in ("node_encoder", "edge_encoder", "global_encoder",
+                          "decoder")}
+        tree["global_linout"] = {"w": _get(params.global_linout.w, grads),
+                                 "b": _get(params.global_linout.b, grads)}
+        tree["layers"] = _stack([
+            {"edge_mlp": _mlp_tree(layer.edge_mlp, grads),
+             "node_mlp": _mlp_tree(layer.node_mlp, grads)}
+            for layer in params.layers])
+        return tree
     enc = {"node_encoder": _mlp_tree(params.node_encoder, grads),
            "edge_encoder": _mlp_tree(params.edge_encoder, grads)}
+    if isinstance(cfg, PoolMGNConfig):
+        enc["global_encoder"] = _mlp_tree(params.global_encoder, grads)
     if isinstance(cfg, BSMSConfig):
         return {**enc,
                 "down": [_stack_tree(s, grads) for s in params.down],

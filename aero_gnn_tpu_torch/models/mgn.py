@@ -99,23 +99,13 @@ class MGNConfig:
         """Random parameters (torch.nn.Linear-style init) drawn on the CPU
         from ``generator`` (a CPU torch.Generator or an int seed), then
         moved to ``device`` (CUDA unless ``"cpu"``)."""
-        dev = resolve_device(device)
-        if not isinstance(generator, torch.Generator):
-            seed = 0 if generator is None else int(generator)
-            generator = torch.Generator().manual_seed(seed)
-        return MeshGraphNet(self, generator).to(dev)
+        return init_params(MeshGraphNet, self, generator, device)
 
     def apply(self, params: "MeshGraphNet", graph: GraphBatch, *,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Forward pass -> fp32 [N_pad, output_node_dim]. ``generator`` (on
         the graph's device) turns on the encoders' dropout."""
-        if params.device != graph.device:
-            raise ValueError(f"params are on {params.device}, the graph on "
-                             f"{graph.device}")
-        if self.remat and (self.remat_group > 1 or self.remat_offload):
-            raise NotImplementedError(
-                "remat_group > 1 and remat_offload (grouped / host-offloaded "
-                "remat) are not ported yet (ROADMAP queue 1)")
+        check_apply(self, params, graph)
         cd = self.compute_dtype
         casted = cast_params(params, cd)
         if casted:
@@ -148,7 +138,56 @@ class MGNConfig:
         return out.float()
 
 
-class MeshGraphNet(nn.Module):
+class ModelParams(nn.Module):
+    """Base of the models' parameter modules: their device, and a forward
+    that lets torch.func.functional_call run a function of the module with
+    substituted parameters."""
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, fn, *args):
+        """``fn(self, *args)``."""
+        return fn(self, *args)
+
+
+def init_params(module_cls, cfg, generator: Union[torch.Generator, int, None],
+                device: DeviceLike) -> nn.Module:
+    """``module_cls(cfg, generator)`` drawn on the CPU from ``generator`` (a
+    CPU torch.Generator or an int seed, 0 by default), moved to ``device``
+    (CUDA unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        seed = 0 if generator is None else int(generator)
+        generator = torch.Generator().manual_seed(seed)
+    return module_cls(cfg, generator).to(dev)
+
+
+def mgn_base(cfg: MGNConfig, input_node_dim: int) -> MGNConfig:
+    """The plain MGNConfig of ``cfg`` (an MGNConfig subclass) over a node
+    input of ``input_node_dim`` columns."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(MGNConfig)}
+    fields["input_node_dim"] = input_node_dim
+    return MGNConfig(**fields)
+
+
+def check_apply(cfg, params: nn.Module, graph: GraphBatch) -> None:
+    """The checks every model's apply makes: parameters on the graph's
+    device and, for the configs with remat (the MGN family), no remat
+    variant that is not ported."""
+    if params.device != graph.device:
+        raise ValueError(f"params are on {params.device}, the graph on "
+                         f"{graph.device}")
+    if getattr(cfg, "remat", False) and (cfg.remat_group > 1
+                                         or cfg.remat_offload):
+        raise NotImplementedError(
+            "remat_group > 1 and remat_offload (grouped / host-offloaded "
+            "remat) are not ported yet (ROADMAP queue 1)")
+
+
+class MeshGraphNet(ModelParams):
     """Parameters of an MGNConfig: node/edge encoders, ``layers`` (one
     MGNLayer per processor step) and the decoder (a ModuleList of
     per-field MLPs with ``separate_decoders``)."""
@@ -178,21 +217,13 @@ class MeshGraphNet(nn.Module):
                         if cfg.separate_decoders
                         else decoder(cfg.output_node_dim))
 
-    @property
-    def device(self) -> torch.device:
-        return next(self.parameters()).device
-
-    def forward(self, fn, *args):
-        """``fn(self, *args)``: lets torch.func.functional_call run a
-        function of the module with substituted parameters."""
-        return fn(self, *args)
-
 
 def apply_model(model_cfg, params, graph: GraphBatch, hierarchy,
                 needs_hierarchy: bool, device: torch.device, **kw):
-    """``model_cfg.apply`` (an MGNConfig or a subclass) with the graph (and
-    the hierarchy) moved to ``device``; ``needs_hierarchy`` models (BSMS)
-    require the hierarchy. The entry point of the engine and the steps."""
+    """``model_cfg.apply`` (any config of ``models.registry``) with the
+    graph (and the hierarchy) moved to ``device``; ``needs_hierarchy``
+    models (BSMS) require the hierarchy. The entry point of the engine and
+    the steps."""
     if graph.device != device:
         graph = graph.to(device)
     if not needs_hierarchy:

@@ -8,9 +8,13 @@
   * ``node_block_*``         — aggregate incoming messages by receiver
     (add | mean), concat with the node state, MLP
   * ``mgn_layer_apply``      — edge update + residual, then node update +
-    residual. On the cuda backend with an aligned graph the layer runs the
-    fused Hopper kernels K1 (edge) and K3 (node) forward, K2 and K4
-    backward, and the sender gather's backward on K5.
+    residual. On the cuda backend with an aligned graph the concat-trick
+    layer runs the fused Hopper kernels K1 (edge) and K3 (node) forward,
+    K2 and K4 backward, and the sender gather's backward on K5. The
+    unfused layer (``do_concat_trick=False``, the registry's default) runs
+    its receiver gather on K6 (backward K5), its aggregation on K5 with the
+    pad sink declared, the sender gather's backward on K5 and the rest as
+    plain ops (the node update is ``node_block_post``).
 
 All functions take explicit masks so pad edges/nodes contribute zeros, and
 are differentiable end to end.
@@ -211,9 +215,14 @@ def node_block_apply(mlp: M.MLP, cfg: MGNLayerConfig,
                      receivers: torch.Tensor,
                      edge_mask: Optional[torch.Tensor],
                      aligned: bool = False) -> torch.Tensor:
+    """NodeBlock over a stream of ``graph.padded`` (GraphBatch or
+    HierarchyLevel), whose last node is the pad sink: the aggregation
+    declares it (``pad_sink``), so on an aligned stream K5 skips the sink's
+    pad rows."""
     edge_aggr = ops.aggregate_edges(
         edge_attr, receivers, node_attr.shape[0],
-        aggregation=cfg.aggregation, edge_mask=edge_mask, aligned=aligned)
+        aggregation=cfg.aggregation, edge_mask=edge_mask, aligned=aligned,
+        pad_sink=True)
     return node_block_post(mlp, cfg, node_attr, edge_aggr)
 
 

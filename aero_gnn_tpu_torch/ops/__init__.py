@@ -4,9 +4,9 @@ aero_gnn_tpu.ops).
 ``backend()`` is ``"cuda"`` (default) or ``"torch"``:
 
   * ``"cuda"``: the model's fused-path gates hold, and the kernel wrappers
-    (``ops.hopper_fused``, ``ops.hopper_node``, ``ops.hopper_segment``)
-    launch the Hopper kernels on CUDA tensors. Given CPU tensors, a wrapper
-    runs its plain version.
+    (``ops.hopper_fused``, ``ops.hopper_node``, ``ops.hopper_segment``,
+    ``ops.hopper_gather``) launch the Hopper kernels on CUDA tensors. Given
+    CPU tensors, a wrapper runs its plain version.
   * ``"torch"``: every gate fails and the model runs the plain PyTorch
     composition everywhere: the explicit reference mode.
 
@@ -25,6 +25,9 @@ from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     gather,
     gather_receivers,
     gather_senders,
+    graph_broadcast,
+    graph_pool,
+    segment_max,
     segment_mean,
     segment_sum,
     segment_sum_masked,
@@ -58,34 +61,32 @@ def use_backend(name: str):
         _BACKEND = prev
 
 
-def refuse_unported_kernel(what: str, kernel: str, t: torch.Tensor) -> None:
-    """On the cuda backend an aligned stream on the card belongs to a Hopper
-    kernel that is not ported yet; refuse rather than run the plain op."""
-    if _BACKEND == "cuda" and t.is_cuda:
-        raise NotImplementedError(
-            f"{what} on an aligned edge stream needs Hopper kernel {kernel} "
-            "(the port of aero_gnn_tpu/ops/pallas_segment.py), which is not "
-            "ported yet; use ops.use_backend('torch') for the plain path")
-
-
 def aggregate_edges(messages: torch.Tensor, receivers: torch.Tensor,
                     num_nodes: int, *, aggregation: str,
                     edge_mask: Optional[torch.Tensor] = None,
-                    aligned: bool = False) -> torch.Tensor:
+                    aligned: bool = False,
+                    pad_sink: bool = False) -> torch.Tensor:
     """Aggregate edge messages to destination nodes ([E, D] -> [N, D]),
     'add' or 'mean'; ValueError on any other mode. On the cuda backend an
     aligned stream takes kernel K5 (its plain version on CPU tensors); the
-    'mean' degree is K5's sum of the mask, as segment_agg_pallas does."""
+    'mean' degree is K5's sum of the mask, as segment_agg_pallas does.
+    ``pad_sink`` declares the stream one of ``graph.padded`` (GraphBatch,
+    HierarchyLevel): every row keyed by the last node, the pad sink, is
+    masked, so K5 skips those rows (a Loader batch's pad tail) and writes
+    the sink's row as 0, the exact sum. Without it the last node's rows
+    are summed like any other."""
     if aggregation not in ("add", "mean"):
         raise ValueError(f"Unsupported aggregation method: {aggregation}")
     if aligned and _BACKEND == "cuda":
         mask = (torch.ones(messages.shape[0], dtype=messages.dtype,
                            device=messages.device)
                 if edge_mask is None else edge_mask)
-        summed = segment_sum_masked(messages, receivers, mask, num_nodes)
+        summed = segment_sum_masked(messages, receivers, mask, num_nodes,
+                                    pad_sink=pad_sink)
         if aggregation == "mean":
             deg = segment_sum_masked(mask[:, None].to(messages.dtype),
-                                     receivers, mask, num_nodes)
+                                     receivers, mask, num_nodes,
+                                     pad_sink=pad_sink)
             summed = summed / torch.clamp(deg, min=1.0)
         return summed
     if edge_mask is not None:

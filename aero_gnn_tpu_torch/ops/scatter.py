@@ -12,7 +12,10 @@ transpose the JAX package defines:
     the sender-sorted stream (``ct[sender_perm]`` summed by
     ``senders_sorted``), on kernel K5 (``ops.hopper_segment``) when the
     stream is declared aligned on the cuda backend;
-  * ``gather_receivers``: ``x[receivers]``; backward a sorted segment sum;
+  * ``gather_receivers``: ``x[receivers]``; backward a sorted segment sum.
+    On a stream declared aligned on the cuda backend the forward is kernel
+    K6 (``ops.hopper_gather``) and the backward K5 over the receiver
+    stream;
   * ``segment_sum_sorted``: backward a sorted gather;
   * ``segment_sum_masked``: the masked sum of ``aggregate_edges`` on an
     aligned stream, forward on K5; backward ``mask * ct[ids]``;
@@ -20,14 +23,16 @@ transpose the JAX package defines:
     stream, forward on K7; backward the JAX package's ``_sswp_bwd``
     (``d_msgs = ct[ids] * w * mask``, ``d_w = <ct[ids], msgs> * mask``).
 
-The sender backward and ``segment_sum_weighted`` run on streams of the
-aligned layout, whose last segment is the pad sink: they pass
-``pad_sink=True`` (``ops.hopper_segment``), so the pad tail of a Loader
-batch is not walked.
+The sender and receiver backward passes and ``segment_sum_weighted`` run
+on streams of the aligned layout, whose last segment is the pad sink: they
+pass ``pad_sink=True`` (``ops.hopper_segment``), so the pad tail of a
+Loader batch is not walked; ``segment_sum_masked`` does when its caller
+declares it.
 
-``segment_sum`` / ``segment_mean`` over unsorted ids (the BSMS pools) stay
-plain ``index_add_`` with the autograd of the gather: the JAX package
-leaves them to XLA.
+``segment_sum`` / ``segment_mean`` / ``segment_max`` over ids in any order
+(the BSMS pools, the per-graph pools ``graph_pool`` / ``graph_broadcast``
+of poolMGN and MGNv2) stay plain ops with PyTorch's autograd: the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from aero_gnn_tpu_torch.ops import hopper_gather as HG
 from aero_gnn_tpu_torch.ops import hopper_segment as HS
 
 
@@ -72,6 +78,47 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
             if mask is None else mask)
     counts = segment_sum(ones, segment_ids, num_segments)
     return summed / torch.clamp(counts, min=1.0)[:, None]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, *,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked segment max over [E, D]: masked rows count as the dtype's
+    finfo.min (so a segment of masked rows only gives finfo.min, as in the
+    JAX package), empty segments give 0. Gradient to the maximal rows,
+    shared evenly among ties."""
+    if mask is not None:
+        data = torch.where(mask[:, None] > 0, data,
+                           torch.finfo(data.dtype).min)
+    out = torch.full((num_segments, data.shape[1]), float("-inf"),
+                     dtype=data.dtype, device=data.device)
+    out = out.scatter_reduce(0, segment_ids.long()[:, None].expand_as(data),
+                             data, "amax", include_self=True)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+def graph_pool(node_values: torch.Tensor, node_graph: torch.Tensor,
+               num_graphs: int, *, method: str = "mean",
+               node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-graph pooling over the batch vector, [N, D] -> [G, D]: 'mean',
+    'add' / 'sum' or 'max' of the real nodes; ValueError on any other
+    method. Plain ops, as the JAX package leaves them to XLA."""
+    if method == "mean":
+        return segment_mean(node_values, node_graph, num_graphs,
+                            mask=node_mask)
+    if method in ("add", "sum"):
+        return segment_sum(node_values, node_graph, num_graphs,
+                           mask=node_mask)
+    if method == "max":
+        return segment_max(node_values, node_graph, num_graphs,
+                           mask=node_mask)
+    raise ValueError(f"Unsupported global pooling method: {method}")
+
+
+def graph_broadcast(graph_values: torch.Tensor,
+                    node_graph: torch.Tensor) -> torch.Tensor:
+    """Per-graph rows back to their nodes: [G, D] -> [N, D]."""
+    return gather(graph_values, node_graph)
 
 
 class _GatherSenders(torch.autograd.Function):
@@ -113,28 +160,38 @@ def gather_senders(x: torch.Tensor, senders: torch.Tensor,
 
 class _GatherReceivers(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, receivers):
+    def forward(ctx, x, receivers, use_kernel):
         ctx.save_for_backward(receivers)
         ctx.num_nodes = x.shape[0]
+        ctx.use_kernel = use_kernel
+        if use_kernel:
+            return HG.gather_rows(x.contiguous(), receivers)
         return gather(x, receivers)
 
     @staticmethod
     def backward(ctx, ct):
         (receivers,) = ctx.saved_tensors
-        return HS.segment_sum_ref(ct, receivers, ctx.num_nodes), None
+        if ctx.use_kernel:
+            # K5 over the receiver stream with a mask of ones, as the JAX
+            # package's _grp_bwd; the sink's rows are pad rows whose
+            # cotangent is zero (they reach the nodes only through the
+            # masked aggregation), so pad_sink skips them exactly
+            dx = HS.segment_sum(ct.contiguous(), receivers, ctx.num_nodes,
+                                pad_sink=True)
+        else:
+            dx = HS.segment_sum_ref(ct, receivers, ctx.num_nodes)
+        return dx, None, None
 
 
 def gather_receivers(x: torch.Tensor, receivers: torch.Tensor,
                      aligned: bool = False) -> torch.Tensor:
     """``x[receivers]`` (ascending ids) with a sorted segment-sum backward.
-    On the cuda backend an aligned stream on the card belongs to kernel K6,
-    which is not ported yet."""
-    if aligned:
-        from aero_gnn_tpu_torch import ops as _ops
-
-        _ops.refuse_unported_kernel(
-            "gather_receivers", "K6 (gather_receivers_pallas)", x)
-    return _GatherReceivers.apply(x, receivers)
+    ``aligned`` declares the stream block-aligned (build_graph_batch
+    align_edges=True) and, on the cuda backend, routes the forward to
+    kernel K6 (``ops.hopper_gather``) and the backward to kernel K5 (their
+    plain versions on CPU tensors)."""
+    return _GatherReceivers.apply(x, receivers,
+                                  aligned and _backend() == "cuda")
 
 
 class _SegmentSumSorted(torch.autograd.Function):
@@ -158,25 +215,29 @@ def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
 
 class _SegmentSumMasked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, mask, num_segments):
+    def forward(ctx, data, segment_ids, mask, num_segments, pad_sink):
         ctx.save_for_backward(segment_ids, mask)
-        return HS.segment_sum(data, segment_ids, num_segments, mask=mask)
+        return HS.segment_sum(data, segment_ids, num_segments, mask=mask,
+                              pad_sink=pad_sink)
 
     @staticmethod
     def backward(ctx, ct):
         segment_ids, mask = ctx.saved_tensors
         d = gather(ct, segment_ids) * mask[:, None].to(ct.dtype)
-        return d, None, None, None
+        return d, None, None, None, None
 
 
 def segment_sum_masked(data: torch.Tensor, segment_ids: torch.Tensor,
-                       mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+                       mask: torch.Tensor, num_segments: int, *,
+                       pad_sink: bool = False) -> torch.Tensor:
     """``out[n] = sum_{ids[i] = n} mask[i] * data[i]`` on kernel K5 (CUDA
     tensors) or its plain version (CPU tensors); ``mask`` is cast to the
-    data's dtype."""
+    data's dtype. ``pad_sink`` (``ops.hopper_segment``) declares every row
+    keyed by the last segment masked: K5 skips those rows and writes that
+    segment as 0, which is then the exact sum."""
     return _SegmentSumMasked.apply(data.contiguous(), segment_ids,
                                    mask.to(data.dtype).contiguous(),
-                                   num_segments)
+                                   num_segments, pad_sink)
 
 
 class _SegmentSumWeighted(torch.autograd.Function):

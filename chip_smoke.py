@@ -12,11 +12,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device  — nvidia-smi name and power limit, CUDA and card names;
   2. build   — compile every kernel in aero_gnn_tpu_torch/csrc with nvcc
                (sm_90a), one process per source, and report the time;
-  3. tail    — K1, K2 and K5 on the Loader-padded 65,536-node graph (whose
-               edge stream ends in a tail of pad rows keyed by the pad
-               sink) against the tight aligned graph, both dtypes, checked
-               against the plain versions and timed; one bf16 MGN train
-               step through each graph;
+  3. tail    — K1, K2 and K5 (the sender backward's, and the unfused
+               aggregation's: the receiver stream, the edge mask and the
+               pad sink declared) on the Loader-padded 65,536-node graph
+               (whose edge stream ends in a tail of pad rows keyed by the
+               pad sink) against the tight aligned graph, both dtypes,
+               checked against the plain versions and timed; one bf16 MGN
+               train step through each graph;
   4. kernels — each Hopper kernel against its plain PyTorch version on the
                card, at the flagship shapes (the 65,536-node mesh's aligned
                layout, h = 128, 2 hidden layers; K5 on its aligned sender
@@ -29,6 +31,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                without ``rows``, bit-equal across launches, timed at the
                fine level beside its bound, its plain version and
                torch.sparse.mm of a CSR matrix;
+               K6 at the tight MGN graph's shapes and at the Loader fine
+               level's (receivers of each graph, random node rows), both
+               dtypes, torch.equal to index_select and across launches,
+               timed beside its bound, its plain version and
+               torch.index_select, with nvcc's register and spill report;
   4b. shapes — the kernels' other configurations (no hidden layer, weights
                streamed per stage, h = 64) against the plain versions on a
                4,096-node mesh;
@@ -56,7 +63,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                through make_step_fns(needs_hierarchy=True): fp32 first-step
                gradients against the plain path, 5 steps each launching
                K1-K5 15 times and K7 8 times, finite losses, peak device
-               memory, one step profiled.
+               memory, one step profiled;
+  9. zoo     — the registry's unfused model zoo built by
+               models.registry.build_model from the model dicts of
+               aero_gnn_tpu/config/default.yaml (written out here), served
+               through AeroInference.predict_batch over Loader([mesh], 1)
+               batches and trained through make_step_fns: FourierMGN (15
+               layers, width 128, the unfused layer, remat on) serves the
+               three meshes and trains 5 steps in bf16 and in fp32;
+               poolMGN, MGNv2 (trial1) and MLPNet serve mesh 0 and train 2
+               fp32 steps. K6 and K5 launches are asserted per forward and
+               per step; fp32 predictions and one fp32 step's gradients
+               against the plain path; one FourierMGN fp32 forward and one
+               step profiled.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or aero_gnn_tpu is imported.
@@ -105,6 +124,46 @@ LAYERS = 15
 BSMS_SCALES = 3
 # K7 launches: 2 transfers down + 2 up per forward; a step adds their VJPs
 K7_PER_FORWARD = 2 * (BSMS_SCALES - 1)
+# the registry's model sections of aero_gnn_tpu/config/default.yaml
+# (model.fouriermgn, model.poolMGN, model.trial1, model.mlpnet), widths and
+# depths uncut; remat and compute_dtype at the registry's defaults
+_MGN_SECTION = dict(processor_size=LAYERS, activation_fn="relu",
+                    hidden_dim=HIDDEN, aggregation="add",
+                    num_hidden_layers_decoder=N_HIDDEN,
+                    num_hidden_layers_node_encoder=N_HIDDEN,
+                    num_hidden_layers_edge_encoder=N_HIDDEN,
+                    num_hidden_layers_node_processor=N_HIDDEN,
+                    num_hidden_layers_edge_processor=N_HIDDEN, dropout=0.0)
+ZOO = {
+    "fouriermgn": dict(name="fouriermgn", **_MGN_SECTION,
+                       fourier_features_dim=2, fourier_freq_start=-3,
+                       fourier_freq_length=7),
+    "poolmgn": dict(name="poolMGN", **_MGN_SECTION,
+                    global_pool_method="mean",
+                    num_hidden_layers_global_encoder=2, global_dim=HIDDEN),
+    "mgn_v2": dict(name="trial1", number_of_encoding_layers=3,
+                   num_message_passing_layers=LAYERS,
+                   number_of_decoding_layers=2, hidden_dim=HIDDEN,
+                   dropout=0.0, activation="relu"),
+    "mlpnet": dict(name="mlpnet", num_hidden_layers_encoder=3,
+                   hidden_dim=HIDDEN, num_hidden_layers_decoder=3,
+                   dropout=0.0, activation="relu"),
+}
+ZOO_DIMS = dict(input_node_dim=6, input_edge_dim=3, output_node_dim=4)
+# K6 / K5 launches per forward and per train step, from the code: the
+# unfused layer gathers its receivers on K6 and aggregates on K5 once per
+# layer; a remat step runs each layer's forward twice (the forward and the
+# recompute) and adds K6's backward and the sender backward, both on K5.
+# MGNv2 aggregates by the mean (K5 for the sum and the degree) and has no
+# remat and no node gather; MLPNet passes no message.
+ZOO_LAUNCHES = {
+    "fouriermgn": {"forward": (LAYERS, LAYERS),
+                   "step": (2 * LAYERS, 4 * LAYERS)},
+    "poolmgn": {"forward": (LAYERS, LAYERS), "step": (2 * LAYERS, 4 * LAYERS)},
+    "mgn_v2": {"forward": (0, 2 * LAYERS), "step": (0, 2 * LAYERS)},
+    "mlpnet": {"forward": (0, 0), "step": (0, 0)},
+}
+ZOO_STEPS = {"fouriermgn": 5, "poolmgn": 2, "mgn_v2": 2, "mlpnet": 2}
 
 
 def log(msg: str) -> None:
@@ -336,18 +395,30 @@ def sink_kw(HS):
     return {"pad_sink": True} if "pad_sink" in params else {}
 
 
+def agg_sink_kw(ops):
+    """K5's ``pad_sink`` keyword as the unfused aggregation passes it (empty
+    on a tree from before that aggregation declared the pad sink, which
+    walked the tail)."""
+    import inspect
+
+    params = inspect.signature(ops.aggregate_edges).parameters
+    return {"pad_sink": True} if "pad_sink" in params else {}
+
+
 def phase_tail(torch, sample, tight):
     """K1, K2 and K5 on the Loader-padded graph of ``sample`` against the
     tight aligned graph, both dtypes, checked against the plain versions;
     then one bf16 MGN train step through each graph. The Loader budgets an
     extra tile per node block, so its stream ends in a tail of pad rows
     that all have the pad sink as receiver."""
+    from aero_gnn_tpu_torch import ops
     from aero_gnn_tpu_torch.data.batching import Loader
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
     from aero_gnn_tpu_torch.training import loop as TL
 
     dev = tight.device
+    agg_kw = agg_sink_kw(ops)
     loader = Loader([sample], 1, align_edges=True, device=dev)
     padded = next(iter(loader))[0]
     sink = padded.num_nodes_pad - 1
@@ -383,6 +454,17 @@ def phase_tail(torch, sample, tight):
             k5 = HS.segment_sum(data, ids, g.num_nodes_pad, rows=rows, **kw)
             p5 = HS.segment_sum_ref(data, ids, g.num_nodes_pad, rows=rows,
                                     **kw)
+            # the unfused aggregation: K5 over the receiver stream with the
+            # edge mask, as ops.aggregate_edges launches it
+            msgs, emask = edge_args[0], edge_args[3]
+            agg = dict(mask=emask, **agg_kw)
+            with torch.no_grad():
+                ka = ops.aggregate_edges(msgs, g.receivers, g.num_nodes_pad,
+                                         aggregation="add", edge_mask=emask,
+                                         aligned=True, **agg_kw)
+            ka2 = HS.segment_sum(msgs, g.receivers, g.num_nodes_pad, **agg)
+            pa = HS.segment_sum_ref(msgs, g.receivers, g.num_nodes_pad,
+                                    mask=emask)
             torch.cuda.synchronize()
             tag = f"{name} {dtype_name}"
             check_close(torch, f"tail K1 {tag} e'", ek, ep, dtype_name,
@@ -390,9 +472,14 @@ def phase_tail(torch, sample, tight):
             check_close(torch, f"tail K1 {tag} agg", ak, ap, dtype_name)
             check_bwd(torch, f"tail K2 {tag}", k2, p2, dtype_name, 3)
             check_close(torch, f"tail K5 {tag}", k5, p5, dtype_name)
+            check_close(torch, f"tail K5 aggregation {tag}", ka, pa,
+                        dtype_name)
+            if not torch.equal(ka, ka2):
+                raise AssertionError(f"tail K5 aggregation {tag}: the timed "
+                                     "launch differs from aggregate_edges")
             if name == "loader" and not (ak[sink] == 0).all():
                 raise AssertionError(f"tail K1 {tag}: the sink's agg is not 0")
-            del ep, ap, p2, p5
+            del ep, ap, p2, p5, pa, ka2
             reps = {"reps": 10, "warmup": 2}
             times = {
                 "K1": cuda_time_ms(torch, lambda: HF.fused_edge_layer(
@@ -400,13 +487,16 @@ def phase_tail(torch, sample, tight):
                 "K2": cuda_time_ms(torch, lambda: HF.fused_edge_layer_bwd(
                     *edge_bwd), **reps),
                 "K5": cuda_time_ms(torch, lambda: HS.segment_sum(
-                    data, ids, g.num_nodes_pad, rows=rows, **kw), **reps)}
+                    data, ids, g.num_nodes_pad, rows=rows, **kw), **reps),
+                "K5agg": cuda_time_ms(torch, lambda: HS.segment_sum(
+                    msgs, g.receivers, g.num_nodes_pad, **agg), **reps)}
             rec[name][dtype_name] = times
             log(f"[tail] {tag}: K1 {times['K1']:.3f} ms, K2 "
-                f"{times['K2']:.3f} ms, K5 {times['K5']:.3f} ms")
-            del edge_args, edge_bwd, seg, data, ek, ak, k2, k5
+                f"{times['K2']:.3f} ms, K5 {times['K5']:.3f} ms, K5 "
+                f"aggregation {times['K5agg']:.3f} ms")
+            del edge_args, edge_bwd, seg, data, ek, ak, k2, k5, ka, msgs
             torch.cuda.empty_cache()
-    for k in ("K1", "K2", "K5"):
+    for k in ("K1", "K2", "K5", "K5agg"):
         for dtype_name in ("bfloat16", "float32"):
             ratio = (rec["loader"][dtype_name][k]
                      / rec["tight"][dtype_name][k])
@@ -559,6 +649,87 @@ def phase_kernels(torch, graph):
         del edge_args, edge_bwd, node_args, node_bwd, seg, gathered, kernels
         torch.cuda.empty_cache()
     return results
+
+
+def ptxas_lines(name: str) -> list:
+    """nvcc's register / shared memory / spill lines for csrc/<name>.cu."""
+    from aero_gnn_tpu_torch.ops import _build
+
+    return [line.replace("ptxas info    :", "").strip()
+            for line in _build.ptxas_report.get(name, "").splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def phase_gather(torch, graphs):
+    """K6 against its plain version (index_select) on each (label, graph)
+    of ``graphs``: random node rows gathered by the graph's receivers, both
+    dtypes; torch.equal to the plain version and across two launches; timed
+    beside its bound, the plain version and torch.index_select. Returns
+    the kernels' JSON entries (the last graph's, the Loader fine level of
+    the main path) and the record."""
+    from aero_gnn_tpu_torch.ops import hopper_gather as HG
+
+    results, record = [], {"ptxas": ptxas_lines("gather_rows")}
+    for line in record["ptxas"]:
+        log(f"[kernels] gather_rows ptxas: {line}")
+    for label, g in graphs:
+        dev = g.device
+        E, N, idx = g.num_edges_pad, g.num_nodes_pad, g.receivers
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            gen = torch.Generator(device=dev).manual_seed(606)
+            nodes = torch.randn(N, HIDDEN, generator=gen, device=dev).to(dt)
+            k = HG.gather_rows(nodes, idx)
+            k2 = HG.gather_rows(nodes, idx)
+            p = HG.gather_rows_ref(nodes, idx)
+            torch.cuda.synchronize()
+            tag = f"K6 {label} {dtype_name}"
+            if not torch.equal(k, p):
+                bad = int((k != p).any(1).sum())
+                raise AssertionError(f"{tag}: {bad} rows differ from "
+                                     "index_select")
+            if not torch.equal(k, k2):
+                raise AssertionError(f"{tag}: differs between two launches")
+            isz = torch.finfo(dt).bits // 8
+            # the node table and the ids read once, the rows written once
+            nbytes = (N + E) * HIDDEN * isz + 4 * E
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            rec = {"E": E, "N": N, "bytes": nbytes, "bound_ms": bound,
+                   "ms": cuda_time_ms(torch,
+                                      lambda: HG.gather_rows(nodes, idx)),
+                   "plain_ms": cuda_time_ms(
+                       torch, lambda: HG.gather_rows_ref(nodes, idx)),
+                   "library_ms": cuda_time_ms(
+                       torch, lambda: torch.index_select(nodes, 0, idx))}
+            record[f"{label}[{dtype_name}]"] = rec
+            log(f"[kernels] gather_rows {label} {dtype_name}: E={E}, N={N}, "
+                f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+                f"index_select {rec['library_ms']:.4f} ms), bound "
+                f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB); "
+                f"torch.equal to index_select and across launches")
+            if label == graphs[-1][0]:
+                results.append({
+                    "name": f"gather_rows[{dtype_name}]", "route": "cuda",
+                    "source": "aero_gnn_tpu_torch/csrc/gather_rows.cu",
+                    "replaces": "aero_gnn_tpu/ops/pallas_segment.py:494",
+                    "launches": None, "max_abs_err": 0.0, "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": rec["library_ms"],
+                    "flops": 0, "bytes": nbytes})
+            del nodes, k, k2, p
+        torch.cuda.empty_cache()
+    # a row width that is not a multiple of 16 bytes (the 2-byte copy path)
+    g = graphs[0][1]
+    for dtype_name in ("bfloat16", "float32"):
+        nodes = torch.randn(g.num_nodes_pad, 34, device=g.device).to(
+            getattr(torch, dtype_name))
+        if not torch.equal(HG.gather_rows(nodes, g.receivers),
+                           HG.gather_rows_ref(nodes, g.receivers)):
+            raise AssertionError(f"K6 h=34 {dtype_name}: differs from "
+                                 "index_select")
+    log("[kernels] gather_rows h=34 (2-byte words), both dtypes: torch.equal "
+        "to index_select")
+    return results, record
 
 
 def phase_serve(torch, graphs):
@@ -722,6 +893,7 @@ def bsms_config():
 
 def train_counters():
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_gather as HG
     from aero_gnn_tpu_torch.ops import hopper_node as HN
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
 
@@ -730,6 +902,7 @@ def train_counters():
             "fused_node_fwd": HN.fused_node_layer,
             "fused_node_bwd": HN.fused_node_layer_bwd,
             "segment_sum": HS.segment_sum,
+            "gather_rows": HG.gather_rows,
             "segment_sum_weighted": HS.segment_sum_weighted}
 
 
@@ -783,7 +956,8 @@ def phase_train(torch, sample, graph):
     from aero_gnn_tpu_torch.training import loop as TL
 
     counters = train_counters()
-    del counters["segment_sum_weighted"]  # the MGN has no K7
+    # the fused MGN has no K7 and gathers its receivers inside K1
+    del counters["segment_sum_weighted"], counters["gather_rows"]
     launches, record = {}, {}
     for dtype, n_steps in TRAIN_STEPS.items():
         cfg = flagship_config(compute_dtype=dtype)
@@ -1083,6 +1257,7 @@ def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
                               hierarchy=hier)
     want = {k: LAYERS for k in train_counters()}
     want["segment_sum_weighted"] = 2 * K7_PER_FORWARD
+    want["gather_rows"] = 0
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counters()
@@ -1117,6 +1292,180 @@ def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
     return launches, record
 
 
+def zoo_requests(torch, samples, dev):
+    """Each sample through its own Loader (batch 1, the aligned layout of
+    the cuda backend): (sample, GraphBatch, aux) per request."""
+    from aero_gnn_tpu_torch.data.batching import Loader
+
+    t0 = time.perf_counter()
+    out = [(s, *next(iter(Loader([s], 1, device=dev)))) for s in samples]
+    torch.cuda.synchronize()
+    g = out[0][1]
+    log(f"[zoo] {len(out)} Loader batches in {time.perf_counter() - t0:.2f} "
+        f"s: {g.num_nodes_pad} padded nodes, {g.num_edges_pad} edge rows "
+        f"({int((g.receivers != g.num_nodes_pad - 1).sum())} before the "
+        f"sink tail), {g.num_graphs_pad} graph slots")
+    return out
+
+
+def _zoo_delta(before, kind, what, label):
+    """Launches since ``before``; raises unless K6 / K5 launched as
+    ZOO_LAUNCHES says and no other kernel did."""
+    k6, k5 = ZOO_LAUNCHES[kind][what]
+    delta = {k: v - before[k] for k, v in read_counters().items()}
+    want = {k: 0 for k in delta}
+    want.update(gather_rows=k6, segment_sum=k5)
+    if delta != want:
+        raise AssertionError(f"zoo {kind} {label}: launches {delta}, "
+                             f"expected {want}")
+    return delta
+
+
+def zoo_serve(torch, kind, cfg, params, requests, stats, dtype):
+    """Serve ``requests`` (4 forwards each, the first through
+    predict_batch) and check every forward's launches; fp32 request 0
+    against the plain path. Returns the record."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+
+    dev = requests[0][1].device
+    eng = AeroInference(cfg, params, stats, device=dev)
+    rec, preds = {"ms": [], "first_ms": []}, []
+    zero_counters()
+    n_fwd = 0
+    for i, (sample, g, aux) in enumerate(requests):
+        times = []
+        for rep in range(4):
+            before = read_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rep == 0:
+                pred = eng.predict_batch(g, aux)[0][2]
+            else:
+                eng.predict(g)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_fwd += 1
+            _zoo_delta(before, kind, "forward", f"{dtype} request {i}")
+        if pred.shape != (sample.num_nodes, 4) or not np.isfinite(pred).all():
+            raise AssertionError(f"zoo {kind} {dtype} request {i}: bad "
+                                 f"predictions {pred.shape}")
+        preds.append(pred)
+        ms = statistics.median(times[1:]) * 1e3
+        rec["ms"].append(ms)
+        rec["first_ms"].append(times[0] * 1e3)
+        log(f"[zoo] {kind} {dtype} request {i}: {sample.num_nodes} nodes, "
+            f"first call {times[0] * 1e3:.1f} ms, then {ms:.2f} ms per "
+            f"forward (median of 3), {sample.num_edges / ms * 1e3:.4g} "
+            f"edges/s")
+    rec["launches"] = read_counters()
+    rec["n_forwards"] = n_fwd
+    log(f"[zoo] {kind} {dtype} serve: K6 {rec['launches']['gather_rows']}x, "
+        f"K5 {rec['launches']['segment_sum']}x over {n_fwd} forwards "
+        f"({ZOO_LAUNCHES[kind]['forward']} per forward)")
+    if dtype == "float32":
+        with ops.use_backend("torch"):
+            before = read_counters()
+            ref = eng.predict_batch(requests[0][1], requests[0][2])[0][2]
+            if read_counters() != before:
+                raise AssertionError("the plain path launched a kernel")
+        atol, rtol = SERVE_TOL
+        err = np.abs(preds[0] - ref)
+        if (err > atol + rtol * np.abs(ref)).any():
+            raise AssertionError(f"zoo {kind} serve vs plain path: max abs "
+                                 f"err {err.max():.3e} beyond atol={atol} "
+                                 f"rtol={rtol}")
+        rec["max_abs_err_vs_plain"] = float(err.max())
+        log(f"[zoo] {kind} fp32 request 0 vs plain path: max abs err "
+            f"{err.max():.3e} (atol={atol}, rtol={rtol})")
+    return rec, eng
+
+
+def zoo_train(torch, kind, cfg, params, request, dtype):
+    """Train ``ZOO_STEPS[kind]`` steps on one request through
+    make_step_fns, checking each step's launches (fp32: first-step
+    gradients against the plain path first). Returns the record and the
+    step functions."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    sample, g, _ = request
+    fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                           device=g.device)
+    worst = (check_train_grads(torch, cfg, params, g, label=f"zoo {kind}")
+             if dtype == "float32" else None)
+    n_steps = ZOO_STEPS[kind]
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats(g.device)
+    zero_counters()
+    for step in range(n_steps):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fns.train_step(params, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        _zoo_delta(before, kind, "step", f"{dtype} step {step}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"zoo {kind} {dtype}: non-finite loss {losses}")
+    launches = read_counters()
+    ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated(g.device)
+    log(f"[zoo] {kind} {dtype} train: {n_steps} steps, first "
+        f"{times[0] * 1e3:.1f} ms, then {ms:.2f} ms per step (median of "
+        f"{n_steps - 1}), {sample.num_edges / ms * 1e3:.4g} edges/s; losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; K6 {launches['gather_rows']}x, K5 "
+        f"{launches['segment_sum']}x ({ZOO_LAUNCHES[kind]['step']} per "
+        f"step)")
+    return {"losses": losses, "step_ms": [t * 1e3 for t in times],
+            "median_ms": ms, "n_steps": n_steps, "peak_bytes": peak,
+            "launches": launches, "grad_worst_rel_err": worst}, fns
+
+
+def phase_zoo(torch, requests):
+    """Serve and train the registry's unfused model zoo (module docstring,
+    phase 9). Returns the record; ``record["fouriermgn"][dtype]["serve"]
+    ["launches"]`` are the K6 / K5 launches of FourierMGN serving, the
+    slice's main path."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch.models.registry import build_model
+
+    stats = {"target_mean": np.zeros(4, np.float32),
+             "target_std": np.ones(4, np.float32)}
+    record = {}
+    for kind, mc in ZOO.items():
+        dtypes = ("bfloat16", "float32") if kind == "fouriermgn" \
+            else ("float32",)
+        reqs = requests if kind == "fouriermgn" else requests[:1]
+        for dtype in dtypes:
+            cfg = build_model(dict(mc, compute_dtype=dtype), ZOO_DIMS)
+            params = cfg.init(torch.Generator().manual_seed(0),
+                              device=reqs[0][1].device)
+            serve, eng = zoo_serve(torch, kind, cfg, params, reqs, stats,
+                                   dtype)
+            train, fns = zoo_train(torch, kind, cfg, params, requests[0],
+                                   dtype)
+            rec = record.setdefault(kind, {})[dtype] = {"serve": serve,
+                                                        "train": train}
+            if kind == "fouriermgn" and dtype == "float32":
+                g = requests[0][1]
+                rec["profile_forward"] = phase_profile(
+                    torch, "zoo fouriermgn fp32 forward",
+                    lambda: eng.predict(g), top=10)
+                rec["profile_step"] = phase_profile(
+                    torch, "zoo fouriermgn fp32 train step",
+                    lambda: fns.train_step(params, g), top=12)
+            del params, eng, fns
+            torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", help="write the full JSON record here")
@@ -1145,6 +1494,10 @@ def main() -> int:
         print(json.dumps({"tail": tail}))
         return 0
     kernels = phase_kernels(torch, graphs[0][1])
+    zoo_reqs = zoo_requests(torch, [s for s, _ in graphs], dev)
+    k6, k6_record = phase_gather(torch, [("tight", graphs[0][1]),
+                                         ("loader", zoo_reqs[0][1])])
+    kernels += k6
     requests, bsms_host = bsms_requests(torch, [s for s, _ in graphs], dev)
     k7, k7_record = phase_weighted(torch, requests[0][1],
                                    requests[0][2]["hierarchy"])
@@ -1154,9 +1507,26 @@ def main() -> int:
     train_launches, train_record = phase_train(torch, *graphs[0])
     bsms_serve, bsms_serve_record = phase_bsms_serve(torch, requests)
     bsms_train, bsms_train_record = phase_bsms_train(torch, *requests[0])
+    del requests
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(torch, zoo_reqs)
     for k in kernels:
         base, dtype = k["name"].rstrip("]").split("[")
-        if base == "segment_sum_weighted":
+        fourier = zoo["fouriermgn"][dtype]
+        if base in ("gather_rows", "segment_sum"):
+            k["launches_fouriermgn_serve"] = \
+                fourier["serve"]["launches"][base]
+            k["launches_fouriermgn_train"] = \
+                fourier["train"]["launches"][base]
+        if base == "gather_rows":
+            # FourierMGN serving is K6's main path (this slice)
+            k["launches"] = fourier["serve"]["launches"][base]
+            k["launches_per_forward"] = (
+                k["launches"] / fourier["serve"]["n_forwards"])
+            k["launches_train"] = fourier["train"]["launches"][base]
+            k["launches_per_train_step"] = (
+                k["launches_train"] / fourier["train"]["n_steps"])
+        elif base == "segment_sum_weighted":
             # BSMS serving is K7's main path (this slice); training runs it
             k["launches"] = bsms_serve[base]
             k["launches_per_forward"] = (
@@ -1193,6 +1563,7 @@ def main() -> int:
                        "bsms_serve_launches": bsms_serve,
                        "bsms_train": bsms_train_record,
                        "bsms_train_launches": bsms_train,
+                       "k6": k6_record, "zoo": zoo,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")

@@ -109,6 +109,43 @@ def test_entry_points_need_explicit_cpu(monkeypatch):
     assert res.epochs_run == 1
 
 
+@pytest.mark.parametrize("name", ["meshgraphnet", "fouriermgn", "poolMGN",
+                                  "trial1", "mlpnet"])
+def test_registry_models_need_explicit_cpu(monkeypatch, name):
+    """A registry model (build_model -> init -> AeroInference /
+    make_step_fns over a Loader batch) raises without device="cpu" when
+    there is no CUDA device, and serves and trains with it."""
+    from aero_gnn_tpu_torch.data import dataset as D
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+    from aero_gnn_tpu_torch.models.registry import build_model
+    from aero_gnn_tpu_torch.training import loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = make_random_mesh_sample(n_nodes=300, seed=0)
+    D.compute_features([s], ["mach", "alpha"])
+    cfg = build_model({"name": name, "hidden_dim": 8, "processor_size": 2,
+                       "num_message_passing_layers": 2},
+                      dict(input_node_dim=6, input_edge_dim=3,
+                           output_node_dim=4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cfg.init(0)
+    params = cfg.init(0, device="cpu")
+    stats = {"target_mean": 0.0, "target_std": 1.0}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AeroInference(cfg, params, stats)
+    g, aux = next(iter(Loader([s], 1, device="cpu")))
+    eng = AeroInference(cfg, params, stats, device="cpu")
+    pred = eng.predict_batch(g, aux)[0][0]
+    assert pred.shape == (s.num_nodes, 4) and np.isfinite(pred).all()
+    opt = loop.make_optimizer(params, 1e-3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.make_step_fns(cfg, opt)
+    fns = loop.make_step_fns(cfg, opt, device="cpu")
+    assert np.isfinite(float(fns.train_step(params, g)))
+
+
 def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
     """The BSMS entry points (the Loader with hierarchies, the hierarchy
     builders, BSMSConfig.init, the engine and the steps with

@@ -106,31 +106,45 @@ def test_aggregate_edges_rejects_unknown_mode():
 
 
 def test_aligned_stream_on_card_refuses_unported_kernels(monkeypatch):
-    """On the cuda backend an aligned stream on the card must not fall back
-    to the plain ops: K6 (receiver gather) is not ported yet and refuses.
-    K5 (aggregation) is ported: aggregate_edges on an aligned stream goes to
-    ops.hopper_segment.segment_sum (its plain version on CPU tensors)
-    without a refusal. The plain ops serve CPU tensors and the torch
-    backend."""
-    from types import SimpleNamespace
-
+    """Routing of an aligned stream on the cuda backend (the name is from
+    the slice that refused the receiver gather; K6 is ported now and no
+    refusal is left): the receiver gather calls the K6 wrapper forward and
+    the K5 wrapper backward, aggregate_edges the K5 wrapper (sum and
+    degree), never the plain gather; the plain ops serve the torch backend.
+    A stream whose last node has a real edge keeps its sum without
+    pad_sink."""
+    from aero_gnn_tpu_torch.ops import hopper_gather as HG
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
+    from aero_gnn_tpu_torch.ops import scatter as TSc
 
-    on_card = SimpleNamespace(is_cuda=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tops.refuse_unported_kernel("gather_receivers", "K6", on_card)
+    assert not hasattr(tops, "refuse_unported_kernel")
+    calls = {"k6": 0, "k5": [], "plain_gather": 0}
+    k6, k5, plain = HG.gather_rows, HS.segment_sum, TSc.gather
+
+    def count(key, fn):
+        def wrapped(*a, **k):
+            if key == "k5":
+                calls[key].append(k.get("pad_sink", False))
+            else:
+                calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(HG, "gather_rows", count("k6", k6))
+    monkeypatch.setattr(HS, "segment_sum", count("k5", k5))
+    monkeypatch.setattr(TSc, "gather", count("plain_gather", plain))
+    recv = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
+    x = torch.arange(6.0).reshape(3, 2).requires_grad_()
+    out = tops.gather_receivers(x, recv, aligned=True)
+    out.backward(torch.ones(4, 2))
+    assert calls == {"k6": 1, "k5": [True], "plain_gather": 0}
+    assert torch.equal(out, x.detach()[recv.long()])
     with tops.use_backend("torch"):
-        tops.refuse_unported_kernel("gather_receivers", "K6", on_card)
-    tops.refuse_unported_kernel("gather_receivers", "K6",
-                                SimpleNamespace(is_cuda=False))
-    refused, k5 = [], []
-    monkeypatch.setattr(tops, "refuse_unported_kernel",
-                        lambda *a: refused.append(a))
-    plain_k5 = HS.segment_sum
-    monkeypatch.setattr(HS, "segment_sum",
-                        lambda *a, **k: k5.append(a) or plain_k5(*a, **k))
+        tops.gather_receivers(x, recv, aligned=True)
+    assert calls["k6"] == 1 and calls["plain_gather"] == 1
+    calls["k5"] = []
     out = tops.aggregate_edges(
-        torch.ones(4, 2), torch.tensor([0, 0, 1, 2], dtype=torch.int32), 3,
-        aggregation="mean", edge_mask=torch.ones(4), aligned=True)
-    assert not refused and len(k5) == 2  # the sum and the degree
+        torch.ones(4, 2), recv, 3, aggregation="mean",
+        edge_mask=torch.ones(4), aligned=True)
+    assert calls["k5"] == [False, False]  # the sum and the degree
     assert torch.equal(out, torch.ones(3, 2))
