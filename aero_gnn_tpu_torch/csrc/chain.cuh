@@ -1,6 +1,6 @@
-// Shared pieces of the fused MLP-chain kernels (fused_edge_fwd.cu,
-// fused_node_fwd.cu, and through chain_bwd.cuh the backward kernels
-// fused_edge_bwd.cu, fused_node_bwd.cu): a row chunk of 128 rows per CTA step, 8 warps of 16
+// Shared pieces of the fused MLP-chain kernels (the forward chains of
+// edge_fwd.cuh and node_fwd.cuh, and through chain_bwd.cuh the backward
+// ones): a row chunk of 128 rows per CTA step, 8 warps of 16
 // rows each, every h x h product as warp-level tiles whose accumulator
 // layout is that of mma.sync m16n8k16 (thread (g = lane/4, t = lane%4) holds
 // rows g and g+8, columns 8j+2t and 8j+2t+1 for j < H/8), so one epilogue
@@ -97,6 +97,30 @@ __device__ __forceinline__ void load_weight(T* dst, const T* __restrict__ src) {
   }
 }
 
+// The weights of a chain in shared memory: all resident (matrix m in slot
+// m) when they fit, else streamed one matrix per stage through slot 0, the
+// whole CTA swapping it.
+template <typename T, int H>
+struct WeightSlots {
+  T* wbuf;
+  int resident;
+
+  // Matrix m into its slot when resident; the caller synchronises.
+  __device__ void preload(int m, const T* src) const {
+    if (resident)
+      load_weight<T, H>(wbuf + size_t(m) * H * Layout<T, H>::kLd, src);
+  }
+  // The slot holding matrix m (`src`), loaded first when streamed. Every
+  // thread of the CTA calls it.
+  __device__ const T* use(int m, const T* src) const {
+    if (resident) return wbuf + size_t(m) * H * Layout<T, H>::kLd;
+    __syncthreads();
+    load_weight<T, H>(wbuf, src);
+    __syncthreads();
+    return wbuf;
+  }
+};
+
 // Copy the warp's 16 rows of a row-major [*, H] tensor into its slice of the
 // activation buffer, 16 bytes per thread and load.
 template <typename T, int H>
@@ -109,6 +133,49 @@ __device__ __forceinline__ void load_rows(T* act, const T* __restrict__ src) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * V;
     *reinterpret_cast<uint4*>(act + r * LD + c) =
         *reinterpret_cast<const uint4*>(src + size_t(r) * H + c);
+  }
+}
+
+// The warp's 16 rows of an activation buffer back to a row-major [*, H]
+// tensor, 16 bytes per thread and store.
+template <typename T, int H>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const T* act) {
+  constexpr int LD = Layout<T, H>::kLd;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PER_ROW = H / V;
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < 16 * PER_ROW; i += 32) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+    *reinterpret_cast<uint4*>(dst + size_t(r) * H + c) =
+        *reinterpret_cast<const uint4*>(act + r * LD + c);
+  }
+}
+
+// Rows ra / rb of a row-major [*, H] tensor (the thread's rows g and g + 8)
+// to or from registers in the accumulator layout.
+template <typename T, int H>
+__device__ __forceinline__ void load_acc(float (&acc)[H / 8][4],
+                                         const T* row_a, const T* row_b) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const float2 a = Num<T>::load2(row_a + 8 * j + 2 * t);
+    const float2 b = Num<T>::load2(row_b + 8 * j + 2 * t);
+    acc[j][0] = a.x;
+    acc[j][1] = a.y;
+    acc[j][2] = b.x;
+    acc[j][3] = b.y;
+  }
+}
+
+template <typename T, int H>
+__device__ __forceinline__ void store_acc(const float (&acc)[H / 8][4],
+                                          T* row_a, T* row_b) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    Num<T>::store2(row_a + 8 * j + 2 * t, acc[j][0], acc[j][1]);
+    Num<T>::store2(row_b + 8 * j + 2 * t, acc[j][2], acc[j][3]);
   }
 }
 
@@ -212,6 +279,43 @@ __device__ __forceinline__ void row_stats(const float (&acc)[H / 8][4],
   inv = rsqrtf(q * (1.f / H) + kLnEps);
 }
 
+// acc = rnd(rnd(acc) + b): the output linear's bias.
+template <typename T, int H>
+__device__ __forceinline__ void bias_round(float (&acc)[H / 8][4],
+                                           const T* __restrict__ b) {
+  using N = Num<T>;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const float2 bo = N::load2(b + 8 * j + 2 * t);
+    acc[j][0] = N::rnd(N::rnd(acc[j][0]) + bo.x);
+    acc[j][1] = N::rnd(N::rnd(acc[j][1]) + bo.y);
+    acc[j][2] = N::rnd(N::rnd(acc[j][2]) + bo.x);
+    acc[j][3] = N::rnd(N::rnd(acc[j][3]) + bo.y);
+  }
+}
+
+// LayerNorm of each row in place with the rows' statistics (mu, inv of row
+// g, then of row g + 8): acc = rnd((acc - mu) * inv * scale + bias).
+template <typename T, int H>
+__device__ __forceinline__ void layer_norm_rows(float (&acc)[H / 8][4],
+                                                const float (&mu)[2],
+                                                const float (&inv)[2],
+                                                const T* __restrict__ scale,
+                                                const T* __restrict__ shift) {
+  using N = Num<T>;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 sc = N::load2(scale + col), sh = N::load2(shift + col);
+    acc[j][0] = N::rnd((acc[j][0] - mu[0]) * inv[0] * sc.x + sh.x);
+    acc[j][1] = N::rnd((acc[j][1] - mu[0]) * inv[0] * sc.y + sh.y);
+    acc[j][2] = N::rnd((acc[j][2] - mu[1]) * inv[1] * sc.x + sh.x);
+    acc[j][3] = N::rnd((acc[j][3] - mu[1]) * inv[1] * sc.y + sh.y);
+  }
+}
+
 // acc = rnd(rnd(acc) + b_out); then LayerNorm of each row in place:
 // acc = rnd((acc - mu) * inv * scale + bias), statistics in fp32.
 template <typename T, int H>
@@ -219,28 +323,11 @@ __device__ __forceinline__ void bias_layer_norm(float (&acc)[H / 8][4],
                                                 const T* __restrict__ b_out,
                                                 const T* __restrict__ scale,
                                                 const T* __restrict__ shift) {
-  using N = Num<T>;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j) {
-    const float2 bo = N::load2(b_out + 8 * j + 2 * t);
-    acc[j][0] = N::rnd(N::rnd(acc[j][0]) + bo.x);
-    acc[j][1] = N::rnd(N::rnd(acc[j][1]) + bo.y);
-    acc[j][2] = N::rnd(N::rnd(acc[j][2]) + bo.x);
-    acc[j][3] = N::rnd(N::rnd(acc[j][3]) + bo.y);
-  }
-  float mu0, inv0, mu1, inv1;
-  row_stats<H>(acc, 0, mu0, inv0);
-  row_stats<H>(acc, 1, mu1, inv1);
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float2 sc = N::load2(scale + col), sh = N::load2(shift + col);
-    acc[j][0] = N::rnd((acc[j][0] - mu0) * inv0 * sc.x + sh.x);
-    acc[j][1] = N::rnd((acc[j][1] - mu0) * inv0 * sc.y + sh.y);
-    acc[j][2] = N::rnd((acc[j][2] - mu1) * inv1 * sc.x + sh.x);
-    acc[j][3] = N::rnd((acc[j][3] - mu1) * inv1 * sc.y + sh.y);
-  }
+  bias_round<T, H>(acc, b_out);
+  float mu[2], inv[2];
+  row_stats<H>(acc, 0, mu[0], inv[0]);
+  row_stats<H>(acc, 1, mu[1], inv[1]);
+  layer_norm_rows<T, H>(acc, mu, inv, scale, shift);
 }
 
 // Shared memory the kernel needs: all n_mats weights resident when they fit

@@ -1,8 +1,10 @@
-// Shared pieces of the fused backward kernels (fused_edge_bwd.cu = K2,
-// fused_node_bwd.cu = K4), on top of chain.cuh.
+// Shared pieces of the fused backward kernels (edge_bwd.cuh: K2, K8 and
+// the edge half of K9-bwd; node_bwd.cuh: K4 and the node half of K9-bwd),
+// on top of chain.cuh.
 //
 // A CTA walks row chunks of 128 rows, recomputes the forward chain of a
-// chunk and runs its backward. Per chunk it keeps in "buffers" (each
+// chunk (or, in K8, reads the activations the forward saved) and runs its
+// backward. Per chunk it keeps in "buffers" (each
 // [128][LD] of T) the activations the backward needs: the chain's inputs,
 // every post-ReLU activation and the running cotangent dz. One weight slot
 // in shared memory is reloaded per stage, in the orientation the product
@@ -39,21 +41,6 @@ __device__ __forceinline__ void load_b(T* dst, const T* __restrict__ src) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * V;
     *reinterpret_cast<uint4*>(dst + r * LD + c) =
         *reinterpret_cast<const uint4*>(src + size_t(r) * H + c);
-  }
-}
-
-// The warp's 16 rows of an activation buffer back to a row-major [*, H]
-// tensor, 16 bytes per thread and store.
-template <typename T, int H>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const T* act) {
-  constexpr int LD = Layout<T, H>::kLd;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = H / V;
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < 16 * PER_ROW; i += 32) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
-    *reinterpret_cast<uint4*>(dst + size_t(r) * H + c) =
-        *reinterpret_cast<const uint4*>(act + r * LD + c);
   }
 }
 
@@ -236,21 +223,20 @@ __device__ __forceinline__ float sum_rows(float x) {
 
 // LayerNorm backward of the warp's rows, in registers. On entry acc holds
 // the rounded pre-LayerNorm d, ct the (rounded) cotangent of the LN output
-// as fp32. On exit acc holds d_d = rnd((g - mean(g) - xn mean(g xn)) inv),
-// g = ct * scale, with the statistics in fp32 (two-pass, as the forward),
-// and warp_part[warp][c] / warp_part[kWarps + warp][c] hold the warp's
-// column sums of ct * xn (scale grad) and ct (bias grad).
+// as fp32, mu / inv the fp32 statistics of d (rows g, g + 8). On exit acc
+// holds d_d = rnd((g - mean(g) - xn mean(g xn)) inv), g = ct * scale, and
+// warp_part[warp][c] / warp_part[kWarps + warp][c] hold the warp's column
+// sums of ct * xn (scale grad) and ct (bias grad).
 template <typename T, int H>
 __device__ __forceinline__ void ln_backward(float (&acc)[H / 8][4],
                                             const float (&ct)[H / 8][4],
                                             const T* __restrict__ scale,
-                                            float* warp_part) {
+                                            float* warp_part,
+                                            const float (&mu)[2],
+                                            const float (&inv)[2]) {
   using N = Num<T>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float mu[2], inv[2];
-  row_stats<H>(acc, 0, mu[0], inv[0]);
-  row_stats<H>(acc, 1, mu[1], inv[1]);
   float sg[2] = {0.f, 0.f}, sgx[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < H / 8; ++j) {
@@ -295,6 +281,19 @@ __device__ __forceinline__ void ln_backward(float (&acc)[H / 8][4],
       acc[j][q] = N::rnd((gg - sg[half] - acc[j][q] * sgx[half]) * inv[half]);
     }
   }
+}
+
+// The same, with the statistics of d computed here (two-pass, as the
+// forward).
+template <typename T, int H>
+__device__ __forceinline__ void ln_backward(float (&acc)[H / 8][4],
+                                            const float (&ct)[H / 8][4],
+                                            const T* __restrict__ scale,
+                                            float* warp_part) {
+  float mu[2], inv[2];
+  row_stats<H>(acc, 0, mu[0], inv[0]);
+  row_stats<H>(acc, 1, mu[1], inv[1]);
+  ln_backward<T, H>(acc, ct, scale, warp_part, mu, inv);
 }
 
 // After a __syncthreads: vec[c] += sum over warps (in order) of
@@ -346,6 +345,56 @@ __host__ inline cudaError_t plan_bwd(int n_bufs, int n_mats, int n_vecs,
                 int64_t(p->grid) * (n_bufs - p->n_smem) *
                     int64_t(Layout<T, H>::kActBytes);
   return cudaSuccess;
+}
+
+// A backward CTA's memory as plan_bwd lays it out: in shared memory the
+// weight slot, the first n_smem buffers, the chunk's receivers and mask,
+// the warps' LayerNorm column partials ([2][kWarps][H]) and the CTA's
+// vector gradients; past n_smem, the buffers in the CTA's slice of the
+// device scratch.
+template <typename T, int H>
+struct BwdCta {
+  static constexpr int LD = Layout<T, H>::kLd;
+  T *slot, *sbuf, *gbuf;
+  int n_smem;
+  int* recv_s;
+  float *mask_s, *warp_part, *vec_s;
+
+  __device__ BwdCta(unsigned char* smem_raw, T* scratch, int n_bufs,
+                    int n_smem_bufs)
+      : slot(reinterpret_cast<T*>(smem_raw)),
+        sbuf(slot + H * LD),
+        gbuf(scratch + size_t(blockIdx.x) * (n_bufs - n_smem_bufs) * kRows *
+                           LD),
+        n_smem(n_smem_bufs),
+        recv_s(reinterpret_cast<int*>(sbuf + size_t(n_smem_bufs) * kRows *
+                                                 LD)),
+        mask_s(reinterpret_cast<float*>(recv_s + kRows)),
+        warp_part(mask_s + kRows),
+        vec_s(warp_part + 2 * kWarps * H) {}
+
+  __device__ T* buf(int b) const {
+    return b < n_smem ? sbuf + size_t(b) * kRows * LD
+                      : gbuf + size_t(b - n_smem) * kRows * LD;
+  }
+  // B operand m of `wb` ([n][2][H][H]: [m][0] for the forward product
+  // act @ W, [m][1] for the backward product dz @ W^T) into the slot; the
+  // whole CTA takes part.
+  __device__ void stage(const T* wb, int m, bool transpose) const {
+    __syncthreads();
+    load_b<T, H>(slot, wb + (size_t(m) * 2 + transpose) * H * H);
+    __syncthreads();
+  }
+};
+
+// Zero a CTA's weight-gradient partial (n_mats [H, H]) and its vector
+// gradients in shared memory (n_vecs [H]).
+template <int H>
+__device__ inline void zero_grads(float* part, int n_mats, float* vec_s,
+                                  int n_vecs) {
+  for (int64_t i = threadIdx.x; i < int64_t(n_mats) * H * H; i += kThreads)
+    part[i] = 0.f;
+  for (int i = threadIdx.x; i < n_vecs * H; i += kThreads) vec_s[i] = 0.f;
 }
 
 // out[i] = sum over CTAs c = 0, 1, ... of part[c][i], in that order.

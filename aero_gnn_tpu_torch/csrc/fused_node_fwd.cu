@@ -3,16 +3,8 @@
 // Replaces: aero_gnn_tpu/ops/pallas_node.py fused_node_layer ->
 // _fused_node_fwd (pallas_call of _make_fwd_kernel). Computes its reference
 // composition _equiv for the square ReLU chain that nn/blocks.py
-// _fused_node_ok admits, per node row:
-//
-//   z  = relu(x @ W1x + agg @ W1a + b1)     (concat first linear, split)
-//   z  = relu(z @ ws[i] + bs[i])            (i < n_hidden)
-//   d  = z @ W_out + b_out
-//   x' = x + LayerNorm(d)                   (fp32 stats, eps 1e-5)
-//
-// As in the TPU kernel, x @ W1x + agg @ W1a is summed in fp32 before the
-// first rounding to the compute type (the plain version rounds each product
-// first); every later rounding point matches the plain version.
+// _fused_node_ok admits; the device code and its rounding points are in
+// node_fwd.cuh.
 //
 // Schedule: a dense row-block chain. Each CTA (persistent, one per SM)
 // takes chunks of 128 rows; the chain runs in shared memory and registers
@@ -24,7 +16,7 @@
 // 2*N*h^2 = 10.8 GFLOP per launch. In bf16 the bytes (read x, agg; write x':
 // ~51 MB) bound it; in fp32 the FFMA rate bounds it (no TF32).
 
-#include "chain.cuh"
+#include "node_fwd.cuh"
 
 namespace {
 
@@ -32,102 +24,25 @@ using namespace chain;
 
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_node_fwd_kernel(const T* __restrict__ x, const T* __restrict__ agg,
-                      const T* __restrict__ w1x, const T* __restrict__ w1a,
-                      const T* __restrict__ b1, const T* __restrict__ ws,
-                      const T* __restrict__ bs, const T* __restrict__ w_out,
-                      const T* __restrict__ b_out,
-                      const T* __restrict__ ln_scale,
-                      const T* __restrict__ ln_bias, T* __restrict__ out,
-                      int64_t n_rows, int n_hidden, int resident) {
-  using N = Num<T>;
+fused_node_fwd_kernel(NodeFwdArgs<T> a, int64_t n_rows, int resident) {
   constexpr int LD = Layout<T, H>::kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_mats = n_hidden + 3;
-  T* wbuf = reinterpret_cast<T*>(smem_raw);
-  T* act = wbuf + size_t(resident ? n_mats : 1) * H * LD;
-
-  auto weight = [&](int m) -> const T* {
-    if (m == 0) return w1x;
-    if (m == 1) return w1a;
-    return m <= n_hidden + 1 ? ws + size_t(m - 2) * H * H : w_out;
-  };
-  auto slot = [&](int m) -> const T* {
-    return resident ? wbuf + size_t(m) * H * LD : wbuf;
-  };
-  auto stage = [&](int m) {
-    if (!resident) {
-      __syncthreads();
-      load_weight<T, H>(wbuf, weight(m));
-      __syncthreads();
-    }
-  };
-  if (resident) {
-    for (int m = 0; m < n_mats; ++m)
-      load_weight<T, H>(wbuf + size_t(m) * H * LD, weight(m));
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  T* my_act = act + warp * 16 * LD;
-  float acc[H / 8][4];
-
+  const int n_mats = a.n_hidden + 3;
+  const WeightSlots<T, H> w{reinterpret_cast<T*>(smem_raw), resident};
+  T* act = w.wbuf + size_t(resident ? n_mats : 1) * H * LD;
+  for (int m = 0; m < n_mats; ++m) w.preload(m, a.template weight<H>(m));
+  __syncthreads();
   for (int64_t r0 = int64_t(blockIdx.x) * kRows; r0 < n_rows;
-       r0 += int64_t(gridDim.x) * kRows) {
-    const int64_t rw = r0 + warp * 16;
-    const int64_t ra = rw + g, rb = rw + g + 8;
-
-    zero<H>(acc);
-    load_rows<T, H>(my_act, x + rw * H);
-    __syncwarp();
-    stage(0);
-    mm<H>(my_act, slot(0), acc);
-    __syncwarp();
-    load_rows<T, H>(my_act, agg + rw * H);
-    __syncwarp();
-    stage(1);
-    mm<H>(my_act, slot(1), acc);
-    __syncwarp();
-    bias_relu_store<T, H>(acc, b1, my_act);
-    __syncwarp();
-
-    for (int i = 0; i < n_hidden; ++i) {
-      zero<H>(acc);
-      stage(2 + i);
-      mm<H>(my_act, slot(2 + i), acc);
-      __syncwarp();
-      bias_relu_store<T, H>(acc, bs + size_t(i) * H, my_act);
-      __syncwarp();
-    }
-
-    zero<H>(acc);
-    stage(n_hidden + 2);
-    mm<H>(my_act, slot(n_hidden + 2), acc);
-    __syncwarp();
-    bias_layer_norm<T, H>(acc, b_out, ln_scale, ln_bias);
-#pragma unroll
-    for (int j = 0; j < H / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float2 xa = N::load2(x + ra * H + col);
-      const float2 xb = N::load2(x + rb * H + col);
-      N::store2(out + ra * H + col, N::rnd(xa.x + acc[j][0]),
-                N::rnd(xa.y + acc[j][1]));
-      N::store2(out + rb * H + col, N::rnd(xb.x + acc[j][2]),
-                N::rnd(xb.y + acc[j][3]));
-    }
-  }
+       r0 += int64_t(gridDim.x) * kRows)
+    node_fwd_chunk<T, H>(a, w, act, r0);
 }
 
 template <typename T, int H>
-cudaError_t launch(const void* x, const void* agg, const void* w1x,
-                   const void* w1a, const void* b1, const void* ws,
-                   const void* bs, const void* w_out, const void* b_out,
-                   const void* ln_scale, const void* ln_bias, void* out,
-                   int64_t n_rows, int n_hidden, cudaStream_t stream) {
+cudaError_t launch(const NodeFwdArgs<T>& a, int64_t n_rows,
+                   cudaStream_t stream) {
   int resident = 0;
   size_t smem = 0;
-  cudaError_t err = plan_smem<T, H>(n_hidden + 3, 0, &resident, &smem);
+  cudaError_t err = plan_smem<T, H>(a.n_hidden + 3, 0, &resident, &smem);
   if (err != cudaSuccess) return err;
   auto kernel = fused_node_fwd_kernel<T, H>;
   err = cudaFuncSetAttribute(kernel,
@@ -137,15 +52,26 @@ cudaError_t launch(const void* x, const void* agg, const void* w1x,
   const int64_t chunks = n_rows / kRows;
   const int grid = int(chunks < sm_count() ? chunks : sm_count());
   if (grid == 0) return cudaSuccess;
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(a, n_rows, resident);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* agg, const void* w1x,
+             const void* w1a, const void* b1, const void* ws, const void* bs,
+             const void* w_out, const void* b_out, const void* ln_scale,
+             const void* ln_bias, void* out, int64_t n_rows, int h,
+             int n_hidden, cudaStream_t stream) {
+  const NodeFwdArgs<T> a{
       static_cast<const T*>(x), static_cast<const T*>(agg),
       static_cast<const T*>(w1x), static_cast<const T*>(w1a),
       static_cast<const T*>(b1), static_cast<const T*>(ws),
       static_cast<const T*>(bs), static_cast<const T*>(w_out),
       static_cast<const T*>(b_out), static_cast<const T*>(ln_scale),
-      static_cast<const T*>(ln_bias), static_cast<T*>(out), n_rows, n_hidden,
-      resident);
-  return cudaGetLastError();
+      static_cast<const T*>(ln_bias), static_cast<T*>(out), n_hidden};
+  if (h == 128) return int(launch<T, 128>(a, n_rows, stream));
+  if (h == 64) return int(launch<T, 64>(a, n_rows, stream));
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -158,13 +84,12 @@ extern "C" int aero_fused_node_fwd(
     const void* b_out, const void* ln_scale, const void* ln_bias, void* out,
     int64_t n_rows, int h, int n_hidden, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-#define AERO_NODE_CASE(T, H)                                                \
-  return int(launch<T, H>(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,       \
-                          ln_scale, ln_bias, out, n_rows, n_hidden, s))
-  if (dtype == 0 && h == 128) AERO_NODE_CASE(float, 128);
-  if (dtype == 0 && h == 64) AERO_NODE_CASE(float, 64);
-  if (dtype == 1 && h == 128) AERO_NODE_CASE(__nv_bfloat16, 128);
-  if (dtype == 1 && h == 64) AERO_NODE_CASE(__nv_bfloat16, 64);
-#undef AERO_NODE_CASE
+  if (dtype == 0)
+    return dispatch<float>(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
+                           ln_scale, ln_bias, out, n_rows, h, n_hidden, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(x, agg, w1x, w1a, b1, ws, bs, w_out,
+                                   b_out, ln_scale, ln_bias, out, n_rows, h,
+                                   n_hidden, s);
   return int(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 // Sorted masked segment sum, optionally weighted: the device code of
-// kernels K5 (segment_sum.cu) and K7 (segment_sum_weighted.cu).
+// kernels K5 (segment_sum.cu) and K7 (segment_sum_weighted.cu), whose
+// helpers and constants K10 (segment_sum_weighted2.cu) shares.
 //
 //   out[n] = sum over i with ids[i] == n of mask[i] * w(i) * data[rows[i]]
 //

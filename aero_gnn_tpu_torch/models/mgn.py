@@ -18,7 +18,13 @@ Rematerialisation (``remat``): the fused layer's autograd Functions already
 save only the layer inputs plus sg / d_proj / agg, the set the JAX
 "save_fused" policy keeps, so "save_fused" on the fused path checkpoints
 nothing; "full", and any policy on the unfused path, recompute each layer
-in the backward (``torch.utils.checkpoint``). ``remat_group`` > 1 and
+in the backward (``torch.utils.checkpoint``). The same holds on the
+switched paths (``AERO_GNN_SAVE_ACTS``: the save variant's activations
+zs / d / mu / inv in place of sg / d_proj; ``AERO_GNN_MEGA``: the inputs
+and agg of the single-kernel layer): under "save_fused" their Functions
+keep those residuals, where JAX, whose policy names only sg / d_proj /
+agg, re-runs the forward kernel under ``jax.checkpoint``. The gradients
+are the same; only memory and time differ. ``remat_group`` > 1 and
 ``remat_offload`` are not ported (ROADMAP queue 1); ``unroll`` has no
 meaning in an eager loop.
 """

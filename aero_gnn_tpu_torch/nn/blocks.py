@@ -10,7 +10,10 @@
   * ``mgn_layer_apply``      — edge update + residual, then node update +
     residual. On the cuda backend with an aligned graph the concat-trick
     layer runs the fused Hopper kernels K1 (edge) and K3 (node) forward,
-    K2 and K4 backward, and the sender gather's backward on K5. The
+    K2 and K4 backward (K1's save variant and K8 for the edge layer with
+    ``AERO_GNN_SAVE_ACTS=1``), and the sender gather's backward on K5; with
+    ``AERO_GNN_MEGA=1`` and 'add' aggregation the whole layer is K9 (its
+    forward and backward kernels) instead of K1-K4. The
     unfused layer (``do_concat_trick=False``, the registry's default) runs
     its receiver gather on K6 (backward K5), its aggregation on K5 with the
     pad sink declared, the sender gather's backward on K5 and the rest as
@@ -34,6 +37,10 @@ from aero_gnn_tpu_torch.ops.hopper_fused import (
     ET,
     NB,
     fused_edge_layer_autograd,
+)
+from aero_gnn_tpu_torch.ops.hopper_mega import (
+    fused_mgn_layer_autograd,
+    mega_enabled,
 )
 from aero_gnn_tpu_torch.ops.hopper_node import fused_node_layer_autograd
 
@@ -258,6 +265,19 @@ def uses_fused_layer(cfg: MGNLayerConfig, node_attr: torch.Tensor,
     return receivers.shape[0] % ET == 0 and node_attr.shape[0] % NB == 0
 
 
+def _mega_layer_ok(layer: MGNLayer, cfg: MGNLayerConfig,
+                   node_attr: torch.Tensor) -> bool:
+    """Gate for the single-kernel layer (K9, ops.hopper_mega): 'add'
+    aggregation (no degree division between the edge and node halves),
+    ``AERO_GNN_MEGA=1``, and the fused node kernel's legality at the node
+    block size (JAX nn/blocks.py:271-281)."""
+    if cfg.aggregation != "add" or not mega_enabled():
+        return False
+    if not _fused_node_ok(layer.node, cfg, node_attr):
+        return False
+    return node_attr.shape[0] % NB == 0
+
+
 def _mgn_layer_fused(layer: MGNLayer, cfg: MGNLayerConfig,
                      node_attr: torch.Tensor, edge_attr: torch.Tensor,
                      senders: torch.Tensor, receivers: torch.Tensor,
@@ -266,7 +286,8 @@ def _mgn_layer_fused(layer: MGNLayer, cfg: MGNLayerConfig,
     block-aligned): the node projections and the sender gather are plain
     ops (the gather's backward is K5); the whole edge chain, the receiver
     gather and the aggregation run in K1 / K2; the node update in K3 /
-    K4."""
+    K4. When _mega_layer_ok holds, the edge and node updates run as one
+    kernel each way (K9, JAX nn/blocks.py:312-323)."""
     p = layer.edge
     h = node_attr.shape[1]
     s_proj = node_attr @ p.w_s
@@ -279,6 +300,15 @@ def _mgn_layer_fused(layer: MGNLayer, cfg: MGNLayerConfig,
                            device=s_proj.device))
     bs = (torch.stack([s.b for s in hidden]) if len(hidden)
           else torch.zeros((0, h), dtype=s_proj.dtype, device=s_proj.device))
+    if _mega_layer_ok(layer, cfg, node_attr):
+        ep = {"w_e": p.w_e, "ws": ws, "bs": bs, "w_out": p.stack[-1].w,
+              "b_out": p.stack[-1].b, "ln_scale": p.ln.scale,
+              "ln_bias": p.ln.bias}
+        npar = _pack_node_split(layer.node, h, node_attr.dtype,
+                                node_attr.device)
+        return fused_mgn_layer_autograd(edge_attr, sg, d_proj, node_attr,
+                                        edge_mask, receivers, ep, npar,
+                                        node_attr.shape[0])
     edge_attr, agg = fused_edge_layer_autograd(
         edge_attr, sg, d_proj, edge_mask, receivers,
         p.w_e, ws, bs, p.stack[-1].w, p.stack[-1].b,

@@ -11,6 +11,9 @@ aero_gnn_tpu.ops).
     composition everywhere: the explicit reference mode.
 
 Switch globally with ``set_backend`` or scoped with ``use_backend``.
+``segment_sum_weighted2`` (kernel K10, two weighted segment sums over one
+receiver stream) is the WEC pair probe of the JAX package
+(``segment_agg_weighted2_pallas``), on no model path.
 """
 
 from __future__ import annotations
@@ -20,6 +23,9 @@ from typing import Optional
 
 import torch
 
+from aero_gnn_tpu_torch.ops.hopper_segment import (  # noqa: F401
+    segment_sum_weighted2,
+)
 from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     degree,
     gather,

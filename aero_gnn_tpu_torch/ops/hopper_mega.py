@@ -1,0 +1,219 @@
+"""The whole MGN processor layer in one kernel each way: Hopper kernels
+K9-fwd and K9-bwd with their plain versions (counterpart of
+aero_gnn_tpu.ops.pallas_mega).
+
+    e', agg = the fused edge layer (e, sg, d_proj, mask, receivers)  (K1)
+    x'      = x + LayerNorm(MLP([x, agg]))                           (K3)
+
+'add' aggregation, ReLU, the block-aligned layout of K1.
+``fused_mgn_layer`` launches ``csrc/fused_mgn_fwd.cu`` on CUDA tensors and
+runs ``fused_mgn_layer_ref`` (K1's plain version followed by K3's, as the
+JAX package's ``_equiv`` composes them) on CPU tensors; both return
+(x', e', agg). ``fused_mgn_layer_bwd`` launches ``csrc/fused_mgn_bwd.cu``
+(K4's backward over each node block, then K2's over its edge tiles with
+the aggregation cotangent K4 produced) or runs ``fused_mgn_layer_bwd_ref``.
+``fused_mgn_layer_autograd`` is the differentiable layer, (x, e) ->
+(x', e'); it saves the layer's inputs and the aggregate, as ``_fmgn_fwd``
+does, so the backward never re-runs the forward. ``ep`` / ``npar`` are the
+edge and node parameter dicts of the JAX package (``EDGE_KEYS``,
+``NODE_KEYS``). ``mega_enabled`` reads ``AERO_GNN_MEGA`` (off by default,
+as in JAX); ``nn.blocks`` routes the fused layer here when it is on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from aero_gnn_tpu_torch.ops import _build
+from aero_gnn_tpu_torch.ops import hopper_fused as HF
+from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+NB, ET = HF.NB, HF.ET
+EDGE_KEYS = ("w_e", "ws", "bs", "w_out", "b_out", "ln_scale", "ln_bias")
+NODE_KEYS = ("w1x", "w1a", "b1", "ws", "bs", "w_out", "b_out", "ln_scale",
+             "ln_bias")
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_FWD_ARGTYPES = [_P] * 25 + [_I64, _I64] + [_I] * 6 + [_P]
+_BWD_ARGTYPES = [_P] * 25 + [_I64] * 3 + [_I] * 6 + [_P]
+_WS_ARGTYPES = [_I64] + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+
+
+def mega_enabled() -> bool:
+    """AERO_GNN_MEGA=1: the fused MGN layer with 'add' aggregation runs as
+    K9 (nn.blocks._mega_layer_ok). Read at call time; off by default, as
+    the JAX package's pallas_mega.mega_enabled."""
+    return os.environ.get("AERO_GNN_MEGA", "0") == "1"
+
+
+def fused_mgn_layer_ref(e, sg, d_proj, x, mask, receivers, ep, npar,
+                        num_nodes: int):
+    """Plain version: (x', e', agg), the fused edge layer's plain version
+    followed by the fused node layer's (pallas_mega.py _equiv :442-454)."""
+    e_new, agg = HF.fused_edge_layer_ref(e, sg, d_proj, mask, receivers,
+                                         *[ep[k] for k in EDGE_KEYS],
+                                         num_nodes)
+    x_new = HN.fused_node_layer_ref(x, agg.to(x.dtype),
+                                    *[npar[k] for k in NODE_KEYS])
+    return x_new, e_new, agg
+
+
+def fused_mgn_layer_bwd_ref(e, sg, d_proj, x, agg, mask, receivers, ep,
+                            npar, ct_e, ct_x, num_nodes: int):
+    """Plain VJP for the cotangents ct_e of e' and ct_x of x': the node
+    backward's plain version, then the edge backward's with ct_agg = its
+    d_agg (pallas_mega.py:270-343). Returns (d_e, d_sg, d_dproj, d_x, d_ep,
+    d_np), the weight gradients fp32 dicts keyed as ep / npar."""
+    node = HN.fused_node_layer_bwd_ref(x, agg, *[npar[k] for k in NODE_KEYS],
+                                       ct_x)
+    edge = HF.fused_edge_layer_bwd_ref(e, sg, d_proj, mask, receivers,
+                                       *[ep[k] for k in EDGE_KEYS], ct_e,
+                                       node[1], num_nodes)
+    return (*edge[:3], node[0], dict(zip(EDGE_KEYS, edge[3:])),
+            dict(zip(NODE_KEYS, node[2:])))
+
+
+def _check_args(e, sg, d_proj, x, mask, receivers, ep, npar, num_nodes,
+                agg=None, ct_e=None, ct_x=None):
+    """Validate the layer's tensors for the kernels (K1's and K3's rules,
+    x and e of one dtype); returns (h, edge hidden layers, node hidden
+    layers)."""
+    h = e.shape[1]
+    if tuple(x.shape) != (num_nodes, h) or x.dtype != e.dtype:
+        raise ValueError(f"x is {tuple(x.shape)} {x.dtype}, expected "
+                         f"({num_nodes}, {h}) {e.dtype}")
+    cts = {} if ct_e is None else {"ct_e": ct_e}
+    _, _, ne = HF._check_args(e, receivers, num_nodes, sg=sg, d_proj=d_proj,
+                              mask=mask, **ep, **cts)
+    # in the forward x stands in for agg: the same shape and type
+    _, _, nn = HN._check_args(x, x if agg is None else agg,
+                              *[npar[k] for k in NODE_KEYS],
+                              **({} if ct_x is None else {"ct": ct_x}))
+    if num_nodes % NB:
+        raise ValueError(f"the single-kernel layer needs N a multiple of "
+                         f"{NB}, got {num_nodes}")
+    return h, ne, nn
+
+
+def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
+                    num_nodes: int):
+    """(x', e', agg) of the whole MGN layer. CUDA tensors launch kernel
+    K9-fwd; CPU tensors run the plain version. No autograd (see
+    fused_mgn_layer_autograd)."""
+    if not e.is_cuda:
+        return fused_mgn_layer_ref(e, sg, d_proj, x, mask, receivers, ep,
+                                   npar, num_nodes)
+    h, ne, nn = _check_args(e, sg, d_proj, x, mask, receivers, ep, npar,
+                            num_nodes)
+    e_out, x_out = torch.empty_like(e), torch.empty_like(x)
+    agg = torch.empty((num_nodes, h), dtype=e.dtype, device=e.device)
+    tensors = [e, sg, d_proj, x, mask, receivers,
+               *[ep[k] for k in EDGE_KEYS], *[npar[k] for k in NODE_KEYS],
+               e_out, agg, x_out]
+    fn = _build.c_function("fused_mgn_fwd", "aero_fused_mgn_fwd",
+                           _FWD_ARGTYPES)
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], e.shape[0], num_nodes, h,
+                 ne, nn, NB, ET, HF._DTYPE_CODE[e.dtype], stream)
+    _build.check_launch("aero_fused_mgn_fwd", err)
+    fused_mgn_layer.launches += 1
+    return x_out, e_out, agg
+
+
+def fused_mgn_layer_bwd(e, sg, d_proj, x, agg, mask, receivers, ep, npar,
+                        ct_e, ct_x, num_nodes: int):
+    """VJP of the whole MGN layer: (d_e, d_sg, d_dproj, d_x, d_ep, d_np),
+    the weight gradients fp32 dicts keyed as ep / npar. CUDA tensors launch
+    kernel K9-bwd (deterministic: per-CTA partials summed in a fixed
+    order); CPU tensors run the plain version."""
+    if not e.is_cuda:
+        return fused_mgn_layer_bwd_ref(e, sg, d_proj, x, agg, mask,
+                                       receivers, ep, npar, ct_e, ct_x,
+                                       num_nodes)
+    h, ne, nn = _check_args(e, sg, d_proj, x, mask, receivers, ep, npar,
+                            num_nodes, agg=agg, ct_e=ct_e, ct_x=ct_x)
+    code = HF._DTYPE_CODE[e.dtype]
+    ws_bytes = ctypes.c_int64(0)
+    ws_fn = _build.c_function("fused_mgn_bwd", "aero_fused_mgn_bwd_workspace",
+                              _WS_ARGTYPES)
+    dev = e.device
+    with torch.cuda.device(dev):
+        _build.check_launch("aero_fused_mgn_bwd_workspace",
+                            ws_fn(num_nodes, h, ne, nn, NB, code,
+                                  ctypes.byref(ws_bytes)))
+        workspace = torch.empty(ws_bytes.value, dtype=torch.uint8,
+                                device=dev)
+        d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
+        d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
+        d_x, d_agg = torch.empty_like(x), torch.empty_like(x)
+        sizes = [(ne + 2) * h * h, (nn + 3) * h * h, (ne + 3) * h,
+                 (nn + 4) * h]
+        dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        wb_e = _build.mma_b_operands([ep["w_e"], ep["ws"], ep["w_out"]])
+        wb_n = _build.mma_b_operands([npar["w1x"], npar["w1a"], npar["ws"],
+                                      npar["w_out"]])
+        tensors = [e, sg, d_proj, x, agg, mask, receivers, wb_e, ep["bs"],
+                   ep["b_out"], ep["ln_scale"], wb_n, npar["b1"], npar["bs"],
+                   npar["b_out"], npar["ln_scale"], ct_e, ct_x, d_e, d_sg,
+                   d_dproj, d_x, d_agg, dw, workspace]
+        fn = _build.c_function("fused_mgn_bwd", "aero_fused_mgn_bwd",
+                               _BWD_ARGTYPES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], ws_bytes.value,
+                 e.shape[0], num_nodes, h, ne, nn, NB, ET, code, stream)
+    _build.check_launch("aero_fused_mgn_bwd", err)
+    fused_mgn_layer_bwd.launches += 1
+    em, nm, ev, nv = torch.split(dw, sizes)
+    em, nm = em.view(ne + 2, h, h), nm.view(nn + 3, h, h)
+    ev, nv = ev.view(ne + 3, h), nv.view(nn + 4, h)
+    d_ep = {"w_e": em[0], "ws": em[1:ne + 1], "bs": ev[3:],
+            "w_out": em[ne + 1], "b_out": ev[0], "ln_scale": ev[1],
+            "ln_bias": ev[2]}
+    d_np = {"w1x": nm[0], "w1a": nm[1], "b1": nv[3], "ws": nm[2:nn + 2],
+            "bs": nv[4:], "w_out": nm[nn + 2], "b_out": nv[0],
+            "ln_scale": nv[1], "ln_bias": nv[2]}
+    return d_e, d_sg, d_dproj, d_x, d_ep, d_np
+
+
+# launches of kernels K9-fwd / K9-bwd since the counts were last set to 0
+fused_mgn_layer.launches = 0
+fused_mgn_layer_bwd.launches = 0
+
+
+class _FusedMGNLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, e, sg, d_proj, x, mask, receivers, num_nodes, *weights):
+        ep = dict(zip(EDGE_KEYS, weights[:len(EDGE_KEYS)]))
+        npar = dict(zip(NODE_KEYS, weights[len(EDGE_KEYS):]))
+        x_new, e_new, agg = fused_mgn_layer(e, sg, d_proj, x, mask,
+                                            receivers, ep, npar, num_nodes)
+        ctx.save_for_backward(e, sg, d_proj, x, agg, mask, receivers,
+                              *weights)
+        ctx.num_nodes = num_nodes
+        return x_new, e_new
+
+    @staticmethod
+    def backward(ctx, ct_x, ct_e):
+        e, sg, d_proj, x, agg, mask, receivers, *weights = ctx.saved_tensors
+        ep = dict(zip(EDGE_KEYS, weights[:len(EDGE_KEYS)]))
+        npar = dict(zip(NODE_KEYS, weights[len(EDGE_KEYS):]))
+        d_e, d_sg, d_dproj, d_x, d_ep, d_np = fused_mgn_layer_bwd(
+            e, sg, d_proj, x, agg, mask, receivers, ep, npar,
+            ct_e.contiguous(), ct_x.contiguous(), ctx.num_nodes)
+        # weight gradients rounded to the weights' (compute) dtype, as the
+        # JAX package's _mega_bwd_call returns them
+        wgrads = ([d_ep[k].to(ep[k].dtype) for k in EDGE_KEYS]
+                  + [d_np[k].to(npar[k].dtype) for k in NODE_KEYS])
+        return (d_e, d_sg, d_dproj, d_x, None, None, None, *wgrads)
+
+
+def fused_mgn_layer_autograd(e, sg, d_proj, x, mask, receivers, ep, npar,
+                             num_nodes: int):
+    """The differentiable whole MGN layer, (x', e'): forward K9-fwd,
+    backward K9-bwd (the plain versions on CPU tensors)."""
+    return _FusedMGNLayer.apply(e, sg, d_proj, x, mask, receivers, num_nodes,
+                                *[ep[k] for k in EDGE_KEYS],
+                                *[npar[k] for k in NODE_KEYS])

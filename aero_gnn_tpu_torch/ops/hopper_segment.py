@@ -1,9 +1,11 @@
-"""Sorted masked segment sums: Hopper kernels K5 and K7 and their plain
-versions (counterparts of aero_gnn_tpu.ops.pallas_segment.segment_agg_pallas
-and segment_agg_weighted_pallas).
+"""Sorted masked segment sums: Hopper kernels K5, K7 and K10 and their
+plain versions (counterparts of aero_gnn_tpu.ops.pallas_segment's
+segment_agg_pallas, segment_agg_weighted_pallas and
+segment_agg_weighted2_pallas).
 
     K5:  out[n] = sum over i with ids[i] == n of mask[i] * data[rows[i]]
     K7:  out[n] = sum over i with ids[i] == n of mask[i] * w[i] * data[rows[i]]
+    K10: K7 twice over one id stream, (m1, w1) and (m2, w2), no mask or rows
 
 ``ids`` ascending, [E_s] -> [N, D]; ``mask`` defaults to ones and ``rows``
 to ``i`` (the optional ``rows`` folds a row gather into the kernel: the
@@ -14,7 +16,9 @@ is in fp32 with one rounding to the data's dtype per output row; nodes
 without a row get exact zeros. ``segment_sum`` / ``segment_sum_weighted``
 launch ``csrc/segment_sum.cu`` / ``csrc/segment_sum_weighted.cu`` on CUDA
 tensors and run ``segment_sum_ref`` / ``segment_sum_weighted_ref`` on CPU
-tensors.
+tensors; ``segment_sum_weighted2`` (the WEC pair probe of
+``benchmarks/micro_wec2.py``, on no model path) launches
+``csrc/segment_sum_weighted2.cu`` / runs ``segment_sum_weighted2_ref``.
 
 ``pad_sink=True`` declares ``ids`` a stream of the aligned layout
 (``graph.padded``), whose last segment is the pad sink: its rows are pad
@@ -36,6 +40,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I64, _I64, _I, _I, _I, _P]
 _W_ARGTYPES = [_P] * 6 + [_I64, _I64, _I, _I, _I, _P]
+_W2_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _P]
 
 
 def segment_sum_ref(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -170,6 +175,47 @@ def segment_sum_weighted(data: torch.Tensor, segment_ids: torch.Tensor,
     return out
 
 
-# launches of kernels K5 / K7 since the counts were last set to 0
+def segment_sum_weighted2_ref(m1: torch.Tensor, w1: torch.Tensor,
+                              m2: torch.Tensor, w2: torch.Tensor,
+                              segment_ids: torch.Tensor, num_segments: int):
+    """Plain version of K10: two segment_sum_weighted_ref calls."""
+    return (segment_sum_weighted_ref(m1, segment_ids, w1, num_segments),
+            segment_sum_weighted_ref(m2, segment_ids, w2, num_segments))
+
+
+def segment_sum_weighted2(m1: torch.Tensor, w1: torch.Tensor,
+                          m2: torch.Tensor, w2: torch.Tensor,
+                          receivers: torch.Tensor, num_nodes: int):
+    """(out1, out2): the weighted segment sums of (m1, w1) and (m2, w2)
+    over one ascending receiver stream, [E, D] -> [num_nodes, D] each, the
+    fp32 weights rounded to the data's dtype (pad edges: zero weights).
+    CUDA tensors launch kernel K10 (2-D float32/bfloat16 data of one dtype
+    and shape, int32 receivers); CPU tensors run the plain version. Forward
+    only, as the JAX package's probe."""
+    if not m1.is_cuda:
+        return segment_sum_weighted2_ref(m1, w1, m2, w2, receivers, num_nodes)
+    n_ids = _check_segment_args(m1, receivers, None, None, w1=w1, w2=w2)
+    if m2.shape != m1.shape:
+        raise ValueError(f"m2 has shape {tuple(m2.shape)}, expected "
+                         f"{tuple(m1.shape)}")
+    _build.check_tensors(m1.device, m1.dtype, m2=m2)
+    out1 = torch.empty((num_nodes, m1.shape[1]), dtype=m1.dtype,
+                       device=m1.device)
+    out2 = torch.empty_like(out1)
+    fn = _build.c_function("segment_sum_weighted2",
+                           "aero_segment_sum_weighted2", _W2_ARGTYPES)
+    with torch.cuda.device(m1.device):
+        stream = torch.cuda.current_stream(m1.device).cuda_stream
+        err = fn(m1.data_ptr(), m2.data_ptr(), receivers.data_ptr(),
+                 w1.data_ptr(), w2.data_ptr(), out1.data_ptr(),
+                 out2.data_ptr(), n_ids, num_nodes, m1.shape[1],
+                 _DTYPE_CODE[m1.dtype], stream)
+    _build.check_launch("aero_segment_sum_weighted2", err)
+    segment_sum_weighted2.launches += 1
+    return out1, out2
+
+
+# launches of kernels K5 / K7 / K10 since the counts were last set to 0
 segment_sum.launches = 0
 segment_sum_weighted.launches = 0
+segment_sum_weighted2.launches = 0

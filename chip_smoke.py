@@ -38,7 +38,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                torch.index_select, with nvcc's register and spill report;
   4b. shapes — the kernels' other configurations (no hidden layer, weights
                streamed per stage, h = 64) against the plain versions on a
-               4,096-node mesh;
+               4,096-node mesh, K1's save variant, K8 and K9 included;
+  4c. switched — K1's save variant, K8 (AERO_GNN_SAVE_ACTS), K9-fwd and
+               K9-bwd (AERO_GNN_MEGA) at the flagship shapes, both dtypes:
+               against their plain versions (K8 on the plain version's
+               saved activations) and timed beside their bounds, K8's and
+               K9-bwd's outputs bit-equal across launches; on the tight
+               graph and on the Loader-padded one (whose pad-sink tail K1's
+               save variant leaves unwritten): K8 on what the save variant
+               saved against K2, K9-fwd against K1 -> K3 and K9-bwd against
+               K4 -> K2 on the same inputs (max abs differences recorded),
+               and the Loader / tight time of K8, K9-fwd and K9-bwd, at
+               most 1.3;
+  4d. weighted2 — K10, the WEC pair probe of benchmarks/micro_wec2.py, at
+               its shapes (the tight 65,536-node graph, h = 128, bf16
+               messages, fp32 weights zero on pad edges): its timed run of
+               30 dual launches (the probe's main path, counted), then K10
+               against its plain version and bit-equal to two K7 launches,
+               timed beside the two K7 launches, its bound and two
+               torch.sparse.mm of CSR matrices;
   5. serve   — the flagship MeshGraphNet (15 layers, width 128) from a seeded
                init served through AeroInference on the card: 3 requests of
                65,536-node meshes in bf16 and in fp32. Launch counters are set
@@ -75,7 +93,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                fp32 steps. K6 and K5 launches are asserted per forward and
                per step; fp32 predictions and one fp32 step's gradients
                against the plain path; one FourierMGN fp32 forward and one
-               step profiled.
+               step profiled;
+  10. save_acts — with AERO_GNN_SAVE_ACTS=1 the flagship MGN trained on
+               mesh 0 as in phase 6 (remat off): fp32 first-step gradients
+               against the plain path, 5 bf16 and 2 fp32 steps, each
+               launching K1's save variant, K8, K3, K4 and K5 15 times and
+               K1, K2 0 times; one bf16 step profiled;
+  11. mega   — with AERO_GNN_MEGA=1 the flagship MGN served (3 requests
+               per dtype, K9-fwd 15 launches per forward, K1 and K3 0; fp32
+               request 0 against the plain path) and trained on mesh 0
+               (fp32 first-step gradients against the plain path, 3 bf16
+               steps and 1 fp32 step, each launching K9-fwd, K9-bwd and K5
+               15 times and K1-K4 0); one bf16 step profiled.
+
+With both switches unset (phases 3-9) every forward and step launches K8,
+K9 and K10 0 times.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or aero_gnn_tpu is imported.
@@ -84,6 +116,7 @@ The line before the last is the kernels' JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -164,6 +197,14 @@ ZOO_LAUNCHES = {
     "mlpnet": {"forward": (0, 0), "step": (0, 0)},
 }
 ZOO_STEPS = {"fouriermgn": 5, "poolmgn": 2, "mgn_v2": 2, "mlpnet": 2}
+# the kernels of the switched paths: K1's save variant and K8
+# (AERO_GNN_SAVE_ACTS), K9 (AERO_GNN_MEGA) and the WEC pair probe's K10
+SWITCHED = ("fused_edge_fwd_save", "fused_edge_bwd_saved", "fused_mgn_fwd",
+            "fused_mgn_bwd", "segment_sum_weighted2")
+SAVE_ACTS_STEPS = {"bfloat16": 5, "float32": 2}
+MEGA_STEPS = {"bfloat16": 3, "float32": 1}
+# micro_wec2.py's K: dual launches in the probe's timed run
+WEC2_PAIRS = 30
 
 
 def log(msg: str) -> None:
@@ -242,6 +283,48 @@ def phase_shapes(torch, graph):
                 f"{errs[1]:.3e}, K3 {errs[2]:.3e}, K2 {e2[0]:.3e} (weight "
                 f"grads {e2[1]:.3e} of max|p|), K4 {e4[0]:.3e} ({e4[1]:.3e}), "
                 f"K5 {e5:.3e} / masked {errs[3]:.3e}")
+            check_switched_shapes(torch, tag, dtype_name, graph, edge_args,
+                                  edge_bwd, node_args, node_bwd[-1])
+
+
+def check_switched_shapes(torch, tag, dtype_name, graph, edge_args, edge_bwd,
+                          node_args, ct_x):
+    """The save variant, K8, K9-fwd and K9-bwd against their plain versions
+    in one of phase_shapes' configurations (their shared-memory plans
+    differ with the width and the number of hidden layers)."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+
+    real = graph.edge_mask > 0
+    sv = HF.fused_edge_layer_save(*edge_args)
+    sp = HF.fused_edge_layer_save_ref(*edge_args)
+    a8 = k8_args(edge_args, sp[2:], edge_bwd[12], edge_bwd[13])
+    k8 = HF.fused_edge_layer_bwd_saved(*a8)
+    ma = mega_args(HM, edge_args, node_args)
+    k9, p9 = HM.fused_mgn_layer(*ma), HM.fused_mgn_layer_ref(*ma)
+    b9_args = (*ma[:4], k9[2], *ma[4:8], edge_bwd[12], ct_x, ma[8])
+    b9 = HM.fused_mgn_layer_bwd(*b9_args)
+    torch.cuda.synchronize()
+    err_save = max(
+        check_close(torch, f"K1 save {tag} zs", sv[2][:, real],
+                    sp[2][:, real], dtype_name),
+        *(check_close(torch, f"K1 save {tag} {nm}", a, b, dtype_name,
+                      rows=real)
+          for nm, a, b in zip(("e'", "d", "mu", "inv"),
+                              (sv[0], *sv[3:]), (sp[0], *sp[3:]))))
+    e8 = check_bwd(torch, f"K8 {tag}", k8,
+                   HF.fused_edge_layer_bwd_saved_ref(*a8), dtype_name, 3)
+    err9 = max(check_close(torch, f"K9-fwd {tag} x'", k9[0], p9[0],
+                           dtype_name),
+               check_close(torch, f"K9-fwd {tag} e'", k9[1], p9[1],
+                           dtype_name, rows=real),
+               check_close(torch, f"K9-fwd {tag} agg", k9[2], p9[2],
+                           dtype_name))
+    b = check_mgn_bwd(torch, f"K9-bwd {tag}", b9,
+                      HM.fused_mgn_layer_bwd_ref(*b9_args), dtype_name)
+    log(f"[shapes] {tag}: max abs err K1 save variant {err_save:.3e}, K8 "
+        f"{e8[0]:.3e} ({e8[1]:.3e}), K9-fwd {err9:.3e}, K9-bwd {b[0]:.3e} "
+        f"({b[1]:.3e})")
 
 
 def flagship_graph(seed: int, device, n_nodes: int = N_NODES):
@@ -733,8 +816,9 @@ def phase_gather(torch, graphs):
 
 
 def phase_serve(torch, graphs):
-    """Serve the flagship model; returns {dtype: (K1 launches, K3 launches)}
-    counted over that dtype's run of the main path."""
+    """Serve the flagship model; returns {dtype: (K1 launches, K3 launches,
+    forwards)} counted over that dtype's run of the main path, and
+    {dtype: ms per forward of each request}."""
     import dataclasses
 
     import numpy as np
@@ -750,17 +834,16 @@ def phase_serve(torch, graphs):
     params = cfg.init(torch.Generator().manual_seed(0), device=dev)
     stats = {"target_mean": np.zeros(4, np.float32),
              "target_std": np.ones(4, np.float32)}
-    launches, preds = {}, {}
+    launches, preds, serve_ms = {}, {}, {}
     for dtype in ("bfloat16", "float32"):
         eng = AeroInference(dataclasses.replace(cfg, compute_dtype=dtype),
                             params, stats, device=dev)
-        fused_edge_layer.launches = 0
-        fused_node_layer.launches = 0
+        zero_counters()
         n_fwd = 0
         for i, (sample, g) in enumerate(graphs):
             times = []
             for rep in range(4):
-                k1, k3 = fused_edge_layer.launches, fused_node_layer.launches
+                before = read_counters()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if rep == 0:
@@ -770,18 +853,19 @@ def phase_serve(torch, graphs):
                     torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 n_fwd += 1
-                d1 = fused_edge_layer.launches - k1
-                d3 = fused_node_layer.launches - k3
-                if (d1, d3) != (LAYERS, LAYERS):
+                delta = {k: v - before[k] for k, v in read_counters().items()}
+                want = expect(fused_edge_fwd=LAYERS, fused_node_fwd=LAYERS)
+                if delta != want:
                     raise AssertionError(
-                        f"request {i} {dtype}: K1 launched {d1}x, K3 {d3}x "
-                        f"in one forward (expected {LAYERS} each)")
+                        f"request {i} {dtype}: launches {delta} in one "
+                        f"forward, expected {want}")
             if pred.shape != (sample.num_nodes, 4) or \
                     not np.isfinite(pred).all():
                 raise AssertionError(f"request {i} {dtype}: bad predictions "
                                      f"{pred.shape}")
             preds[(dtype, i)] = pred
             ms = statistics.median(times[1:]) * 1e3
+            serve_ms.setdefault(dtype, []).append(ms)
             log(f"[serve] {dtype} request {i}: {sample.num_nodes} nodes, "
                 f"{sample.num_edges} edges, first call {times[0] * 1e3:.1f} "
                 f"ms, then {ms:.2f} ms per forward (median of 3), "
@@ -816,7 +900,7 @@ def phase_serve(torch, graphs):
                             params, stats, device=dev)
         phase_profile(torch, f"{dtype} forward",
                       lambda: eng.predict(graphs[0][1]))
-    return launches
+    return launches, serve_ms
 
 
 def phase_profile(torch, label: str, fn, top: int = 8) -> dict:
@@ -894,6 +978,7 @@ def bsms_config():
 def train_counters():
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_gather as HG
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
     from aero_gnn_tpu_torch.ops import hopper_node as HN
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
 
@@ -903,7 +988,12 @@ def train_counters():
             "fused_node_bwd": HN.fused_node_layer_bwd,
             "segment_sum": HS.segment_sum,
             "gather_rows": HG.gather_rows,
-            "segment_sum_weighted": HS.segment_sum_weighted}
+            "segment_sum_weighted": HS.segment_sum_weighted,
+            "fused_edge_fwd_save": HF.fused_edge_layer_save,
+            "fused_edge_bwd_saved": HF.fused_edge_layer_bwd_saved,
+            "fused_mgn_fwd": HM.fused_mgn_layer,
+            "fused_mgn_bwd": HM.fused_mgn_layer_bwd,
+            "segment_sum_weighted2": HS.segment_sum_weighted2}
 
 
 def zero_counters():
@@ -913,6 +1003,44 @@ def zero_counters():
 
 def read_counters():
     return {k: f.launches for k, f in train_counters().items()}
+
+
+def expect(**counts):
+    """Launches expected of every kernel in one forward or step: 0 unless
+    given (so K8, K9 and K10 launch 0 times where their switch is off)."""
+    want = {k: 0 for k in train_counters()}
+    want.update(counts)
+    return want
+
+
+# K1-K5 once per layer: a fused MGN train step with both switches off
+FUSED_STEP = {k: LAYERS for k in ("fused_edge_fwd", "fused_edge_bwd",
+                                  "fused_node_fwd", "fused_node_bwd",
+                                  "segment_sum")}
+
+
+def train_steps(torch, step, n_steps: int, want: dict, label: str):
+    """``n_steps`` calls of ``step()`` (a train step, returning the loss),
+    each timed on the host clock to a synchronize and its launches checked
+    against ``want``, the counts set to 0 first; raises on a non-finite
+    loss. Returns (losses, step seconds, launches over the steps)."""
+    zero_counters()
+    losses, times = [], []
+    for i in range(n_steps):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        delta = {k: v - before[k] for k, v in read_counters().items()}
+        if delta != want:
+            raise AssertionError(f"{label} step {i}: launches {delta}, "
+                                 f"expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    return losses, times, read_counters()
 
 
 def check_train_grads(torch, cfg, params, graph, label="train", **apply_kw):
@@ -951,13 +1079,8 @@ def check_train_grads(torch, cfg, params, graph, label="train", **apply_kw):
 def phase_train(torch, sample, graph):
     """Train the flagship model on one mesh through make_step_fns; returns
     {dtype: {kernel: launches}} and the step record."""
-    import numpy as np
-
     from aero_gnn_tpu_torch.training import loop as TL
 
-    counters = train_counters()
-    # the fused MGN has no K7 and gathers its receivers inside K1
-    del counters["segment_sum_weighted"], counters["gather_rows"]
     launches, record = {}, {}
     for dtype, n_steps in TRAIN_STEPS.items():
         cfg = flagship_config(compute_dtype=dtype)
@@ -967,26 +1090,9 @@ def phase_train(torch, sample, graph):
                                device=graph.device)
         worst = (check_train_grads(torch, cfg, params, graph)
                  if dtype == "float32" else None)
-        for f in counters.values():
-            f.launches = 0
-        losses, times = [], []
-        for step in range(n_steps):
-            before = {k: f.launches for k, f in counters.items()}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = fns.train_step(params, graph)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(float(loss))
-            per_step = {k: f.launches - before[k]
-                        for k, f in counters.items()}
-            if any(v != LAYERS for v in per_step.values()):
-                raise AssertionError(
-                    f"train step {step} {dtype}: launches {per_step}, "
-                    f"expected {LAYERS} of each kernel")
-        launches[dtype] = {k: f.launches for k, f in counters.items()}
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"train {dtype}: non-finite loss {losses}")
+        losses, times, launches[dtype] = train_steps(
+            torch, lambda: fns.train_step(params, graph), n_steps,
+            expect(**FUSED_STEP), f"train {dtype}")
         if dtype == "bfloat16" and not losses[-1] < losses[0]:
             raise AssertionError(f"train bf16: the loss did not fall over "
                                  f"{n_steps} steps: {losses}")
@@ -999,7 +1105,7 @@ def phase_train(torch, sample, graph):
             f"ms, then {ms:.2f} ms per step (median of {n_steps - 1}), "
             f"{sample.num_edges / ms * 1e3:.4g} edges/s; loss "
             f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches per step "
-            f"{LAYERS} of each kernel ({launches[dtype]})")
+            f"{LAYERS} of each of K1-K5, 0 of K8, K9 ({launches[dtype]})")
         if dtype == "bfloat16":
             record["profile_bf16"] = phase_profile(
                 torch, "bf16 train step", lambda: fns.train_step(params, graph),
@@ -1187,6 +1293,7 @@ def phase_bsms_serve(torch, requests):
     eng = AeroInference(cfg, params, stats, device=dev, needs_hierarchy=True)
     want = {"fused_edge_fwd": LAYERS, "fused_node_fwd": LAYERS,
             "segment_sum_weighted": K7_PER_FORWARD}
+    want.update({k: 0 for k in SWITCHED})
     record, preds, n_fwd = {"ms": []}, [], 0
     zero_counters()
     for i, (sample, g, aux) in enumerate(requests):
@@ -1243,8 +1350,6 @@ def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
     make_step_fns(needs_hierarchy=True): first-step fp32 gradients against
     the plain path, then ``n_steps`` steps, each launching K1-K5 15 times
     and K7 8 times; one warm step profiled."""
-    import numpy as np
-
     from aero_gnn_tpu_torch.training import loop as TL
 
     cfg = bsms_config()
@@ -1255,27 +1360,11 @@ def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
                            needs_hierarchy=True)
     worst = check_train_grads(torch, cfg, params, g, label="bsms train",
                               hierarchy=hier)
-    want = {k: LAYERS for k in train_counters()}
-    want["segment_sum_weighted"] = 2 * K7_PER_FORWARD
-    want["gather_rows"] = 0
-    losses, times = [], []
+    want = expect(**FUSED_STEP, segment_sum_weighted=2 * K7_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats(dev)
-    zero_counters()
-    for step in range(n_steps):
-        before = read_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = fns.train_step(params, g, hier)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-        delta = {k: v - before[k] for k, v in read_counters().items()}
-        if delta != want:
-            raise AssertionError(f"bsms train step {step}: launches {delta}, "
-                                 f"expected {want}")
-    launches = read_counters()
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"bsms train: non-finite loss {losses}")
+    losses, times, launches = train_steps(
+        torch, lambda: fns.train_step(params, g, hier), n_steps, want,
+        "bsms train")
     peak = torch.cuda.max_memory_allocated(dev)
     ms = statistics.median(times[1:]) * 1e3
     log(f"[bsms train] fp32: {n_steps} steps, first {times[0] * 1e3:.1f} ms, "
@@ -1466,6 +1555,500 @@ def phase_zoo(torch, requests):
     return record
 
 
+@contextlib.contextmanager
+def knob(name: str):
+    """The JAX package's switch ``name`` (an environment variable the port
+    reads at call time) set to 1 inside the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def mega_args(HM, edge_args, node_args):
+    """K9-fwd's arguments (e, sg, d_proj, x, mask, receivers, ep, npar, N)
+    from bwd_cases' edge and node arguments."""
+    ep = dict(zip(HM.EDGE_KEYS, edge_args[5:12]))
+    npar = dict(zip(HM.NODE_KEYS, node_args[2:]))
+    return (*edge_args[:3], node_args[0], *edge_args[3:5], ep, npar,
+            edge_args[12])
+
+
+def k8_args(edge_args, saved, ct_e, ct_agg):
+    """K8's arguments from bwd_cases' edge arguments, the save variant's
+    (zs, d, mu, inv) and the cotangents."""
+    e, _, _, mask, recv, w_e, ws, _, w_out, _, scale, _, n = edge_args
+    return (e, mask, recv, w_e, ws, w_out, scale, *saved, ct_e, ct_agg, n)
+
+
+def check_mgn_bwd(torch, name, got, ref, dtype):
+    """K9-bwd's outputs (d_e, d_sg, d_dproj, d_x, edge dict, node dict)
+    against ``ref`` of the same structure: activation gradients by TOL,
+    weight gradients by GRAD_TOL. Returns (max abs err of the activation
+    gradients, max abs err of the weight gradients / max|p|)."""
+    act, wrel = 0.0, 0.0
+    for nm, g, r in zip(("d_e", "d_sg", "d_dproj", "d_x"), got, ref):
+        act = max(act, check_close(torch, f"{name} {nm}", g, r, dtype))
+    for part, gd, rd in (("edge", got[4], ref[4]), ("node", got[5], ref[5])):
+        for k, r in rd.items():
+            err = check_grad(torch, f"{name} {part} {k}", gd[k], r,
+                             GRAD_TOL[dtype])
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            wrel = max(wrel, err / scale if scale else 0.0)
+    return act, wrel
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two outputs (tensors, or tuples / dicts of them) are
+    bit-equal."""
+    if isinstance(a, dict):
+        return all(same_bits(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return all(same_bits(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_switched_kernels(torch, sample, tight):
+    """K1's save variant, K8, K9-fwd and K9-bwd (module docstring, phase
+    4c). Returns the kernels' JSON entries (tight graph) and the record."""
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    dev = tight.device
+    loader = next(iter(Loader([sample], 1, align_edges=True, device=dev)))[0]
+    graphs = {"tight": tight, "loader": loader}
+    h, nh = HIDDEN, N_HIDDEN
+    results, rec = [], {"tight": {}, "loader": {}}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for name, g in graphs.items():
+            gen = torch.Generator(device=dev).manual_seed(4321)
+
+            def randn(*shape, scale=1.0):
+                return (torch.randn(*shape, generator=gen, device=dev)
+                        * scale).to(dt)
+
+            edge_args, edge_bwd, node_args, _, _ = bwd_cases(
+                torch, g, dt, randn, h, nh)
+            ct_e, ct_agg, ct_x = edge_bwd[12], edge_bwd[13], randn(
+                g.num_nodes_pad, h)
+            real = g.edge_mask > 0
+            ma = mega_args(HM, edge_args, node_args)
+            x, n_pad = ma[3], ma[8]
+            tag = f"{name} {dtype_name}"
+            # the save variant and K8 on what it saved, against K1 and K2
+            sv = HF.fused_edge_layer_save(*edge_args)
+            k1 = HF.fused_edge_layer(*edge_args)
+            a8 = k8_args(edge_args, sv[2:], ct_e, ct_agg)
+            k8 = HF.fused_edge_layer_bwd_saved(*a8)
+            k2 = HF.fused_edge_layer_bwd(*edge_bwd)
+            # K9 against K1 -> K3 and K4 -> K2 on the same inputs
+            x9, e9, a9 = HM.fused_mgn_layer(*ma)
+            x3 = HN.fused_node_layer(x, k1[1], *node_args[2:])
+            b9_args = (*ma[:4], a9, *ma[4:8], ct_e, ct_x, n_pad)
+            b9 = HM.fused_mgn_layer_bwd(*b9_args)
+            k4 = HN.fused_node_layer_bwd(x, a9, *node_args[2:], ct_x)
+            k2m = HF.fused_edge_layer_bwd(*edge_args[:12], ct_e, k4[1], n_pad)
+            torch.cuda.synchronize()
+            if not same_bits(torch, sv[:2], k1):
+                raise AssertionError(f"K1 save variant {tag}: e' / agg "
+                                     "differ from K1's")
+            if name == "loader" and not (a9[n_pad - 1] == 0).all():
+                raise AssertionError(f"K9-fwd {tag}: the sink's agg is not 0")
+            r = {"K8_vs_K2": check_bwd(torch, f"K8 vs K2 {tag}", k8, k2,
+                                       dtype_name, 3),
+                 "K9fwd_vs_K1K3": max(
+                     check_close(torch, f"K9-fwd vs K1 -> K3 {tag} x'", x9,
+                                 x3, dtype_name),
+                     check_close(torch, f"K9-fwd vs K1 {tag} e'", e9, k1[0],
+                                 dtype_name, rows=real),
+                     check_close(torch, f"K9-fwd vs K1 {tag} agg", a9, k1[1],
+                                 dtype_name)),
+                 "K9bwd_vs_K4K2": check_mgn_bwd(
+                     torch, f"K9-bwd vs K4 -> K2 {tag}", b9,
+                     (*k2m[:3], k4[0], dict(zip(HM.EDGE_KEYS, k2m[3:])),
+                      dict(zip(HM.NODE_KEYS, k4[2:]))), dtype_name)}
+            del k1, k8, k2, x3, k4, k2m
+            if name == "tight":
+                r.update(switched_against_plain(torch, tag, dtype_name, g,
+                                                edge_args, node_args, ma, sv,
+                                                a9, b9, ct_e, ct_agg, ct_x,
+                                                results))
+            r["ms"] = {
+                "K8": cuda_time_ms(torch,
+                                   lambda: HF.fused_edge_layer_bwd_saved(*a8)),
+                "K9fwd": cuda_time_ms(torch, lambda: HM.fused_mgn_layer(*ma)),
+                "K9bwd": cuda_time_ms(
+                    torch, lambda: HM.fused_mgn_layer_bwd(*b9_args))}
+            rec[name][dtype_name] = r
+            log(f"[switched] {tag}: E={g.num_edges_pad}, N={n_pad}; K8 "
+                f"{r['ms']['K8']:.3f} ms, K9-fwd {r['ms']['K9fwd']:.3f} ms, "
+                f"K9-bwd {r['ms']['K9bwd']:.3f} ms; max abs diff K8 vs K2 "
+                f"{r['K8_vs_K2'][0]:.3e} (weight grads "
+                f"{r['K8_vs_K2'][1]:.3e} of max|p|), K9-fwd vs K1 -> K3 "
+                f"{r['K9fwd_vs_K1K3']:.3e}, K9-bwd vs K4 -> K2 "
+                f"{r['K9bwd_vs_K4K2'][0]:.3e} ({r['K9bwd_vs_K4K2'][1]:.3e}); "
+                f"the save variant's e', agg bit-equal to K1's")
+            del edge_args, edge_bwd, node_args, ma, sv, a8, x9, e9, a9, b9
+            del b9_args
+            torch.cuda.empty_cache()
+    ratios = {f"{k}[{d}]": rec["loader"][d]["ms"][k] / rec["tight"][d]["ms"][k]
+              for k in ("K8", "K9fwd", "K9bwd")
+              for d in ("bfloat16", "float32")}
+    rec["ratio"] = ratios
+    log("[switched] loader / tight time: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ratios.items()))
+    over = {k: v for k, v in ratios.items() if v > 1.3}
+    if over:
+        raise AssertionError(f"Loader / tight time above 1.3: {over}")
+    return results, rec
+
+
+def switched_against_plain(torch, tag, dtype_name, g, edge_args, node_args,
+                           ma, sv, a9, b9, ct_e, ct_agg, ct_x, results):
+    """On the tight graph: the save variant, K8, K9-fwd and K9-bwd against
+    their plain versions (K8 on the plain version's saved activations, so
+    every row is defined), K8's and K9-bwd's outputs bit-equal across two
+    launches, and each timed beside its bound and its plain version; the
+    kernels' JSON entries are appended to ``results``. Returns the max
+    abs errors."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+
+    E, N, h, nh = g.num_edges_pad, g.num_nodes_pad, HIDDEN, N_HIDDEN
+    real = g.edge_mask > 0
+    sp = HF.fused_edge_layer_save_ref(*edge_args)
+    errs = {"save": max(
+        check_close(torch, f"K1 save {tag} e'", sv[0], sp[0], dtype_name,
+                    rows=real),
+        check_close(torch, f"K1 save {tag} agg", sv[1], sp[1], dtype_name),
+        check_close(torch, f"K1 save {tag} zs", sv[2][:, real],
+                    sp[2][:, real], dtype_name),
+        *(check_close(torch, f"K1 save {tag} {nm}", a, b, dtype_name,
+                      rows=real)
+          for nm, a, b in zip(("d", "mu", "inv"), sv[3:], sp[3:])))}
+    p8_args = k8_args(edge_args, sp[2:], ct_e, ct_agg)
+    k8 = HF.fused_edge_layer_bwd_saved(*p8_args)
+    errs["K8"] = check_bwd(torch, f"K8 {tag}", k8,
+                           HF.fused_edge_layer_bwd_saved_ref(*p8_args),
+                           dtype_name, 3)
+    p9 = HM.fused_mgn_layer_ref(*ma)
+    errs["K9fwd"] = max(
+        check_close(torch, f"K9-fwd {tag} x'", HM.fused_mgn_layer(*ma)[0],
+                    p9[0], dtype_name),
+        check_close(torch, f"K9-fwd {tag} e'", HM.fused_mgn_layer(*ma)[1],
+                    p9[1], dtype_name, rows=real),
+        check_close(torch, f"K9-fwd {tag} agg", a9, p9[2], dtype_name))
+    b9_args = (*ma[:4], a9, *ma[4:8], ct_e, ct_x, ma[8])
+    errs["K9bwd"] = check_mgn_bwd(torch, f"K9-bwd {tag}", b9,
+                                  HM.fused_mgn_layer_bwd_ref(*b9_args),
+                                  dtype_name)
+    for label, fn, first in (
+            ("K8", lambda: HF.fused_edge_layer_bwd_saved(*p8_args), k8),
+            ("K9-bwd", lambda: HM.fused_mgn_layer_bwd(*b9_args), b9)):
+        if not same_bits(torch, fn(), first):
+            raise AssertionError(f"{label} {tag}: outputs differ between two "
+                                 "launches on the same inputs")
+    log(f"[switched] {tag}: max abs err against the plain versions: save "
+        f"variant {errs['save']:.3e}, K8 {errs['K8'][0]:.3e} (weight grads "
+        f"{errs['K8'][1]:.3e} of max|p|), K9-fwd {errs['K9fwd']:.3e}, "
+        f"K9-bwd {errs['K9bwd'][0]:.3e} ({errs['K9bwd'][1]:.3e}); K8 and "
+        f"K9-bwd bit-equal across launches")
+    del sp, k8, p9
+    isz = torch.finfo(getattr(torch, dtype_name)).bits // 8
+    w_edge = sum(t.numel() for t in edge_args[5:12])
+    w_node = sum(t.numel() for t in node_args[2:])
+    dw_edge = (nh + 2) * h * h + (nh + 3) * h
+    dw_node = (nh + 3) * h * h + (nh + 4) * h
+    edge_mm, node_mm = 2 * E * h * h * (2 + nh), 2 * N * h * h * (3 + nh)
+    kernels = (
+        ("fused_edge_fwd_save", "fused_edge_fwd",
+         "aero_gnn_tpu/ops/pallas_fused.py:488",
+         lambda: HF.fused_edge_layer_save(*edge_args),
+         lambda: HF.fused_edge_layer_save_ref(*edge_args), edge_mm,
+         ((nh + 5) * E * h + 2 * N * h + E + w_edge) * isz + 12 * E,
+         errs["save"]),
+        ("fused_edge_bwd_saved", "fused_edge_bwd_saved",
+         "aero_gnn_tpu/ops/pallas_fused.py:1165",
+         lambda: HF.fused_edge_layer_bwd_saved(*p8_args),
+         lambda: HF.fused_edge_layer_bwd_saved_ref(*p8_args), 2 * edge_mm,
+         ((nh + 6) * E * h + 2 * N * h + E + w_edge) * isz + 12 * E
+         + 4 * dw_edge, errs["K8"][0]),
+        ("fused_mgn_fwd", "fused_mgn_fwd",
+         "aero_gnn_tpu/ops/pallas_mega.py:221",
+         lambda: HM.fused_mgn_layer(*ma),
+         lambda: HM.fused_mgn_layer_ref(*ma), edge_mm + node_mm,
+         (3 * E * h + 4 * N * h + E + w_edge + w_node) * isz + 4 * E,
+         errs["K9fwd"]),
+        ("fused_mgn_bwd", "fused_mgn_bwd",
+         "aero_gnn_tpu/ops/pallas_mega.py:380",
+         lambda: HM.fused_mgn_layer_bwd(*b9_args),
+         lambda: HM.fused_mgn_layer_bwd_ref(*b9_args),
+         3 * (edge_mm + node_mm),
+         (5 * E * h + 6 * N * h + E + w_edge + w_node) * isz + 4 * E
+         + 4 * (dw_edge + dw_node), errs["K9bwd"][0]))
+    for name, src, replaces, fn, ref, flops, nbytes, err in kernels:
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        ms, plain_ms = cuda_time_ms(torch, fn), cuda_time_ms(torch, ref)
+        results.append({
+            "name": f"{name}[{dtype_name}]", "route": "cuda",
+            "source": f"aero_gnn_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "flops": flops, "bytes": nbytes})
+        log(f"[switched] {name} {dtype_name}: {ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms), bound {max(t_bytes, t_ops):.4f} ms by "
+            f"{results[-1]['bound_by']}, max abs err {err:.3e}")
+    return {"vs_plain": errs}
+
+
+def phase_save_acts(torch, sample, graph):
+    """AERO_GNN_SAVE_ACTS=1 (module docstring, phase 10): train the
+    flagship MGN on one mesh. Returns {dtype: launches} and the record."""
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    want = expect(fused_edge_fwd_save=LAYERS, fused_edge_bwd_saved=LAYERS,
+                  fused_node_fwd=LAYERS, fused_node_bwd=LAYERS,
+                  segment_sum=LAYERS)
+    launches, record = {}, {}
+    with knob("AERO_GNN_SAVE_ACTS"):
+        for dtype, n_steps in SAVE_ACTS_STEPS.items():
+            cfg = flagship_config(compute_dtype=dtype)
+            params = cfg.init(torch.Generator().manual_seed(0),
+                              device=graph.device)
+            fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                                   device=graph.device)
+            worst = (check_train_grads(torch, cfg, params, graph,
+                                       label="save_acts")
+                     if dtype == "float32" else None)
+            torch.cuda.reset_peak_memory_stats(graph.device)
+            losses, times, launches[dtype] = train_steps(
+                torch, lambda: fns.train_step(params, graph), n_steps, want,
+                f"save_acts {dtype}")
+            ms = statistics.median(times[1:]) * 1e3
+            record[dtype] = {
+                "losses": losses, "step_ms": [t * 1e3 for t in times],
+                "median_ms": ms, "n_steps": n_steps,
+                "peak_bytes": torch.cuda.max_memory_allocated(graph.device),
+                "grad_worst_rel_err": worst}
+            log(f"[save_acts] {dtype}: {n_steps} steps, first "
+                f"{times[0] * 1e3:.1f} ms, then {ms:.2f} ms per step "
+                f"(median of {n_steps - 1}), "
+                f"{sample.num_edges / ms * 1e3:.4g} edges/s; losses "
+                f"{', '.join(f'{v:.5f}' for v in losses)}; peak device "
+                f"memory {record[dtype]['peak_bytes'] / 2**30:.2f} GiB; "
+                f"launches per step: K1 save variant, K8, K3, K4, K5 "
+                f"{LAYERS}, K1 and K2 0")
+            if dtype == "bfloat16":
+                record["profile_bf16"] = phase_profile(
+                    torch, "save_acts bf16 train step",
+                    lambda: fns.train_step(params, graph), top=10)
+            del params, fns
+            torch.cuda.empty_cache()
+    return launches, record
+
+
+def phase_mega(torch, graphs):
+    """AERO_GNN_MEGA=1 (module docstring, phase 11): serve and train the
+    flagship MGN. Returns {"serve": {dtype: launches}, "train": {dtype:
+    launches}} and the record."""
+    import dataclasses
+
+    import numpy as np
+
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    cfg = flagship_config()
+    dev = graphs[0][1].device
+    stats = {"target_mean": np.zeros(4, np.float32),
+             "target_std": np.ones(4, np.float32)}
+    launches = {"serve": {}, "train": {}}
+    record = {"serve": {}, "train": {}}
+    with knob("AERO_GNN_MEGA"):
+        params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+        preds = {}
+        for dtype in ("bfloat16", "float32"):
+            eng = AeroInference(dataclasses.replace(cfg, compute_dtype=dtype),
+                                params, stats, device=dev)
+            zero_counters()
+            ms_list, n_fwd = [], 0
+            for i, (sample, g) in enumerate(graphs):
+                times = []
+                for rep in range(3):
+                    before = read_counters()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if rep == 0:
+                        preds[(dtype, i)] = eng.predict_single(g)[2]
+                    else:
+                        eng.predict(g)
+                        torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    n_fwd += 1
+                    delta = {k: v - before[k]
+                             for k, v in read_counters().items()}
+                    if delta != expect(fused_mgn_fwd=LAYERS):
+                        raise AssertionError(
+                            f"mega request {i} {dtype}: launches {delta} in "
+                            f"one forward, expected K9-fwd {LAYERS} only")
+                pred = preds[(dtype, i)]
+                if pred.shape != (sample.num_nodes, 4) or \
+                        not np.isfinite(pred).all():
+                    raise AssertionError(f"mega request {i} {dtype}: bad "
+                                         f"predictions {pred.shape}")
+                ms_list.append(statistics.median(times[1:]) * 1e3)
+                log(f"[mega] serve {dtype} request {i}: first call "
+                    f"{times[0] * 1e3:.1f} ms, then {ms_list[-1]:.2f} ms per "
+                    f"forward (median of 2)")
+            launches["serve"][dtype] = read_counters()
+            record["serve"][dtype] = {"ms": ms_list, "n_forwards": n_fwd}
+            if dtype == "float32":
+                with ops.use_backend("torch"):
+                    before = read_counters()
+                    ref = eng.predict_single(graphs[0][1])[2]
+                    if read_counters() != before:
+                        raise AssertionError("the plain path launched a "
+                                             "kernel")
+                atol, rtol = SERVE_TOL
+                err = np.abs(preds[(dtype, 0)] - ref)
+                if (err > atol + rtol * np.abs(ref)).any():
+                    raise AssertionError(
+                        f"mega fp32 serve vs plain path: max abs err "
+                        f"{err.max():.3e} beyond atol={atol} rtol={rtol}")
+                record["serve"]["max_abs_err_vs_plain"] = float(err.max())
+                log(f"[mega] fp32 request 0 vs plain path: max abs err "
+                    f"{err.max():.3e} (atol={atol}, rtol={rtol})")
+            del eng
+        del params
+        sample, graph = graphs[0]
+        want = expect(fused_mgn_fwd=LAYERS, fused_mgn_bwd=LAYERS,
+                      segment_sum=LAYERS)
+        for dtype, n_steps in MEGA_STEPS.items():
+            dcfg = flagship_config(compute_dtype=dtype)
+            params = dcfg.init(torch.Generator().manual_seed(0), device=dev)
+            fns = TL.make_step_fns(dcfg, TL.make_optimizer(params, 1e-3),
+                                   device=dev)
+            worst = (check_train_grads(torch, dcfg, params, graph,
+                                       label="mega")
+                     if dtype == "float32" else None)
+            losses, times, launches["train"][dtype] = train_steps(
+                torch, lambda: fns.train_step(params, graph), n_steps, want,
+                f"mega {dtype}")
+            record["train"][dtype] = {
+                "losses": losses, "step_ms": [t * 1e3 for t in times],
+                "n_steps": n_steps, "grad_worst_rel_err": worst}
+            log(f"[mega] train {dtype}: {n_steps} steps, "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; losses "
+                f"{', '.join(f'{v:.5f}' for v in losses)}; launches per "
+                f"step: K9-fwd, K9-bwd, K5 {LAYERS}, K1-K4 0")
+            if dtype == "bfloat16":
+                record["train"]["profile_bf16"] = phase_profile(
+                    torch, "mega bf16 train step",
+                    lambda: fns.train_step(params, graph), top=10)
+            del params, fns
+            torch.cuda.empty_cache()
+    return launches, record
+
+
+def phase_weighted2(torch, graph):
+    """K10 at benchmarks/micro_wec2.py's shapes (module docstring, phase
+    12). Returns the kernel's JSON entry and the record."""
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    dev, E, N = graph.device, graph.num_edges_pad, graph.num_nodes_pad
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+    m1, m2 = (torch.randn(E, HIDDEN, generator=gen, device=dev).to(dt)
+              for _ in range(2))
+    w1, w2 = (torch.randn(E, generator=gen, device=dev) * graph.edge_mask
+              for _ in range(2))
+    recv = graph.receivers
+    args = (m1, w1, m2, w2, recv, N)
+    # the probe's main path: its timed run of WEC2_PAIRS dual launches
+    zero_counters()
+    for _ in range(WEC2_PAIRS):
+        HS.segment_sum_weighted2(*args)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches != expect(segment_sum_weighted2=WEC2_PAIRS):
+        raise AssertionError(f"weighted2 probe: launches {launches}")
+    k, k2 = HS.segment_sum_weighted2(*args), HS.segment_sum_weighted2(*args)
+    p = HS.segment_sum_weighted2_ref(*args)
+    singles = (HS.segment_sum_weighted(m1, recv, w1, N),
+               HS.segment_sum_weighted(m2, recv, w2, N))
+    torch.cuda.synchronize()
+    err = max(check_close(torch, f"K10 out{i + 1}", a, b, "bfloat16")
+              for i, (a, b) in enumerate(zip(k, p)))
+    if not same_bits(torch, k, k2):
+        raise AssertionError("K10: outputs differ between two launches")
+    if not same_bits(torch, k, singles):
+        raise AssertionError("K10: outputs differ from two K7 launches")
+    live = int((w1 != 0).sum())
+    # inputs read once (the messages of the rows with a weight, ids and
+    # both weights of every row), the outputs written once
+    nbytes = 2 * live * HIDDEN * 2 + 12 * E + 2 * N * HIDDEN * 2
+    flops = 2 * 2 * live * HIDDEN
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    rec = {"E": E, "N": N, "live_rows": live, "launches": launches,
+           "max_abs_err": err,
+           "ms": cuda_time_ms(torch, lambda: HS.segment_sum_weighted2(*args)),
+           "two_single_ms": cuda_time_ms(torch, lambda: (
+               HS.segment_sum_weighted(m1, recv, w1, N),
+               HS.segment_sum_weighted(m2, recv, w2, N))),
+           "k7_ms": cuda_time_ms(
+               torch, lambda: HS.segment_sum_weighted(m1, recv, w1, N)),
+           "plain_ms": cuda_time_ms(
+               torch, lambda: HS.segment_sum_weighted2_ref(*args)),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes}
+    # the library: two cuSPARSE SpMM of CSR matrices of the rows with a
+    # weight, built outside the timing
+    rows = torch.nonzero(w1 != 0).flatten()
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(recv[rows], minlength=N), 0)
+    cols = torch.arange(rows.numel(), device=dev)
+    csr = [torch.sparse_csr_tensor(crow, cols, w[rows].to(dt),
+                                   size=(N, rows.numel())) for w in (w1, w2)]
+    dense = [m[rows] for m in (m1, m2)]
+    try:
+        torch.sparse.mm(csr[0], dense[0])
+        rec["library_ms"] = cuda_time_ms(torch, lambda: (
+            torch.sparse.mm(csr[0], dense[0]),
+            torch.sparse.mm(csr[1], dense[1])))
+    except (RuntimeError, NotImplementedError) as exc:
+        rec["library_ms"] = None
+        log(f"[weighted2] no bf16 sparse.mm "
+            f"({str(exc).splitlines()[0][:80]})")
+    log(f"[weighted2] E={E} ({live} rows with a weight), N={N}, bf16: dual "
+        f"{rec['ms']:.4f} ms, two K7 {rec['two_single_ms']:.4f} ms (one K7 "
+        f"{rec['k7_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
+        f"{rec['library_ms']}, bound {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']}; max abs err {err:.3e}; bit-equal to two K7 "
+        f"launches and across launches; {WEC2_PAIRS} launches in the probe")
+    entry = {"name": "segment_sum_weighted2[bfloat16]", "route": "cuda",
+             "source": "aero_gnn_tpu_torch/csrc/segment_sum_weighted2.cu",
+             "replaces": "aero_gnn_tpu/ops/pallas_segment.py:282",
+             "launches": launches["segment_sum_weighted2"],
+             "max_abs_err": err, "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+             "flops": flops, "bytes": nbytes}
+    return entry, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", help="write the full JSON record here")
@@ -1503,13 +2086,21 @@ def main() -> int:
                                    requests[0][2]["hierarchy"])
     kernels += k7
     phase_shapes(torch, flagship_graph(3, dev, n_nodes=4096)[1])
-    launches = phase_serve(torch, graphs)
+    switched, switched_record = phase_switched_kernels(torch, *graphs[0])
+    kernels += switched
+    k10, k10_record = phase_weighted2(torch, graphs[0][1])
+    kernels.append(k10)
+    launches, serve_ms = phase_serve(torch, graphs)
     train_launches, train_record = phase_train(torch, *graphs[0])
     bsms_serve, bsms_serve_record = phase_bsms_serve(torch, requests)
     bsms_train, bsms_train_record = phase_bsms_train(torch, *requests[0])
     del requests
     torch.cuda.empty_cache()
     zoo = phase_zoo(torch, zoo_reqs)
+    del zoo_reqs
+    torch.cuda.empty_cache()
+    save_launches, save_record = phase_save_acts(torch, *graphs[0])
+    mega_launches, mega_record = phase_mega(torch, graphs)
     for k in kernels:
         base, dtype = k["name"].rstrip("]").split("[")
         fourier = zoo["fouriermgn"][dtype]
@@ -1518,8 +2109,25 @@ def main() -> int:
                 fourier["serve"]["launches"][base]
             k["launches_fouriermgn_train"] = \
                 fourier["train"]["launches"][base]
-        if base == "gather_rows":
-            # FourierMGN serving is K6's main path (this slice)
+        if base == "segment_sum_weighted2":
+            pass  # counted over the probe's run (phase_weighted2)
+        elif base in ("fused_edge_fwd_save", "fused_edge_bwd_saved"):
+            # training with AERO_GNN_SAVE_ACTS=1 is their main path
+            k["launches"] = save_launches[dtype][base]
+            k["launches_per_train_step"] = (
+                k["launches"] / SAVE_ACTS_STEPS[dtype])
+        elif base in ("fused_mgn_fwd", "fused_mgn_bwd"):
+            # serving (K9-fwd) and training with AERO_GNN_MEGA=1
+            k["launches_train"] = mega_launches["train"][dtype][base]
+            k["launches_per_train_step"] = (
+                k["launches_train"] / MEGA_STEPS[dtype])
+            k["launches"] = k["launches_train"]
+            if base == "fused_mgn_fwd":
+                k["launches"] = mega_launches["serve"][dtype][base]
+                k["launches_per_forward"] = (
+                    k["launches"] / mega_record["serve"][dtype]["n_forwards"])
+        elif base == "gather_rows":
+            # FourierMGN serving is K6's main path
             k["launches"] = fourier["serve"]["launches"][base]
             k["launches_per_forward"] = (
                 k["launches"] / fourier["serve"]["n_forwards"])
@@ -1527,7 +2135,7 @@ def main() -> int:
             k["launches_per_train_step"] = (
                 k["launches_train"] / fourier["train"]["n_steps"])
         elif base == "segment_sum_weighted":
-            # BSMS serving is K7's main path (this slice); training runs it
+            # BSMS serving is K7's main path; training runs it
             k["launches"] = bsms_serve[base]
             k["launches_per_forward"] = (
                 bsms_serve[base] / bsms_serve_record["n_forwards"])
@@ -1556,6 +2164,7 @@ def main() -> int:
         with open(args.record, "w") as f:
             json.dump({"nvidia_smi": smi, "build_s": build_s,
                        "kernels": kernels, "launches": launches,
+                       "serve_ms": serve_ms,
                        "train": train_record,
                        "train_launches": train_launches, "tail": tail,
                        "k7": k7_record, "bsms_host": bsms_host,
@@ -1564,6 +2173,10 @@ def main() -> int:
                        "bsms_train": bsms_train_record,
                        "bsms_train_launches": bsms_train,
                        "k6": k6_record, "zoo": zoo,
+                       "switched": switched_record, "k10": k10_record,
+                       "save_acts": save_record,
+                       "save_acts_launches": save_launches,
+                       "mega": mega_record, "mega_launches": mega_launches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")
