@@ -1,7 +1,8 @@
 // One node block of the fused concat-trick edge layer's backward: the
-// device code of kernels K2 (fused_edge_bwd.cu), K8 (fused_edge_bwd_saved.cu)
-// and the edge half of K9-bwd (fused_mgn_bwd.cu), with K2's / K8's kernel
-// and launch. The VJP of the edge layer (edge_fwd.cuh) for the cotangents
+// device code of kernels K8 (fused_edge_bwd_saved.cu) and the edge half of
+// K9-bwd (fused_mgn_bwd.cu), with K8's kernel and launch; K2 ran it too
+// before its own schedule (edge_bwd_rows.cuh, the same math and rounding
+// points). The VJP of the edge layer (edge_fwd.cuh) for the cotangents
 // (ct_e of e', ct_agg of agg). Per receiver-sorted edge row the chain
 //
 //   h0 = e @ W_e + sg + mask * d_proj[recv];  a0 = relu(h0)

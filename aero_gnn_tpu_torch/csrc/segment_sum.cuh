@@ -1,6 +1,8 @@
 // Sorted masked segment sum, optionally weighted: the device code of
-// kernels K5 (segment_sum.cu) and K7 (segment_sum_weighted.cu), whose
-// helpers and constants K10 (segment_sum_weighted2.cu) shares.
+// kernel K5 (segment_sum.cu), whose helpers and constants K10
+// (segment_sum_weighted2.cu) shares. The weighted instance is the schedule
+// K7 ran before segment_rows.cuh; K7 keeps its order and arithmetic, so
+// K10 still matches two K7 launches bit for bit.
 //
 //   out[n] = sum over i with ids[i] == n of mask[i] * w(i) * data[rows[i]]
 //

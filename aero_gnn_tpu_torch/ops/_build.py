@@ -146,3 +146,16 @@ def mma_b_operands(mats):
     w = torch.cat([m.reshape(-1, *m.shape[-2:]) for m in mats])
     pair = (w.mT, w) if w.dtype == torch.bfloat16 else (w, w.mT)
     return torch.stack(pair, dim=1).contiguous()
+
+
+def edge_bwd_operands(mats):
+    """The weights of ``mats`` (as for mma_b_operands) as K2's products
+    read their B operand from shared memory (csrc/edge_bwd_rows.cuh): bf16
+    [n, h, h], each W once, transposed ([n][k]) for ldmatrix, the backward
+    product dz @ W^T reading the same tile transposed; fp32 [n, 2, h, h],
+    W and W^T (both [k][n]), which is mma_b_operands' layout."""
+    import torch
+
+    pair = mma_b_operands(mats)
+    return (pair[:, 0].contiguous() if pair.dtype == torch.bfloat16
+            else pair)

@@ -37,7 +37,15 @@ across the grid: e' = e (a zero update), d_e = ct_e and d_sg = 0, which is
 the VJP wherever the cotangent of pad rows is zero, as it is on the
 training path. The save variant leaves the saved rows of pad tiles
 unwritten, and K8 skips the same tiles. The plain versions compute every
-row.
+row. K2 sums d_dproj with the pad sink declared (``graph.padded`` reserves
+the last node as the sink of the pad rows, so it has no real edge and its
+row is 0).
+
+K2 runs as a row kernel, a segmented sum for d_dproj and a split-K
+weight-gradient kernel (``csrc/edge_bwd_rows.cuh``); ``edge_bwd_plan``
+lays out its workspace and ``_build.edge_bwd_operands`` its weights (in
+bf16 one copy each). K8 keeps the single-kernel schedule of ``csrc/edge_bwd.cuh``
+with the weights laid out twice (``_build.mma_b_operands``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,10 @@ from aero_gnn_tpu_torch.ops.scatter import gather
 NB = ALIGN_NODE_BLOCK
 ET = ALIGN_EDGE_TILE
 KERNEL_WIDTHS = (64, 128)
+# K2's row chunk (8 warps of 16 rows) and the ReLU masks it keeps per row
+# (csrc/edge_bwd_rows.cuh kRows, kMaxHidden)
+CHUNK_ROWS = 128
+MAX_HIDDEN_BWD = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 18 + [_I64, _I64, _I, _I, _I, _I, _I, _P]
@@ -253,9 +265,9 @@ def fused_edge_layer_save(e, sg, d_proj, mask, receivers, w_e, ws, bs,
 
 def _launch_bwd(lib: str, symbol: str, inputs, e, num_nodes: int,
                 n_hidden: int):
-    """K2 or K8 (``inputs``: the C entry's leading pointers) on CUDA
-    tensors: allocates the workspace and outputs, launches, and splits the
-    fp32 weight gradients."""
+    """K8 (``inputs``: the C entry's leading pointers) on CUDA tensors:
+    allocates the workspace the C side asks for and the outputs, launches,
+    and splits the fp32 weight gradients."""
     h, code = e.shape[1], _DTYPE_CODE[e.dtype]
     ws_bytes = ctypes.c_int64(0)
     ws_fn = _build.c_function(lib, symbol + "_workspace", _WS_ARGTYPES)
@@ -277,10 +289,47 @@ def _launch_bwd(lib: str, symbol: str, inputs, e, num_nodes: int,
                  workspace.data_ptr(), ws_bytes.value, e.shape[0], num_nodes,
                  h, n_hidden, NB, ET, code, stream)
     _build.check_launch(symbol, err)
+    return _split_grads(d_e, d_sg, d_dproj, dw, h, n_hidden)
+
+
+def _split_grads(d_e, d_sg, d_dproj, dw, h: int, n_hidden: int):
+    """The backward kernels' outputs in the plain versions' order, the fp32
+    weight gradients cut from ``dw`` ([dW_e, dWs, dW_out] then [db_out,
+    dscale, dbias, dbs])."""
+    n_mat = (n_hidden + 2) * h * h
     mats = dw[:n_mat].view(n_hidden + 2, h, h)
     vecs = dw[n_mat:].view(n_hidden + 3, h)
     return (d_e, d_sg, d_dproj, mats[0], mats[1:n_hidden + 1], vecs[3:],
             mats[n_hidden + 1], vecs[0], vecs[1], vecs[2])
+
+
+def edge_bwd_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int, dtype,
+                  sm_count: int) -> dict:
+    """K2's launch plan (csrc/edge_bwd_rows.cuh, which checks the
+    workspace size against its own reckoning): ``grid`` CTAs for the row
+    and the weight-gradient kernels (one per SM, at most one per 128-row
+    chunk), each with a fp32 partial of ``part_len`` = (n_hidden + 2) h^2
+    + (n_hidden + 3) h floats at the front of the workspace (padded to 256
+    bytes), then the activations a(0..n_hidden) and the cotangents
+    dz(1..n_hidden), d_d, each [n_edges, h] of ``dtype``, at
+    ``acts_offset`` and ``cots_offset``, then d_dproj's row pointer
+    (n_nodes + 1 int32) at ``offsets_offset``; ``ws_bytes`` in all."""
+    if n_edges <= 0 or n_edges % CHUNK_ROWS:
+        raise ValueError(f"K2 takes a positive multiple of {CHUNK_ROWS} edge "
+                         f"rows, not {n_edges}")
+    if not 0 <= n_hidden <= MAX_HIDDEN_BWD:
+        raise ValueError(f"K2 takes 0 to {MAX_HIDDEN_BWD} hidden layers, not "
+                         f"{n_hidden}")
+    n_chunks = n_edges // CHUNK_ROWS
+    grid = max(1, min(sm_count, n_chunks))
+    part_len = (n_hidden + 2) * h * h + (n_hidden + 3) * h
+    part_bytes = -(-grid * part_len * 4 // 256) * 256
+    act_bytes = (n_hidden + 1) * n_edges * h * torch.finfo(dtype).bits // 8
+    offsets_at = part_bytes + 2 * act_bytes
+    return {"grid": grid, "n_chunks": n_chunks, "part_len": part_len,
+            "acts_offset": part_bytes, "cots_offset": part_bytes + act_bytes,
+            "offsets_offset": offsets_at,
+            "ws_bytes": offsets_at + 4 * (n_nodes + 1)}
 
 
 def fused_edge_layer_bwd(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
@@ -288,22 +337,38 @@ def fused_edge_layer_bwd(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
                          num_nodes: int):
     """VJP of the fused edge layer: (d_e, d_sg, d_dproj, dW_e, dWs, dbs,
     dW_out, db_out, dscale, dbias), the weight gradients in fp32. CUDA
-    tensors launch kernel K2 (deterministic: per-CTA partials summed in a
+    tensors launch kernel K2 (deterministic: per-split partials summed in a
     fixed order); CPU tensors run the plain version."""
     if not e.is_cuda:
         return fused_edge_layer_bwd_ref(e, sg, d_proj, mask, receivers, w_e,
                                         ws, bs, w_out, b_out, ln_scale,
                                         ln_bias, ct_e, ct_agg, num_nodes)
-    _, _, nh = _check_args(e, receivers, num_nodes, sg=sg, d_proj=d_proj,
-                           mask=mask, w_e=w_e, ws=ws, bs=bs, w_out=w_out,
-                           b_out=b_out, ln_scale=ln_scale, ln_bias=ln_bias,
-                           ct_e=ct_e, ct_agg=ct_agg)
-    wb = _build.mma_b_operands([w_e, ws, w_out])
-    out = _launch_bwd("fused_edge_bwd", "aero_fused_edge_bwd",
-                      [e, sg, d_proj, mask, receivers, wb, bs, b_out,
-                       ln_scale, ct_e, ct_agg], e, num_nodes, nh)
+    n_edges, h, nh = _check_args(
+        e, receivers, num_nodes, sg=sg, d_proj=d_proj, mask=mask, w_e=w_e,
+        ws=ws, bs=bs, w_out=w_out, b_out=b_out, ln_scale=ln_scale,
+        ln_bias=ln_bias, ct_e=ct_e, ct_agg=ct_agg)
+    dev = e.device
+    plan = edge_bwd_plan(n_edges, num_nodes, h, nh, e.dtype,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+    wb = _build.edge_bwd_operands([w_e, ws, w_out])
+    d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
+    d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
+    n_mat = (nh + 2) * h * h
+    dw = torch.empty(n_mat + (nh + 3) * h, dtype=torch.float32, device=dev)
+    workspace = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+    fn = _build.c_function("fused_edge_bwd", "aero_fused_edge_bwd",
+                           _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in (
+                     e, sg, d_proj, mask, receivers, wb, bs, b_out, ln_scale,
+                     ct_e, ct_agg, d_e, d_sg, d_dproj, dw, workspace)],
+                 plan["ws_bytes"], n_edges, num_nodes, h, nh, plan["grid"],
+                 ET, _DTYPE_CODE[e.dtype], stream)
+    _build.check_launch("aero_fused_edge_bwd", err)
     fused_edge_layer_bwd.launches += 1
-    return out
+    return _split_grads(d_e, d_sg, d_dproj, dw, h, nh)
 
 
 def fused_edge_layer_bwd_saved(e, mask, receivers, w_e, ws, w_out, ln_scale,

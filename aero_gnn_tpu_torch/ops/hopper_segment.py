@@ -39,7 +39,7 @@ from aero_gnn_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I64, _I64, _I, _I, _I, _P]
-_W_ARGTYPES = [_P] * 6 + [_I64, _I64, _I, _I, _I, _P]
+_W_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _I, _P]
 _W2_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _P]
 
 
@@ -117,6 +117,14 @@ def _check_segment_args(data, segment_ids, mask, rows, **extra):
     return n_ids
 
 
+def weighted_max_width(dtype: torch.dtype, width: int) -> int:
+    """The widest row K7 takes (csrc/segment_rows.cuh group_shape): 4
+    vectors for each of 32 lanes, 4-value vectors where a row of ``width``
+    is a whole number of them, else single values (the same for both
+    dtypes)."""
+    return 4 * 32 * (4 if width % 4 == 0 else 1)
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, *, mask: Optional[torch.Tensor] = None,
                 rows: Optional[torch.Tensor] = None,
@@ -159,15 +167,23 @@ def segment_sum_weighted(data: torch.Tensor, segment_ids: torch.Tensor,
                                         pad_sink=pad_sink)
     n_ids = _check_segment_args(data, segment_ids, mask, rows,
                                 weights=weights)
+    if data.shape[1] > weighted_max_width(data.dtype, data.shape[1]):
+        raise ValueError(f"K7 takes rows of at most "
+                         f"{weighted_max_width(data.dtype, data.shape[1])} "
+                         f"values here, not {data.shape[1]}")
     out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
                       device=data.device)
+    # the kernel's scratch: the id stream's row pointer
+    offsets = torch.empty(num_segments + 1, dtype=torch.int32,
+                          device=data.device)
     fn = _build.c_function("segment_sum_weighted",
                            "aero_segment_sum_weighted", _W_ARGTYPES)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), segment_ids.data_ptr(), weights.data_ptr(),
                  None if mask is None else mask.data_ptr(),
-                 None if rows is None else rows.data_ptr(), out.data_ptr(),
+                 None if rows is None else rows.data_ptr(),
+                 offsets.data_ptr(), out.data_ptr(),
                  n_ids, num_segments, data.shape[1], int(pad_sink),
                  _DTYPE_CODE[data.dtype], stream)
     _build.check_launch("aero_segment_sum_weighted", err)

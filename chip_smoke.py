@@ -24,13 +24,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                layout, h = 128, 2 hidden layers; K5 on its aligned sender
                stream), fp32 and bf16, timed with CUDA events (median of 20
                after warm-up) beside the bound and, for K5, the library
-               call torch.segment_reduce; K1's agg and K2's / K4's weight
-               gradients must be bit-equal across two launches. K7 at the
+               calls of the same function: torch.sparse.mm of a 0/1 CSR
+               matrix with its ``rows`` (the timed call), torch.segment_reduce
+               on the pre-gathered rows beside K5 without them; K1's agg and
+               K2's / K4's weight gradients must be bit-equal across two
+               launches; nvcc's register and spill report for K2. K7 at the
                BSMS path's shapes (fine level, level 1, level 2 of mesh 0's
                Loader batch, WEC weights from its hierarchy), with and
                without ``rows``, bit-equal across launches, timed at the
                fine level beside its bound, its plain version and
-               torch.sparse.mm of a CSR matrix;
+               torch.sparse.mm of the CSR matrix that computes the same
+               function (on the node table with ``rows``, on the gathered
+               rows without), with nvcc's register and spill report;
                K6 at the tight MGN graph's shapes and at the Loader fine
                level's (receivers of each graph, random node rows), both
                dtypes, torch.equal to index_select and across launches,
@@ -48,8 +53,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                save variant leaves unwritten): K8 on what the save variant
                saved against K2, K9-fwd against K1 -> K3 and K9-bwd against
                K4 -> K2 on the same inputs (max abs differences recorded),
-               and the Loader / tight time of K8, K9-fwd and K9-bwd, at
-               most 1.3;
+               and the Loader / tight time of K2, K8, K9-fwd and K9-bwd,
+               at most 1.3;
   4d. weighted2 — K10, the WEC pair probe of benchmarks/micro_wec2.py, at
                its shapes (the tight 65,536-node graph, h = 128, bf16
                messages, fp32 weights zero on pad edges): its timed run of
@@ -692,10 +697,20 @@ def phase_kernels(torch, graph):
              lambda: HS.segment_sum(*seg, rows=graph.sender_perm,
                                     pad_sink=True),
              lambda: HS.segment_sum_ref(*seg, rows=graph.sender_perm,
-                                        pad_sink=True),
-             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths),
+                                        pad_sink=True), None,
              Es * h, (E * h + N * h) * isz + 8 * Es, e5),
         )
+        # K5's library calls. With ``rows`` (its timed call): one SpMM of
+        # the [N, E] CSR matrix with a 1 at (ids[i], sender_perm[i]) for
+        # the rows before the sink tail, on the [E, h] cotangent; without
+        # (ms_without_rows): segment_reduce of the pre-gathered rows.
+        s_live = int((graph.senders_sorted != N - 1).sum())
+        crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(
+            graph.senders_sorted[:s_live], minlength=N), 0)
+        k5_csr = torch.sparse_csr_tensor(
+            crow, graph.sender_perm[:s_live].long(),
+            torch.ones(s_live, dtype=dt, device=dev), size=(N, E))
         for name, replaces, fn, ref, lib, flops, nbytes, err in kernels:
             peak = PEAK_FLOPS["float32" if name == "segment_sum"
                               else dtype_name]
@@ -715,21 +730,33 @@ def phase_kernels(torch, graph):
             if name == "segment_sum":
                 # what folding ct[sender_perm] into K5 saves: K5 on the
                 # pre-gathered rows, and the [E, h] permutation gather alone
-                results[-1]["ms_without_rows"] = cuda_time_ms(
+                rec5 = results[-1]
+                rec5["ms_without_rows"] = cuda_time_ms(
                     torch, lambda: HS.segment_sum(gathered, *seg[1:],
                                                   pad_sink=True))
-                results[-1]["perm_gather_ms"] = cuda_time_ms(
+                rec5["perm_gather_ms"] = cuda_time_ms(
                     torch, lambda: seg[0].index_select(0, graph.sender_perm))
+                library_ms = rec5["library_ms"] = sparse_mm_ms(
+                    torch, k5_csr, seg[0], f"K5 {dtype_name}")
+                rec5["library_ms_without_rows"] = cuda_time_ms(
+                    torch, lambda: torch.segment_reduce(gathered, "sum",
+                                                        lengths=lengths))
                 log(f"[kernels] segment_sum {dtype_name} on the pre-gathered "
-                    f"rows: {results[-1]['ms_without_rows']:.3f} ms; the "
-                    f"permutation gather alone "
-                    f"{results[-1]['perm_gather_ms']:.3f} ms")
-            lib_txt = "" if lib is None else f", library {library_ms:.3f} ms"
+                    f"rows: {rec5['ms_without_rows']:.3f} ms (segment_reduce "
+                    f"on them {rec5['library_ms_without_rows']:.3f} ms); the "
+                    f"permutation gather alone {rec5['perm_gather_ms']:.3f} "
+                    f"ms; with rows, sparse.mm {fmt_ms(library_ms)}")
+            if name == "fused_edge_bwd":
+                for line in ptxas_lines("fused_edge_bwd"):
+                    log(f"[kernels] fused_edge_bwd ptxas: {line}")
+            lib_txt = ("" if library_ms is None
+                       else f", library {library_ms:.3f} ms")
             log(f"[kernels] {name} {dtype_name}: {ms:.3f} ms (plain "
                 f"{plain_ms:.3f} ms{lib_txt}), bound "
                 f"{max(t_bytes, t_ops):.4f} ms by {results[-1]['bound_by']}, "
                 f"max abs err {err:.3e}")
         del edge_args, edge_bwd, node_args, node_bwd, seg, gathered, kernels
+        del k5_csr
         torch.cuda.empty_cache()
     return results
 
@@ -1169,18 +1196,39 @@ def weighted_streams(torch, g, hierarchy):
     return out
 
 
+def fmt_ms(ms) -> str:
+    return "none" if ms is None else f"{ms:.4f} ms"
+
+
+def sparse_mm_ms(torch, mat, dense, label):
+    """The time of torch.sparse.mm(mat, dense), or None where this build
+    of PyTorch has no such product (logged)."""
+    try:
+        torch.sparse.mm(mat, dense)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"[kernels] {label}: no sparse.mm "
+            f"({str(exc).splitlines()[0][:80]})")
+        return None
+    return cuda_time_ms(torch, lambda: torch.sparse.mm(mat, dense))
+
+
 def phase_weighted(torch, g, hierarchy):
     """K7 against its plain version at the BSMS path's shapes (fine, level
     1, level 2), bf16 and fp32, with and without ``rows``; bit-equal across
     two launches; timed at the fine level with ``rows`` (the main path's
-    call) beside its bound, the plain version and torch.sparse.mm (cuSPARSE
-    SpMM) of a CSR matrix built outside the timing. Returns the fp32 entry
-    of the kernels' JSON and the full record."""
+    call) beside its bound, the plain version and torch.sparse.mm
+    (cuSPARSE SpMM) of the CSR matrix that computes the same function on
+    the node table, and without ``rows`` beside sparse.mm of the matrix on
+    the pre-gathered rows (both built outside the timing); nvcc's register
+    and spill report. Returns the fp32 entry of the kernels' JSON and the
+    full record."""
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
 
     dev = g.device
     streams = weighted_streams(torch, g, hierarchy)
-    results, record = [], {}
+    results, record = [], {"ptxas": ptxas_lines("segment_sum_weighted")}
+    for line in record["ptxas"]:
+        log(f"[kernels] segment_sum_weighted ptxas: {line}")
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(2024)
@@ -1225,23 +1273,28 @@ def phase_weighted(torch, g, hierarchy):
                 rec["plain_ms"] = cuda_time_ms(
                     torch, lambda: HS.segment_sum_weighted_ref(
                         data, ids, w, n, rows=rows, pad_sink=True))
-                # the library on the rows before the tail (the tail's
-                # weights are 0: the same function)
+                # the library on the rows before the tail (the tail's rows
+                # are skipped: the same function). Like for like with
+                # ``ms``: one SpMM of the [n, n] CSR matrix whose row n
+                # holds the weights of n's rows at their senders' columns,
+                # applied to the node table (the gather inside the call);
+                # beside ``ms_without_rows``: the [n, e_live] matrix on the
+                # pre-gathered rows.
                 crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
                 crow[1:] = torch.cumsum(
                     torch.bincount(ids[:e_live], minlength=n), 0)
-                csr = torch.sparse_csr_tensor(
-                    crow, torch.arange(e_live, device=dev),
-                    w[:e_live].to(dt), size=(n, e_live))
+                vals = w[:e_live].to(dt)
                 live_rows = gathered[:e_live]
-                try:
-                    torch.sparse.mm(csr, live_rows)
-                    rec["library_ms"] = cuda_time_ms(
-                        torch, lambda: torch.sparse.mm(csr, live_rows))
-                except (RuntimeError, NotImplementedError) as exc:
-                    rec["library_ms"] = None
-                    log(f"[kernels] K7 {dtype_name}: no sparse.mm "
-                        f"({str(exc).splitlines()[0][:80]})")
+                csr = torch.sparse_csr_tensor(crow, rows[:e_live].long(),
+                                              vals, size=(n, n))
+                csr_g = torch.sparse_csr_tensor(
+                    crow, torch.arange(e_live, device=dev), vals,
+                    size=(n, e_live))
+                for key, mat, dense in (("library_ms", csr, data),
+                                        ("library_ms_without_rows", csr_g,
+                                         live_rows)):
+                    rec[key] = sparse_mm_ms(torch, mat, dense,
+                                            f"K7 {dtype_name} {key}")
                 rec.update(bound_ms=max(t_bytes, t_ops), flops=flops,
                            bytes=nbytes,
                            bound_by="bytes" if t_bytes >= t_ops
@@ -1257,13 +1310,17 @@ def phase_weighted(torch, g, hierarchy):
                         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"], "flops": flops,
-                        "bytes": nbytes})
+                        "library_ms": rec["library_ms"],
+                        "ms_without_rows": rec["ms_without_rows"],
+                        "library_ms_without_rows":
+                            rec["library_ms_without_rows"],
+                        "flops": flops, "bytes": nbytes})
             record[f"{label}[{dtype_name}]"] = rec
             extra = "" if label != "fine" else (
-                f", plain {rec['plain_ms']:.3f} ms, library "
-                f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 3)}"
-                f" ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+                f", plain {rec['plain_ms']:.3f} ms, sparse.mm on the node "
+                f"table {fmt_ms(rec['library_ms'])} (on the gathered rows "
+                f"{fmt_ms(rec['library_ms_without_rows'])}), bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}")
             log(f"[kernels] segment_sum_weighted {label} {dtype_name}: "
                 f"{rec['rows']} rows ({e_live} before the sink tail) -> {n} "
                 f"nodes, {rec['ms']:.3f} ms with "
@@ -1682,13 +1739,16 @@ def phase_switched_kernels(torch, sample, tight):
                                                 a9, b9, ct_e, ct_agg, ct_x,
                                                 results))
             r["ms"] = {
+                "K2": cuda_time_ms(torch,
+                                   lambda: HF.fused_edge_layer_bwd(*edge_bwd)),
                 "K8": cuda_time_ms(torch,
                                    lambda: HF.fused_edge_layer_bwd_saved(*a8)),
                 "K9fwd": cuda_time_ms(torch, lambda: HM.fused_mgn_layer(*ma)),
                 "K9bwd": cuda_time_ms(
                     torch, lambda: HM.fused_mgn_layer_bwd(*b9_args))}
             rec[name][dtype_name] = r
-            log(f"[switched] {tag}: E={g.num_edges_pad}, N={n_pad}; K8 "
+            log(f"[switched] {tag}: E={g.num_edges_pad}, N={n_pad}; K2 "
+                f"{r['ms']['K2']:.3f} ms, K8 "
                 f"{r['ms']['K8']:.3f} ms, K9-fwd {r['ms']['K9fwd']:.3f} ms, "
                 f"K9-bwd {r['ms']['K9bwd']:.3f} ms; max abs diff K8 vs K2 "
                 f"{r['K8_vs_K2'][0]:.3e} (weight grads "
@@ -1700,7 +1760,7 @@ def phase_switched_kernels(torch, sample, tight):
             del b9_args
             torch.cuda.empty_cache()
     ratios = {f"{k}[{d}]": rec["loader"][d]["ms"][k] / rec["tight"][d]["ms"][k]
-              for k in ("K8", "K9fwd", "K9bwd")
+              for k in ("K2", "K8", "K9fwd", "K9bwd")
               for d in ("bfloat16", "float32")}
     rec["ratio"] = ratios
     log("[switched] loader / tight time: " + ", ".join(
