@@ -1,6 +1,7 @@
 // Shared pieces of the fused backward kernels (edge_bwd.cuh: K8 and the
-// edge half of K9-bwd; node_bwd.cuh: K4 and the node half of K9-bwd; some
-// of them edge_bwd_rows.cuh's K2 too), on top of chain.cuh.
+// edge half of K9-bwd; node_bwd.cuh: the node half of K9-bwd; some of them
+// K2's and K4's row kernels too, through rows_bwd.cuh), on top of
+// chain.cuh.
 //
 // A CTA walks row chunks of 128 rows, recomputes the forward chain of a
 // chunk (or, in K8, reads the activations the forward saved) and runs its

@@ -41,17 +41,16 @@
 // d_sg = 0), the VJP wherever the cotangent of pad rows is zero, as on the
 // training path. The workspace ([grid] partials, then a(0..nh) and
 // dz(1..nh), d_d, each [E][H] of T, then d_dproj's row pointer) is planned
-// in Python
-// (ops/hopper_fused.py edge_bwd_plan) and checked here.
+// in Python (ops/hopper_fused.py edge_bwd_plan) and checked here. The
+// machinery of kernels 1 and 3 (WeightRing, RowOperand, the ReLU bits,
+// DwAcc, dw_split) is rows_bwd.cuh's, which K4 (node_bwd_rows.cuh)
+// shares.
 #pragma once
 
-#include "chain_bwd.cuh"
+#include "rows_bwd.cuh"
 #include "segment_rows.cuh"
 
 namespace chain {
-
-constexpr int kMaxHidden = 8;  // ReLU-mask words kept per warp row pair
-constexpr int kSlab = 64;      // rows per weight-gradient slab
 
 template <typename T>
 struct RowsBwdArgs {
@@ -69,216 +68,6 @@ struct RowsBwdArgs {
   int n_nodes, n_hidden, edge_tile, n_chunks;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices from shared memory: lanes 8q..8q+7 give the row
-// addresses of matrix q; lane (g, t) receives its elements [g][2t] and
-// [g][2t+1] in register q.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// An [H, H] matrix of device memory (row-major) into a padded shared tile
-// by cp.async, 16 bytes per copy; the caller commits and waits.
-template <typename T, int H>
-__device__ __forceinline__ void copy_mat_async(T* dst,
-                                               const T* __restrict__ src) {
-  constexpr int LD = Layout<T, H>::kLd;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = H / V;
-  for (int i = threadIdx.x; i < H * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
-    cp_async16(dst + r * LD + c, src + size_t(r) * H + c);
-  }
-}
-
-// The weight copies the products read: bf16 one per matrix (the backward
-// product reads it transposed with ldmatrix.trans), fp32 two (W, then
-// W^T, both [k][n], so that both products stream B as float2 rows).
-template <typename T>
-constexpr int kCopies = sizeof(T) == 4 ? 2 : 1;
-
-// The stored matrix of product p of a chunk's 2 (nh + 2): the forward W_e,
-// ws[0], ..., W_out (0 .. nh + 1), then the backward W_out, ws[nh - 1],
-// ..., W_e (with fp32, their transposed copies).
-template <typename T>
-__device__ __forceinline__ int mat_of(int p, int nh) {
-  const bool bwd = p >= nh + 2;
-  const int m = bwd ? 2 * nh + 3 - p : p;
-  return kCopies<T> == 2 ? 2 * m + bwd : m;
-}
-
-// The weights in shared memory: all resident, or a ring of two slots
-// through which the products' weights stream in order (cp.async one product
-// ahead; every thread of the CTA calls get() for every product).
-template <typename T, int H>
-struct WeightRing {
-  static constexpr size_t kMat = size_t(H) * Layout<T, H>::kLd;
-  T* slots;
-  const T* wb;
-  int resident, nh, n_prod, s;
-
-  __device__ void start() {
-    if (resident) {
-      for (int m = 0; m < (nh + 2) * kCopies<T>; ++m)
-        copy_mat_async<T, H>(slots + m * kMat, wb + size_t(m) * H * H);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      copy_mat_async<T, H>(slots, wb);  // product 0: W_e
-      cp_async_commit();
-    }
-  }
-  __device__ const T* get(int p) {
-    if (resident) return slots + mat_of<T>(p, nh) * kMat;
-    cp_async_wait<0>();
-    __syncthreads();  // the copy is visible; product s - 1 is done
-    const int m_next = mat_of<T>((p + 1) % n_prod, nh);
-    copy_mat_async<T, H>(slots + ((s + 1) & 1) * kMat,
-                         wb + size_t(m_next) * H * H);
-    cp_async_commit();
-    return slots + ((s++) & 1) * kMat;
-  }
-  __device__ void finish() {
-    if (!resident) cp_async_wait<0>();
-  }
-};
-
-// A product's A operand: the warp's 16 rows of an activation.
-template <typename T, int H>
-struct RowOperand;
-
-// bf16: in registers as mma A fragments, [k block][4].
-template <int H>
-struct RowOperand<__nv_bfloat16, H> {
-  using T = __nv_bfloat16;
-  static constexpr int LD = Layout<T, H>::kLd;
-  uint32_t f[H / 16][4];
-
-  __device__ static uint32_t pack(float lo, float hi) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&b);
-  }
-  // rows ra / rb (the thread's rows g and g + 8) of device memory
-  __device__ void from_rows(const T* row_a, const T* row_b, T*) {
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int kb = 0; kb < H / 16; ++kb) {
-      const int c = 16 * kb + 2 * t;
-      f[kb][0] = *reinterpret_cast<const uint32_t*>(row_a + c);
-      f[kb][1] = *reinterpret_cast<const uint32_t*>(row_b + c);
-      f[kb][2] = *reinterpret_cast<const uint32_t*>(row_a + c + 8);
-      f[kb][3] = *reinterpret_cast<const uint32_t*>(row_b + c + 8);
-    }
-  }
-  // an accumulator of already rounded values: n-tiles 2kb and 2kb + 1 are
-  // k block kb
-  __device__ void from_acc(const float (&v)[H / 8][4], T*) {
-#pragma unroll
-    for (int kb = 0; kb < H / 16; ++kb) {
-      f[kb][0] = pack(v[2 * kb][0], v[2 * kb][1]);
-      f[kb][1] = pack(v[2 * kb][2], v[2 * kb][3]);
-      f[kb][2] = pack(v[2 * kb + 1][0], v[2 * kb + 1][1]);
-      f[kb][3] = pack(v[2 * kb + 1][2], v[2 * kb + 1][3]);
-    }
-  }
-  // acc += A @ B: kTrans false reads B = W from the [n][k] tile (ldmatrix),
-  // true reads B = W^T from the same tile, [k][n] (ldmatrix.trans)
-  template <bool kTrans>
-  __device__ void mm(const T* w, float (&acc)[H / 8][4], T*) const {
-    const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
-#pragma unroll
-    for (int kb = 0; kb < H / 16; ++kb) {
-#pragma unroll
-      for (int j = 0; j < H / 8; j += 2) {
-        uint32_t b[4];
-        if constexpr (kTrans)
-          ldsm_x4_trans(b, w + (16 * kb + (q & 1) * 8 + r8) * LD +
-                               8 * (j + (q >> 1)));
-        else
-          ldsm_x4(b, w + (8 * (j + (q >> 1)) + r8) * LD + 16 * kb +
-                         (q & 1) * 8);
-        mma_bf16(acc[j], f[kb], b[0], b[1]);
-        mma_bf16(acc[j + 1], f[kb], b[2], b[3]);
-      }
-    }
-  }
-};
-
-// fp32: staged in the warp's [16][LD] slice of shared memory.
-template <int H>
-struct RowOperand<float, H> {
-  static constexpr int LD = Layout<float, H>::kLd;
-
-  __device__ void from_rows(const float* row_a, const float* row_b,
-                            float* stg) {
-    float v[H / 8][4];
-    load_acc<float, H>(v, row_a, row_b);
-    from_acc(v, stg);
-  }
-  __device__ void from_acc(const float (&v)[H / 8][4], float* stg) {
-    const int g = (threadIdx.x & 31) >> 2;
-    __syncwarp();  // the previous product has read the slice
-    store_acc<float, H>(v, stg + g * LD, stg + (g + 8) * LD);
-    __syncwarp();
-  }
-  // acc += A @ B, B the [k][n] tile of W or of W^T (chain.cuh mm)
-  template <bool kTrans>
-  __device__ void mm(const float* w, float (&acc)[H / 8][4],
-                     float* stg) const {
-    chain::mm<H>(stg, w, acc);
-  }
-};
-
-template <int H>
-__device__ __forceinline__ uint64_t relu_bits(const float (&acc)[H / 8][4]) {
-  uint64_t b = 0;
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (acc[j][q] > 0.f) b |= uint64_t(1) << (4 * j + q);
-  return b;
-}
-
-// acc = rnd(acc) where the activation was > 0, else 0 (the ReLU backward)
-template <typename T, int H>
-__device__ __forceinline__ void relu_grad(float (&acc)[H / 8][4],
-                                          uint64_t bits) {
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      acc[j][q] = (bits >> (4 * j + q)) & 1 ? Num<T>::rnd(acc[j][q]) : 0.f;
-}
-
-template <typename T, int H>
-__host__ __device__ constexpr size_t rows_fixed_smem() {
-  // fp32 operand staging (kRows rows), then per warp the LayerNorm column
-  // sums of ln_backward and their running totals ([2][kWarps][H] each)
-  return (sizeof(T) == 4 ? Layout<T, H>::kActBytes : 0) +
-         2 * 2 * size_t(kWarps) * H * sizeof(float);
-}
-
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
@@ -288,8 +77,8 @@ edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   constexpr size_t kMat = WeightRing<T, H>::kMat;
-  WeightRing<T, H> ring{reinterpret_cast<T*>(smem_raw), a.wb, resident, nh,
-                        2 * n_mats, 0};
+  WeightRing<T, H> ring{reinterpret_cast<T*>(smem_raw), a.wb, resident,
+                        n_mats, 0};
   unsigned char* rest =
       smem_raw + (resident ? n_mats * kCopies<T> : 2) * kMat * sizeof(T);
   float* stg_all = reinterpret_cast<float*>(rest);
@@ -440,93 +229,6 @@ edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
   }
 }
 
-// One CTA's [H, H] weight-gradient accumulator, summed slab by slab (A^T D
-// over a slab's kSlab rows in shared memory) and written once.
-template <typename T, int H>
-struct DwAcc;
-
-// bf16: each warp's TnTile (chain_bwd.cuh) in mma accumulators, fragments
-// by ldmatrix.trans (as mm_tn).
-template <int H>
-struct DwAcc<__nv_bfloat16, H> {
-  static constexpr int LD = Layout<__nv_bfloat16, H>::kLd;
-  static constexpr int NT = TnTile<H>::NT;
-  float acc[NT][4] = {};
-
-  __device__ void add(const __nv_bfloat16* a, const __nv_bfloat16* d) {
-    const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
-    const int m0 = TnTile<H>::m0(), n0 = TnTile<H>::n0();
-#pragma unroll
-    for (int kk = 0; kk < kSlab; kk += 16) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, a + (kk + r8 + (q >> 1) * 8) * LD + m0 + (q & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, d + (kk + r8 + (q & 1) * 8) * LD + n0 + 8 * j +
-                              (q >> 1) * 8);
-        mma_bf16(acc[j], af, bf[0], bf[1]);
-        mma_bf16(acc[j + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-  __device__ void store(float* mat) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int m0 = TnTile<H>::m0(), n0 = TnTile<H>::n0();
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(mat + (m0 + g) * H + c) =
-          make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(mat + (m0 + g + 8) * H + c) =
-          make_float2(acc[j][2], acc[j][3]);
-    }
-  }
-};
-
-// fp32 (FFMA): thread (ty, tx) of a 16 x 16 grid owns rows B ty .. B ty +
-// B - 1 (B = H / 16) and the B / 4 column quads 4 tx + 64 k, so each slab
-// row costs it B / 2 float4 loads for B * B products, the quads of a
-// quarter warp side by side in shared memory (no bank conflict).
-template <int H>
-struct DwAcc<float, H> {
-  static constexpr int LD = Layout<float, H>::kLd;
-  static constexpr int B = H / 16;
-  static_assert(B % 4 == 0, "blocks of whole float4 vectors");
-  float acc[B][B] = {};
-
-  __device__ void add(const float* a, const float* d) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 2
-    for (int r = 0; r < kSlab; ++r) {
-      float x[B], y[B];
-#pragma unroll
-      for (int v = 0; v < B; v += 4) {
-        const float4 xa =
-            *reinterpret_cast<const float4*>(a + r * LD + B * ty + v);
-        const float4 yd =
-            *reinterpret_cast<const float4*>(d + r * LD + 16 * v + 4 * tx);
-        x[v] = xa.x, x[v + 1] = xa.y, x[v + 2] = xa.z, x[v + 3] = xa.w;
-        y[v] = yd.x, y[v + 1] = yd.y, y[v + 2] = yd.z, y[v + 3] = yd.w;
-      }
-#pragma unroll
-      for (int i = 0; i < B; ++i)
-#pragma unroll
-        for (int j = 0; j < B; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* mat) const {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < B; ++i)
-#pragma unroll
-      for (int v = 0; v < B; v += 4)
-        *reinterpret_cast<float4*>(mat + (B * ty + i) * H + 16 * v + 4 * tx) =
-            make_float4(acc[i][v], acc[i][v + 1], acc[i][v + 2],
-                        acc[i][v + 3]);
-  }
-};
-
 constexpr int kFillSplit = 16;  // CTAs per pad tile in fill_pad_rows
 
 // The rows of every pad tile (first row masked): d_e = ct_e, d_sg = 0.
@@ -551,11 +253,6 @@ fill_pad_rows(const T* __restrict__ mask, int edge_tile, int h,
   }
 }
 
-template <typename T, int H>
-__host__ __device__ constexpr size_t dw_smem() {
-  return 2 * 2 * size_t(kSlab) * Layout<T, H>::kLd * sizeof(T);
-}
-
 // First chunk at or after q, stepping by `step`, that is not a pad tile's
 // (n_chunks if none).
 template <typename T>
@@ -568,70 +265,26 @@ __device__ __forceinline__ int live_chunk(const RowsBwdArgs<T>& a, int q,
   return q;
 }
 
+// CTA (s, p): pair p of dW = A^T dZ over split s (dw_split), the pairs
+// (e, d_sg), (a(i), dz(i + 1)), (a(nh), d_d), and the bias gradients as
+// column sums of dZ: db_out (vector 0) from d_d, dbs[p - 1] (vector 3 + p
+// - 1) from dz; W_e has no bias.
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads)
 edge_dw_kernel(RowsBwdArgs<T> a) {
-  constexpr int LD = Layout<T, H>::kLd;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER_ROW = H / V;
-  constexpr size_t kTile = size_t(kSlab) * LD;
-  constexpr int kParts = kThreads / H;  // column-sum partials per column
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tiles = reinterpret_cast<T*>(smem_raw);  // [stage][A, D][kSlab][LD]
   const int s = blockIdx.x, p = blockIdx.y, step = gridDim.x;
-  const int nh = a.n_hidden, tid = threadIdx.x;
+  const int nh = a.n_hidden;
   const int64_t EH = a.n_edges * H;
   const T* A = p == 0 ? a.e : a.acts + (p - 1) * EH;
   const T* D = p == 0 ? a.d_sg : a.cots + (p - 1) * EH;
-  auto issue = [&](int q, int half, int stage) {
-    const int64_t r0 = int64_t(q) * kRows + half * kSlab;
-    T* ta = tiles + size_t(stage) * 2 * kTile;
-    for (int i = tid; i < kSlab * PER_ROW; i += kThreads) {
-      const int r = i / PER_ROW, c = (i % PER_ROW) * V;
-      cp_async16(ta + r * LD + c, A + (r0 + r) * H + c);
-      cp_async16(ta + kTile + r * LD + c, D + (r0 + r) * H + c);
-    }
-  };
-  DwAcc<T, H> acc;
-  const int col = tid % H, cpart = tid / H;
-  float csum = 0.f;
-
-  int q = live_chunk(a, s, step), half = 0, it = 0;
-  if (q < a.n_chunks) issue(q, 0, 0);
-  cp_async_commit();
-  while (q < a.n_chunks) {
-    const int qn = half ? live_chunk(a, q + step, step) : q;
-    const int hn = half ^ 1;
-    if (qn < a.n_chunks) issue(qn, hn, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* ta = tiles + size_t(it & 1) * 2 * kTile;
-    acc.add(ta, ta + kTile);
-    constexpr int kRowsPer = kSlab / kParts;
-    for (int r = cpart * kRowsPer; r < (cpart + 1) * kRowsPer; ++r)
-      csum += Num<T>::load1(ta + kTile + r * LD + col);
-    __syncthreads();  // stage it & 1 is free for the copy after next
-    q = qn;
-    half = hn;
-    ++it;
-  }
-  cp_async_wait<0>();
-
   float* part = a.part + int64_t(s) * a.part_len;
-  acc.store(part + int64_t(p) * H * H);
-  if (p == 0) return;  // W_e has no bias
-  float* red = reinterpret_cast<float*>(smem_raw);
-  __syncthreads();
-  red[cpart * H + col] = csum;
-  __syncthreads();
-  if (tid < H) {
-    float v = 0.f;
-    for (int k = 0; k < kParts; ++k) v += red[k * H + tid];
-    // db_out (vector 0) from d_d, dbs[p - 1] (vector 3 + p - 1) from dz
-    const int vi = p == nh + 1 ? 0 : 2 + p;
-    part[int64_t(nh + 2) * H * H + vi * H + tid] = v;
-  }
+  float* vec = p == 0 ? nullptr
+                      : part + int64_t(nh + 2) * H * H +
+                            (p == nh + 1 ? 0 : 2 + p) * H;
+  dw_split<T, H>(smem_raw, A, D, s, step, a.n_chunks,
+                 [&](int q) { return live_chunk(a, q, step); },
+                 part + int64_t(p) * H * H, vec);
 }
 
 // Bytes of workspace the launch needs: the partials, then a(0..nh), then
@@ -672,19 +325,13 @@ cudaError_t launch_rows_bwd(RowsBwdArgs<T> a, float* dw, void* workspace,
   a.cots = reinterpret_cast<T*>(ws + acts_at + act_bytes);
   a.offsets = reinterpret_cast<int*>(ws + acts_at + 2 * act_bytes);
 
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // the weights resident where they fit, else the two-slot ring
+  int resident = 0;
+  size_t smem = 0;
+  cudaError_t err = rows_smem<T, H>(n_mats, 0, &smem, &resident);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (resident) err = rows_smem<T, H>(n_mats, 1, &smem, &resident);
   if (err != cudaSuccess) return err;
-  const size_t fixed = rows_fixed_smem<T, H>();
-  const size_t mat = Layout<T, H>::kMatBytes;
-  const int n_stored = n_mats * kCopies<T>;
-  const int resident = n_stored * mat + fixed <= size_t(max_smem);
-  const size_t smem = (resident ? n_stored : 2) * mat + fixed;
-  if (smem > size_t(max_smem) || dw_smem<T, H>() > size_t(max_smem))
-    return cudaErrorInvalidValue;
 
   auto rows = edge_rows_kernel<T, H>;
   err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,

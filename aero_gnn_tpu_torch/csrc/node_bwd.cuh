@@ -1,7 +1,8 @@
 // One 128-row chunk of the fused node block's backward: the device code of
-// kernel K4 (fused_node_bwd.cu) and of the node half of K9-bwd
-// (fused_mgn_bwd.cu). The VJP of node_fwd.cuh for the cotangent ct of
-// x' = x + LayerNorm(MLP([x, agg])): per node row it recomputes
+// the node half of K9-bwd (fused_mgn_bwd.cu), which K4 ran before its row
+// kernel (node_bwd_rows.cuh, the same math and rounding points). The VJP
+// of node_fwd.cuh for the cotangent ct of x' = x + LayerNorm(MLP([x,
+// agg])): per node row it recomputes
 //
 //   a0 = relu(x @ W1x + agg @ W1a + b1)   (the two products summed in fp32
 //                                          before rounding, as K3 and the

@@ -1,0 +1,440 @@
+// The row-kernel machinery of the fused backward kernels K2
+// (edge_bwd_rows.cuh) and K4 (node_bwd_rows.cuh), on top of chain_bwd.cuh:
+//
+//  * WeightRing: a chain's weights in shared memory, all resident for the
+//    CTA's life where they fit, else a ring of two slots through which the
+//    products' weights stream in product order (the next one's cp.async
+//    copy overlapping the current product, one CTA barrier per product).
+//    bf16 keeps one copy of each weight, the forward product reading it
+//    with ldmatrix and the backward one (dz @ W^T) with ldmatrix.trans from
+//    the same tile; fp32 keeps W and W^T, so both FFMA products stream B
+//    as float2 rows (ops/_build.py edge_bwd_operands lays them out).
+//  * RowOperand: a product's A operand, a warp's 16 rows. In bf16 it never
+//    leaves registers: the mma accumulator of one product, rounded and
+//    packed in pairs, is the A fragment of the next (the m16n8 accumulator
+//    layout is the k16 A layout). fp32 stages it in a warp-private slice
+//    of shared memory. With relu_bits / relu_grad, the ReLU masks are bits.
+//  * DwAcc and dw_split: the split-K weight gradient dW = A^T D over a
+//    split's chunks in 64-row slabs that cp.async double-buffers, mma.sync
+//    on fragments ldmatrix.trans loads (bf16) or FFMA 8 x 8 register
+//    blocks (fp32), the fp32 sum in registers for the split's whole range
+//    and written once, with the bias gradient as the column sums of D; the
+//    splits' partials are summed in split order by reduce_partials
+//    (chain_bwd.cuh). No float atomics: the same inputs give the same bits.
+#pragma once
+
+#include "chain_bwd.cuh"
+
+namespace chain {
+
+constexpr int kMaxHidden = 8;  // hidden layers with masks in registers
+constexpr int kSlab = 64;      // rows per weight-gradient slab
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8q..8q+7 give the row
+// addresses of matrix q; lane (g, t) receives its elements [g][2t] and
+// [g][2t+1] in register q.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// An [H, H] matrix of device memory (row-major) into a padded shared tile
+// by cp.async, 16 bytes per copy; the caller commits and waits.
+template <typename T, int H>
+__device__ __forceinline__ void copy_mat_async(T* dst,
+                                               const T* __restrict__ src) {
+  constexpr int LD = Layout<T, H>::kLd;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PER_ROW = H / V;
+  for (int i = threadIdx.x; i < H * PER_ROW; i += kThreads) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+    cp_async16(dst + r * LD + c, src + size_t(r) * H + c);
+  }
+}
+
+// The weight copies the products read: bf16 one per matrix (the backward
+// product reads it transposed with ldmatrix.trans), fp32 two (W, then
+// W^T, both [k][n], so that both products stream B as float2 rows).
+template <typename T>
+constexpr int kCopies = sizeof(T) == 4 ? 2 : 1;
+
+// The stored matrix of product p of a chunk's 2 n_mats: the forward
+// products read matrices 0 .. n_mats - 1 in order, the backward ones the
+// same matrices in reverse (with fp32, their transposed copies).
+template <typename T>
+__device__ __forceinline__ int mat_of(int p, int n_mats) {
+  const bool bwd = p >= n_mats;
+  const int m = bwd ? 2 * n_mats - 1 - p : p;
+  return kCopies<T> == 2 ? 2 * m + bwd : m;
+}
+
+// The weights in shared memory: all resident, or a ring of two slots
+// through which the products' weights stream in order (cp.async one product
+// ahead; every thread of the CTA calls get() for every product).
+template <typename T, int H>
+struct WeightRing {
+  static constexpr size_t kMat = size_t(H) * Layout<T, H>::kLd;
+  T* slots;
+  const T* wb;
+  int resident, n_mats, s;
+
+  __device__ void start() {
+    if (resident) {
+      for (int m = 0; m < n_mats * kCopies<T>; ++m)
+        copy_mat_async<T, H>(slots + m * kMat, wb + size_t(m) * H * H);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      copy_mat_async<T, H>(slots, wb);  // product 0
+      cp_async_commit();
+    }
+  }
+  __device__ const T* get(int p) {
+    if (resident) return slots + mat_of<T>(p, n_mats) * kMat;
+    cp_async_wait<0>();
+    __syncthreads();  // the copy is visible; product s - 1 is done
+    const int m_next = mat_of<T>((p + 1) % (2 * n_mats), n_mats);
+    copy_mat_async<T, H>(slots + ((s + 1) & 1) * kMat,
+                         wb + size_t(m_next) * H * H);
+    cp_async_commit();
+    return slots + ((s++) & 1) * kMat;
+  }
+  __device__ void finish() {
+    if (!resident) cp_async_wait<0>();
+  }
+};
+
+// A product's A operand: the warp's 16 rows of an activation.
+template <typename T, int H>
+struct RowOperand;
+
+// bf16: in registers as mma A fragments, [k block][4].
+template <int H>
+struct RowOperand<__nv_bfloat16, H> {
+  using T = __nv_bfloat16;
+  static constexpr int LD = Layout<T, H>::kLd;
+  uint32_t f[H / 16][4];
+
+  __device__ static uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&b);
+  }
+  // rows ra / rb (the thread's rows g and g + 8) of device memory
+  __device__ void from_rows(const T* row_a, const T* row_b, T*) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int kb = 0; kb < H / 16; ++kb) {
+      const int c = 16 * kb + 2 * t;
+      f[kb][0] = *reinterpret_cast<const uint32_t*>(row_a + c);
+      f[kb][1] = *reinterpret_cast<const uint32_t*>(row_b + c);
+      f[kb][2] = *reinterpret_cast<const uint32_t*>(row_a + c + 8);
+      f[kb][3] = *reinterpret_cast<const uint32_t*>(row_b + c + 8);
+    }
+  }
+  // an accumulator of already rounded values: n-tiles 2kb and 2kb + 1 are
+  // k block kb
+  __device__ void from_acc(const float (&v)[H / 8][4], T*) {
+#pragma unroll
+    for (int kb = 0; kb < H / 16; ++kb) {
+      f[kb][0] = pack(v[2 * kb][0], v[2 * kb][1]);
+      f[kb][1] = pack(v[2 * kb][2], v[2 * kb][3]);
+      f[kb][2] = pack(v[2 * kb + 1][0], v[2 * kb + 1][1]);
+      f[kb][3] = pack(v[2 * kb + 1][2], v[2 * kb + 1][3]);
+    }
+  }
+  // acc += A @ B: kTrans false reads B = W from the [n][k] tile (ldmatrix),
+  // true reads B = W^T from the same tile, [k][n] (ldmatrix.trans)
+  template <bool kTrans>
+  __device__ void mm(const T* w, float (&acc)[H / 8][4], T*) const {
+    const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
+#pragma unroll
+    for (int kb = 0; kb < H / 16; ++kb) {
+#pragma unroll
+      for (int j = 0; j < H / 8; j += 2) {
+        uint32_t b[4];
+        if constexpr (kTrans)
+          ldsm_x4_trans(b, w + (16 * kb + (q & 1) * 8 + r8) * LD +
+                               8 * (j + (q >> 1)));
+        else
+          ldsm_x4(b, w + (8 * (j + (q >> 1)) + r8) * LD + 16 * kb +
+                         (q & 1) * 8);
+        mma_bf16(acc[j], f[kb], b[0], b[1]);
+        mma_bf16(acc[j + 1], f[kb], b[2], b[3]);
+      }
+    }
+  }
+};
+
+// fp32: staged in the warp's [16][LD] slice of shared memory.
+template <int H>
+struct RowOperand<float, H> {
+  static constexpr int LD = Layout<float, H>::kLd;
+
+  __device__ void from_rows(const float* row_a, const float* row_b,
+                            float* stg) {
+    float v[H / 8][4];
+    load_acc<float, H>(v, row_a, row_b);
+    from_acc(v, stg);
+  }
+  __device__ void from_acc(const float (&v)[H / 8][4], float* stg) {
+    const int g = (threadIdx.x & 31) >> 2;
+    __syncwarp();  // the previous product has read the slice
+    store_acc<float, H>(v, stg + g * LD, stg + (g + 8) * LD);
+    __syncwarp();
+  }
+  // acc += A @ B, B the [k][n] tile of W or of W^T (chain.cuh mm)
+  template <bool kTrans>
+  __device__ void mm(const float* w, float (&acc)[H / 8][4],
+                     float* stg) const {
+    chain::mm<H>(stg, w, acc);
+  }
+};
+
+template <int H>
+__device__ __forceinline__ uint64_t relu_bits(const float (&acc)[H / 8][4]) {
+  uint64_t b = 0;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (acc[j][q] > 0.f) b |= uint64_t(1) << (4 * j + q);
+  return b;
+}
+
+// relu_bits of the two rows this thread wrote with store_acc, read back
+template <typename T, int H>
+__device__ __forceinline__ uint64_t stored_relu_bits(const T* row_a,
+                                                     const T* row_b) {
+  const int t = threadIdx.x & 3;
+  uint64_t b = 0;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const float2 x = Num<T>::load2(row_a + 8 * j + 2 * t);
+    const float2 y = Num<T>::load2(row_b + 8 * j + 2 * t);
+    if (x.x > 0.f) b |= uint64_t(1) << (4 * j);
+    if (x.y > 0.f) b |= uint64_t(1) << (4 * j + 1);
+    if (y.x > 0.f) b |= uint64_t(1) << (4 * j + 2);
+    if (y.y > 0.f) b |= uint64_t(1) << (4 * j + 3);
+  }
+  return b;
+}
+
+// acc = rnd(acc) where the activation was > 0, else 0 (the ReLU backward)
+template <typename T, int H>
+__device__ __forceinline__ void relu_grad(float (&acc)[H / 8][4],
+                                          uint64_t bits) {
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      acc[j][q] = (bits >> (4 * j + q)) & 1 ? Num<T>::rnd(acc[j][q]) : 0.f;
+}
+
+template <typename T, int H>
+__host__ __device__ constexpr size_t rows_fixed_smem() {
+  // fp32 operand staging (kRows rows), then per warp the LayerNorm column
+  // sums of ln_backward and their running totals ([2][kWarps][H] each)
+  return (sizeof(T) == 4 ? Layout<T, H>::kActBytes : 0) +
+         2 * 2 * size_t(kWarps) * H * sizeof(float);
+}
+
+// One CTA's [H, H] weight-gradient accumulator, summed slab by slab (A^T D
+// over a slab's kSlab rows in shared memory) and written once.
+template <typename T, int H>
+struct DwAcc;
+
+// bf16: each warp's TnTile (chain_bwd.cuh) in mma accumulators, fragments
+// by ldmatrix.trans (as mm_tn).
+template <int H>
+struct DwAcc<__nv_bfloat16, H> {
+  static constexpr int LD = Layout<__nv_bfloat16, H>::kLd;
+  static constexpr int NT = TnTile<H>::NT;
+  float acc[NT][4] = {};
+
+  __device__ void add(const __nv_bfloat16* a, const __nv_bfloat16* d) {
+    const int lane = threadIdx.x & 31, q = lane >> 3, r8 = lane & 7;
+    const int m0 = TnTile<H>::m0(), n0 = TnTile<H>::n0();
+#pragma unroll
+    for (int kk = 0; kk < kSlab; kk += 16) {
+      uint32_t af[4];
+      ldsm_x4_trans(af, a + (kk + r8 + (q >> 1) * 8) * LD + m0 + (q & 1) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, d + (kk + r8 + (q & 1) * 8) * LD + n0 + 8 * j +
+                              (q >> 1) * 8);
+        mma_bf16(acc[j], af, bf[0], bf[1]);
+        mma_bf16(acc[j + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  __device__ void store(float* mat) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int m0 = TnTile<H>::m0(), n0 = TnTile<H>::n0();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(mat + (m0 + g) * H + c) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(mat + (m0 + g + 8) * H + c) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+};
+
+// fp32 (FFMA): thread (ty, tx) of a 16 x 16 grid owns rows B ty .. B ty +
+// B - 1 (B = H / 16) and the B / 4 column quads 4 tx + 64 k, so each slab
+// row costs it B / 2 float4 loads for B * B products, the quads of a
+// quarter warp side by side in shared memory (no bank conflict).
+template <int H>
+struct DwAcc<float, H> {
+  static constexpr int LD = Layout<float, H>::kLd;
+  static constexpr int B = H / 16;
+  static_assert(B % 4 == 0, "blocks of whole float4 vectors");
+  float acc[B][B] = {};
+
+  __device__ void add(const float* a, const float* d) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 2
+    for (int r = 0; r < kSlab; ++r) {
+      float x[B], y[B];
+#pragma unroll
+      for (int v = 0; v < B; v += 4) {
+        const float4 xa =
+            *reinterpret_cast<const float4*>(a + r * LD + B * ty + v);
+        const float4 yd =
+            *reinterpret_cast<const float4*>(d + r * LD + 16 * v + 4 * tx);
+        x[v] = xa.x, x[v + 1] = xa.y, x[v + 2] = xa.z, x[v + 3] = xa.w;
+        y[v] = yd.x, y[v + 1] = yd.y, y[v + 2] = yd.z, y[v + 3] = yd.w;
+      }
+#pragma unroll
+      for (int i = 0; i < B; ++i)
+#pragma unroll
+        for (int j = 0; j < B; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    }
+  }
+  __device__ void store(float* mat) const {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+#pragma unroll
+      for (int v = 0; v < B; v += 4)
+        *reinterpret_cast<float4*>(mat + (B * ty + i) * H + 16 * v + 4 * tx) =
+            make_float4(acc[i][v], acc[i][v + 1], acc[i][v + 2],
+                        acc[i][v + 3]);
+  }
+};
+
+template <typename T, int H>
+__host__ __device__ constexpr size_t dw_smem() {
+  return 2 * 2 * size_t(kSlab) * Layout<T, H>::kLd * sizeof(T);
+}
+
+// dW = A^T D and, where `vec` is given, the column sums of D over the
+// chunks q = s, s + step, ... that next_live(q) (the first live chunk at or
+// after q) leaves, in kSlab-row slabs that cp.async double-buffers through
+// `smem` (dw_smem bytes); the [H, H] sum goes to `mat`, the [H] one to
+// `vec`, each written once. Every thread of the CTA calls it.
+template <typename T, int H, typename NextLive>
+__device__ __forceinline__ void dw_split(unsigned char* smem, const T* A,
+                                         const T* D, int s, int step,
+                                         int n_chunks, NextLive next_live,
+                                         float* mat, float* vec) {
+  constexpr int LD = Layout<T, H>::kLd;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int PER_ROW = H / V;
+  constexpr size_t kTile = size_t(kSlab) * LD;
+  constexpr int kParts = kThreads / H;  // column-sum partials per column
+  T* tiles = reinterpret_cast<T*>(smem);  // [stage][A, D][kSlab][LD]
+  const int tid = threadIdx.x;
+  auto issue = [&](int q, int half, int stage) {
+    const int64_t r0 = int64_t(q) * kRows + half * kSlab;
+    T* ta = tiles + size_t(stage) * 2 * kTile;
+    for (int i = tid; i < kSlab * PER_ROW; i += kThreads) {
+      const int r = i / PER_ROW, c = (i % PER_ROW) * V;
+      cp_async16(ta + r * LD + c, A + (r0 + r) * H + c);
+      cp_async16(ta + kTile + r * LD + c, D + (r0 + r) * H + c);
+    }
+  };
+  DwAcc<T, H> acc;
+  const int col = tid % H, cpart = tid / H;
+  float csum = 0.f;
+
+  int q = next_live(s), half = 0, it = 0;
+  if (q < n_chunks) issue(q, 0, 0);
+  cp_async_commit();
+  while (q < n_chunks) {
+    const int qn = half ? next_live(q + step) : q;
+    const int hn = half ^ 1;
+    if (qn < n_chunks) issue(qn, hn, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* ta = tiles + size_t(it & 1) * 2 * kTile;
+    acc.add(ta, ta + kTile);
+    constexpr int kRowsPer = kSlab / kParts;
+    for (int r = cpart * kRowsPer; r < (cpart + 1) * kRowsPer; ++r)
+      csum += Num<T>::load1(ta + kTile + r * LD + col);
+    __syncthreads();  // stage it & 1 is free for the copy after next
+    q = qn;
+    half = hn;
+    ++it;
+  }
+  cp_async_wait<0>();
+
+  acc.store(mat);
+  if (!vec) return;
+  float* red = reinterpret_cast<float*>(smem);
+  __syncthreads();
+  red[cpart * H + col] = csum;
+  __syncthreads();
+  if (tid < H) {
+    float v = 0.f;
+    for (int k = 0; k < kParts; ++k) v += red[k * H + tid];
+    vec[tid] = v;
+  }
+}
+
+// Shared memory of a row kernel whose chain has n_mats weights (all
+// resident, or the two-slot ring) and of dw_split, against the card's
+// opt-in limit; *fits_resident says whether the weights fit resident.
+template <typename T, int H>
+__host__ inline cudaError_t rows_smem(int n_mats, int resident,
+                                      size_t* smem, int* fits_resident) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t fixed = rows_fixed_smem<T, H>();
+  const size_t mat = Layout<T, H>::kMatBytes;
+  const int n_stored = n_mats * kCopies<T>;
+  *fits_resident = n_stored * mat + fixed <= size_t(max_smem);
+  *smem = (resident ? n_stored : 2) * mat + fixed;
+  if (*smem > size_t(max_smem) || dw_smem<T, H>() > size_t(max_smem))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+}  // namespace chain

@@ -1,6 +1,7 @@
 // Sorted masked segment sum on lane groups that own runs of nodes: the
-// device code of kernel K7 (segment_sum_weighted.cu) and of K2's d_dproj
-// (fused_edge_bwd.cu).
+// device code of kernel K7 (segment_sum_weighted.cu), of K2's d_dproj
+// (fused_edge_bwd.cu) and of K5 (segment_sum.cu) where its rows are no
+// whole number of 16-byte pieces or wider than its ring takes.
 //
 //   out[n] = sum over i with ids[i] == n of mask[i] * w(i) * data[rows[i]]
 //
@@ -25,10 +26,11 @@
 // node, cost no gather), and the rest reach the group by __shfl_sync,
 // kInFlight gathers issued before their sums. Each node's rows are added
 // in fp32 in stream order with the weight folded as m * rnd_T(w), one
-// rounding per output row: the order and arithmetic of segment_sum.cuh's
-// K7 schedule, so the output is the same bits wherever the node table is
-// finite. No shared memory, no CTA barrier, no atomics: every output row,
-// empty nodes included (exact zeros), is written by its group alone.
+// rounding per output row: the order and arithmetic of the first K5 / K7
+// schedule (segment_sum.cuh, K10's now), so the output is the same bits
+// wherever the node table is finite. No shared memory, no CTA barrier,
+// no atomics: every output row, empty nodes included (exact zeros), is
+// written by its group alone.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,8 +57,8 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// sum + x * mw with two roundings, as the K7 schedule of segment_sum.cuh
-// computes it (a fused multiply-add would give other bits)
+// sum + x * mw with two roundings, as the first K7 schedule computed it
+// (a fused multiply-add would give other bits)
 __device__ __forceinline__ float madd(float sum, float x, float mw) {
   return __fadd_rn(sum, __fmul_rn(x, mw));
 }
@@ -144,7 +146,8 @@ segment_rows_kernel(const T* __restrict__ data, const int* __restrict__ ids,
                     const T* __restrict__ mask, const int* __restrict__ rows,
                     const float* __restrict__ weights,
                     const int* __restrict__ offsets, T* __restrict__ out,
-                    int64_t n_ids, int n_nodes, int h, int pad_sink, int G) {
+                    int64_t n_ids, int n_nodes, int h, int ld, int pad_sink,
+                    int G) {
   using P = Pack<T, V>;
   using U = typename P::U;
   const int lane = threadIdx.x & 31;
@@ -182,7 +185,7 @@ segment_rows_kernel(const T* __restrict__ data, const int* __restrict__ ids,
         float f[V];
 #pragma unroll
         for (int e = 0; e < V; ++e) f[e] = zero ? 0.f : sum[kv][e];
-        reinterpret_cast<U*>(out + int64_t(node) * h)[cv] = P::pack(f);
+        reinterpret_cast<U*>(out + int64_t(node) * ld)[cv] = P::pack(f);
       }
     }
   };
@@ -232,7 +235,7 @@ segment_rows_kernel(const T* __restrict__ data, const int* __restrict__ ids,
       for (int u = 0; u < kInFlight; ++u) {
         const int src = __shfl_sync(kFull, src_m, rr[u] & (G - 1), G);
         if (rr[u] >= 0) {
-          const U* row = reinterpret_cast<const U*>(data + int64_t(src) * h);
+          const U* row = reinterpret_cast<const U*>(data + int64_t(src) * ld);
 #pragma unroll
           for (int kv = 0; kv < KV; ++kv)
             if (gl + kv * G < nvec) v[u][kv] = row[gl + kv * G];
@@ -280,14 +283,15 @@ template <typename T, bool kWeighted, int V, int KV>
 cudaError_t launch_v(const T* data, const int* ids, const T* mask,
                      const int* rows, const float* weights,
                      const int* offsets, T* out,
-                     int64_t n_ids, int64_t n_nodes, int h, int pad_sink,
-                     int G, cudaStream_t stream) {
+                     int64_t n_ids, int64_t n_nodes, int h, int ld,
+                     int pad_sink, int G, cudaStream_t stream) {
   const int64_t nodes_per_cta = int64_t(kWarps) * (32 / G) * kSpan;
   const int64_t grid = (n_nodes + nodes_per_cta - 1) / nodes_per_cta;
   segment_rows_kernel<T, kWeighted, V, KV>
       <<<unsigned(grid), kThreads, 0, stream>>>(data, ids, mask, rows,
                                                 weights, offsets, out, n_ids,
-                                                int(n_nodes), h, pad_sink, G);
+                                                int(n_nodes), h, ld, pad_sink,
+                                                G);
   return cudaGetLastError();
 }
 
@@ -310,48 +314,81 @@ __host__ inline bool group_shape(int nvec, int* G, int* KV) {
 template <typename T, bool kWeighted, int V>
 cudaError_t launch_shape(const T* data, const int* ids, const T* mask,
                          const int* rows, const float* weights,
-                         const int* offsets, T* out,
-                         int64_t n_ids, int64_t n_nodes, int h, int pad_sink,
+                         const int* offsets, T* out, int64_t n_ids,
+                         int64_t n_nodes, int h, int ld, int pad_sink,
                          cudaStream_t stream) {
   int G = 0, KV = 0;
   if (!group_shape(h / V, &G, &KV)) return cudaErrorInvalidValue;
   if (KV == 1)
-    return launch_v<T, kWeighted, V, 1>(data, ids, mask, rows, weights, offsets, out,
-                                        n_ids, n_nodes, h, pad_sink, G,
-                                        stream);
+    return launch_v<T, kWeighted, V, 1>(data, ids, mask, rows, weights,
+                                        offsets, out, n_ids, n_nodes, h, ld,
+                                        pad_sink, G, stream);
   if (KV == 2)
-    return launch_v<T, kWeighted, V, 2>(data, ids, mask, rows, weights, offsets, out,
-                                        n_ids, n_nodes, h, pad_sink, G,
-                                        stream);
-  return launch_v<T, kWeighted, V, 4>(data, ids, mask, rows, weights, offsets, out,
-                                      n_ids, n_nodes, h, pad_sink, G, stream);
+    return launch_v<T, kWeighted, V, 2>(data, ids, mask, rows, weights,
+                                        offsets, out, n_ids, n_nodes, h, ld,
+                                        pad_sink, G, stream);
+  return launch_v<T, kWeighted, V, 4>(data, ids, mask, rows, weights,
+                                      offsets, out, n_ids, n_nodes, h, ld,
+                                      pad_sink, G, stream);
+}
+
+// The stream's row pointer into `offsets` ([n_nodes + 1] ints of scratch)
+// on `stream`. Returns a cudaError_t.
+inline cudaError_t launch_offsets(const int* ids, int64_t n_ids,
+                                  int64_t n_nodes, int* offsets,
+                                  cudaStream_t stream) {
+  const int64_t threads = n_ids + 1;
+  row_offsets_kernel<<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
+      ids, n_ids, int(n_nodes), offsets);
+  return cudaGetLastError();
+}
+
+// 16-byte vectors for fp32, 8-byte ones for bf16: a bf16 row of 128 then
+// takes a whole warp, one group, which measured faster on the H100 than
+// two groups of 16 lanes with 16-byte vectors
+constexpr int kVec = 4;
+
+// The widest column block one launch of the sums takes: 4 vectors for
+// each of 32 lanes, 4-value vectors where a row of h is a whole number of
+// them, else single values.
+__host__ inline int max_cols(int h) {
+  return 32 * 4 * (h % kVec ? 1 : kVec);
+}
+
+// The sums over a built row pointer, columns [0, h) of rows of stride ld
+// (data and out advanced to the block's first column by the caller):
+// 4-element vectors where h and ld are whole numbers of them, else one
+// element per load. Returns a cudaError_t.
+template <typename T, bool kWeighted>
+cudaError_t launch_sums(const T* data, const int* ids, const T* mask,
+                        const int* rows, const float* weights,
+                        const int* offsets, T* out, int64_t n_ids,
+                        int64_t n_nodes, int h, int ld, int pad_sink,
+                        cudaStream_t stream) {
+  if (h % kVec == 0 && ld % kVec == 0)
+    return launch_shape<T, kWeighted, kVec>(data, ids, mask, rows, weights,
+                                            offsets, out, n_ids, n_nodes, h,
+                                            ld, pad_sink, stream);
+  return launch_shape<T, kWeighted, 1>(data, ids, mask, rows, weights,
+                                       offsets, out, n_ids, n_nodes, h, ld,
+                                       pad_sink, stream);
 }
 
 // The segment sum on `stream`: the row pointer into `offsets` ([n_nodes +
-// 1] ints of scratch), then the sums, 4-element vectors where a row is a
-// whole number of them, else one element per load. Returns a cudaError_t.
+// 1] ints of scratch), then the sums (rows of h <= max_cols(h)). Returns a
+// cudaError_t.
 template <typename T, bool kWeighted>
 cudaError_t launch(const T* data, const int* ids, const T* mask,
                    const int* rows, const float* weights, int* offsets,
                    T* out, int64_t n_ids, int64_t n_nodes, int h,
                    int pad_sink, cudaStream_t stream) {
-  // 16-byte vectors for fp32, 8-byte ones for bf16: a bf16 row of 128
-  // then takes a whole warp, one group, which measured faster on the H100
-  // than two groups of 16 lanes with 16-byte vectors
-  constexpr int kVec = 4;
   if (n_nodes == 0 || h == 0) return cudaSuccess;
-  const int64_t threads = n_ids + 1;
-  row_offsets_kernel<<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
-      ids, n_ids, int(n_nodes), offsets);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_offsets(ids, n_ids, n_nodes, offsets,
+                                         stream);
   if (err != cudaSuccess) return err;
-  if (h % kVec == 0)
-    return launch_shape<T, kWeighted, kVec>(data, ids, mask, rows, weights,
-                                            offsets, out, n_ids, n_nodes, h,
-                                            pad_sink, stream);
-  return launch_shape<T, kWeighted, 1>(data, ids, mask, rows, weights,
-                                       offsets, out, n_ids, n_nodes, h,
-                                       pad_sink, stream);
+  return launch_sums<T, kWeighted>(data, ids, mask, rows, weights, offsets,
+                                   out, n_ids, n_nodes, h, h, pad_sink,
+                                   stream);
 }
 
 }  // namespace segrows

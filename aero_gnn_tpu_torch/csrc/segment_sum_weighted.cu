@@ -24,9 +24,9 @@
 // runs of nodes read each row as 4-value vectors with eight gathers in
 // flight, their row indices and weights in registers, rows of weight 0
 // not read, no shared memory and no CTA barrier. The sums keep the earlier
-// schedule's order and arithmetic (segment_sum.cuh), so the output is the
-// same bits for a finite node table; K10 (segment_sum_weighted2.cu) still
-// runs that schedule and matches two K7 launches bit for bit.
+// schedule's order and arithmetic, so the output is the same bits for a
+// finite node table; K10 (segment_sum_weighted2.cu, segment_sum.cuh)
+// still runs that schedule and matches two K7 launches bit for bit.
 
 #include "segment_rows.cuh"
 

@@ -26,6 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[tuple, object] = {}
+_limits: Dict[object, tuple] = {}
 # nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 ptxas_report: Dict[str, str] = {}
 
@@ -100,11 +102,28 @@ def library(name: str) -> ctypes.CDLL:
 def c_function(name: str, symbol: str, argtypes: list):
     """``symbol`` of ``csrc/<name>.cu`` with its ctypes signature set: every
     pointer and the stream as c_void_p, sizes as c_int64/c_int; returns the
-    cudaError_t as c_int."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    cudaError_t as c_int. Kept after the first call, so a launch does not
+    look it up again."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
     return fn
+
+
+def device_limits(device) -> tuple:
+    """(SM count, shared memory a CTA may opt in to) of a CUDA device,
+    read once."""
+    lim = _limits.get(device)
+    if lim is None:
+        import torch
+
+        props = torch.cuda.get_device_properties(device)
+        lim = _limits[device] = (props.multi_processor_count,
+                                 props.shared_memory_per_block_optin)
+    return lim
 
 
 def check_launch(symbol: str, err: int) -> None:
@@ -149,13 +168,15 @@ def mma_b_operands(mats):
 
 
 def edge_bwd_operands(mats):
-    """The weights of ``mats`` (as for mma_b_operands) as K2's products
-    read their B operand from shared memory (csrc/edge_bwd_rows.cuh): bf16
+    """The weights of ``mats`` (as for mma_b_operands) as K2's and K4's
+    products read their B operand from shared memory (csrc/rows_bwd.cuh
+    WeightRing, for edge_bwd_rows.cuh and node_bwd_rows.cuh): bf16
     [n, h, h], each W once, transposed ([n][k]) for ldmatrix, the backward
     product dz @ W^T reading the same tile transposed; fp32 [n, 2, h, h],
     W and W^T (both [k][n]), which is mma_b_operands' layout."""
     import torch
 
-    pair = mma_b_operands(mats)
-    return (pair[:, 0].contiguous() if pair.dtype == torch.bfloat16
-            else pair)
+    if mats[0].dtype != torch.bfloat16:
+        return mma_b_operands(mats)
+    # one copy kernel: the transposed views into one buffer
+    return torch.cat([m.reshape(-1, *m.shape[-2:]).mT for m in mats])

@@ -349,8 +349,7 @@ def fused_edge_layer_bwd(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
         ln_bias=ln_bias, ct_e=ct_e, ct_agg=ct_agg)
     dev = e.device
     plan = edge_bwd_plan(n_edges, num_nodes, h, nh, e.dtype,
-                         torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)
+                         _build.device_limits(dev)[0])
     wb = _build.edge_bwd_operands([w_e, ws, w_out])
     d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
     d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)

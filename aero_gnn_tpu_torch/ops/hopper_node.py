@@ -11,11 +11,17 @@ and runs ``fused_node_layer_ref`` on CPU tensors; ``fused_node_layer_bwd``
 launches ``csrc/fused_node_bwd.cu`` / runs ``fused_node_layer_bwd_ref``.
 ``fused_node_layer_autograd`` is the differentiable layer (forward K3,
 backward K4), saving the layer's inputs only, as ``_fnl_fwd`` does.
+
+K4 is a barrier-free row kernel plus a split-K weight-gradient kernel
+(``csrc/node_bwd_rows.cuh``, on K2's machinery in ``csrc/rows_bwd.cuh``);
+``node_bwd_plan`` lays out its launch and workspace and
+``_build.edge_bwd_operands`` its weights.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,11 +30,12 @@ from aero_gnn_tpu_torch.ops import _build
 
 ROW_CHUNK = 128  # rows per CTA step of the kernels
 KERNEL_WIDTHS = (64, 128)
+# the rows of a weight-gradient slab (csrc/rows_bwd.cuh kSlab)
+DW_SLAB = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 12 + [_I64, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P] * 12 + [_I64, _I64, _I, _I, _I, _P]
-_WS_ARGTYPES = [_I64, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)]
+_BWD_ARGTYPES = [_P] * 12 + [_I64, _I64, _I, _I, _I, _I, _I, _P]
 
 
 def _first_linear(x, agg, w1x, w1a):
@@ -135,39 +142,84 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
     return out
 
 
+def node_bwd_plan(n_rows: int, h: int, n_hidden: int, dtype, sm_count: int,
+                  max_smem: int) -> dict:
+    """K4's launch plan (csrc/node_bwd_rows.cuh, which checks it):
+    ``grid`` CTAs for the row and the weight-gradient kernels (one per SM,
+    at most one per 128-row chunk), each with a fp32 partial of
+    ``part_len`` = (n_hidden + 3) h^2 + (n_hidden + 4) h floats at the
+    front of the workspace (padded to 256 bytes), then the activations
+    a(0..n_hidden) at ``acts_offset`` and the cotangents dz(0..n_hidden),
+    d_d at ``cots_offset``, each [n_rows, h] of ``dtype``; ``ws_bytes`` in
+    all. ``resident``: the row kernel keeps every weight in shared memory
+    (``smem_bytes`` of the ``max_smem`` a CTA may have) rather than
+    streaming them through a ring of two slots; ``dw_smem_bytes`` the
+    weight-gradient kernel's."""
+    return dict(_node_bwd_plan(n_rows, h, n_hidden, dtype, sm_count,
+                               max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _node_bwd_plan(n_rows, h, n_hidden, dtype, sm_count, max_smem):
+    if n_rows <= 0 or n_rows % ROW_CHUNK:
+        raise ValueError(f"K4 takes a positive multiple of {ROW_CHUNK} rows, "
+                         f"not {n_rows}")
+    if n_hidden < 0:
+        raise ValueError(f"K4 takes 0 or more hidden layers, not {n_hidden}")
+    isz = torch.finfo(dtype).bits // 8
+    n_chunks = n_rows // ROW_CHUNK
+    grid = max(1, min(sm_count, n_chunks))
+    part_len = (n_hidden + 3) * h * h + (n_hidden + 4) * h
+    part_bytes = -(-grid * part_len * 4 // 256) * 256
+    act_bytes = (n_hidden + 1) * n_rows * h * isz
+    # csrc/chain.cuh Layout (rows padded by 16 bytes) and rows_bwd.cuh
+    # rows_fixed_smem / dw_smem: fp32 stages the A operands ([128][ld]);
+    # both keep the warps' LayerNorm column sums ([2][2][8][h] fp32)
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = (ROW_CHUNK * ld * 4 if isz == 4 else 0) + 2 * 2 * 8 * h * 4
+    n_stored = (n_hidden + 3) * (2 if isz == 4 else 1)
+    resident = n_stored * mat + fixed <= max_smem
+    smem = (n_stored if resident else 2) * mat + fixed
+    dw_smem = 2 * 2 * DW_SLAB * ld * isz
+    if max(smem, dw_smem) > max_smem:
+        raise ValueError(f"K4 at h={h} needs {max(smem, dw_smem)} bytes of "
+                         f"shared memory, more than {max_smem}")
+    return {"grid": grid, "n_chunks": n_chunks, "part_len": part_len,
+            "acts_offset": part_bytes, "cots_offset": part_bytes + act_bytes,
+            "ws_bytes": part_bytes + act_bytes
+            + (n_hidden + 2) * n_rows * h * isz,
+            "resident": resident, "smem_bytes": smem,
+            "dw_smem_bytes": dw_smem}
+
+
 def fused_node_layer_bwd(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
                          ln_scale, ln_bias, ct):
     """VJP of the fused node layer: (d_x, d_agg, dW1x, dW1a, db1, dWs, dbs,
     dW_out, db_out, dscale, dbias), the weight gradients in fp32. CUDA
-    tensors launch kernel K4 (deterministic); CPU tensors run the plain
-    version."""
+    tensors launch kernel K4 (deterministic: per-split partials summed in a
+    fixed order); CPU tensors run the plain version."""
     if not x.is_cuda:
         return fused_node_layer_bwd_ref(x, agg, w1x, w1a, b1, ws, bs, w_out,
                                         b_out, ln_scale, ln_bias, ct)
     n, h, nh = _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
                            ln_scale, ln_bias, ct=ct)
-    code = _DTYPE_CODE[x.dtype]
-    ws_bytes = ctypes.c_int64(0)
-    ws_fn = _build.c_function("fused_node_bwd",
-                              "aero_fused_node_bwd_workspace", _WS_ARGTYPES)
-    with torch.cuda.device(x.device):
-        _build.check_launch("aero_fused_node_bwd_workspace",
-                            ws_fn(n, h, nh, code, ctypes.byref(ws_bytes)))
-        workspace = torch.empty(ws_bytes.value, dtype=torch.uint8,
-                                device=x.device)
-        d_x, d_agg = torch.empty_like(x), torch.empty_like(x)
-        n_mat = (nh + 3) * h * h
-        dw = torch.empty(n_mat + (nh + 4) * h, dtype=torch.float32,
-                         device=x.device)
-        fn = _build.c_function("fused_node_bwd", "aero_fused_node_bwd",
-                               _BWD_ARGTYPES)
-        wb = _build.mma_b_operands([w1x, w1a, ws, w_out])
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), agg.data_ptr(), wb.data_ptr(), b1.data_ptr(),
-                 bs.data_ptr(), b_out.data_ptr(), ln_scale.data_ptr(),
-                 ct.data_ptr(), d_x.data_ptr(), d_agg.data_ptr(),
-                 dw.data_ptr(), workspace.data_ptr(), ws_bytes.value, n, h,
-                 nh, code, stream)
+    dev = x.device
+    plan = node_bwd_plan(n, h, nh, x.dtype, *_build.device_limits(dev))
+    wb = _build.edge_bwd_operands([w1x, w1a, ws, w_out])
+    d_x, d_agg = torch.empty_like(x), torch.empty_like(x)
+    n_mat = (nh + 3) * h * h
+    dw = torch.empty(n_mat + (nh + 4) * h, dtype=torch.float32, device=dev)
+    workspace = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+    fn = _build.c_function("fused_node_bwd", "aero_fused_node_bwd",
+                           _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in (
+                     x, agg, wb, b1, bs, b_out, ln_scale, ct, d_x, d_agg, dw,
+                     workspace)],
+                 plan["ws_bytes"], n, h, nh, plan["grid"],
+                 int(plan["resident"]), _DTYPE_CODE[x.dtype], stream)
     _build.check_launch("aero_fused_node_bwd", err)
     fused_node_layer_bwd.launches += 1
     mats = dw[:n_mat].view(nh + 3, h, h)

@@ -38,7 +38,7 @@ from aero_gnn_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I64, _I64, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 6 + [_I64, _I64, _I, _I, _I, _P]
 _W_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _I, _P]
 _W2_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _P]
 
@@ -139,14 +139,18 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     n_ids = _check_segment_args(data, segment_ids, mask, rows)
     out = torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
                       device=data.device)
+    # the kernel's scratch: the id stream's row pointer
+    offsets = torch.empty(num_segments + 1, dtype=torch.int32,
+                          device=data.device)
     fn = _build.c_function("segment_sum", "aero_segment_sum", _ARGTYPES)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), segment_ids.data_ptr(),
                  None if mask is None else mask.data_ptr(),
-                 None if rows is None else rows.data_ptr(), out.data_ptr(),
-                 n_ids, num_segments, data.shape[1], int(pad_sink),
-                 _DTYPE_CODE[data.dtype], stream)
+                 None if rows is None else rows.data_ptr(),
+                 offsets.data_ptr(), out.data_ptr(), n_ids, num_segments,
+                 data.shape[1], int(pad_sink), _DTYPE_CODE[data.dtype],
+                 stream)
     _build.check_launch("aero_segment_sum", err)
     segment_sum.launches += 1
     return out

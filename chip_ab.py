@@ -9,14 +9,24 @@ at the flagship shapes in both dtypes with that tree's own
 ``chip_smoke.phase_kernels`` (CUDA events, median of 20), times K7 at the
 BSMS fine level of mesh 0's Loader batch with ``rows`` (the main path's
 call, both dtypes) and on a stream without pad rows (4 rows a node),
-profiles K2's kernels (device ms per call by kernel name, both dtypes),
-and times 12 bf16 train steps and 10 bf16 forwards of the flagship
-MeshGraphNet on mesh 0 (host clock to a synchronize, both switches
-unset), with the card's name and power limit. It hashes K7's outputs and
-K2's activation gradients (d_e, d_sg) on seeded inputs, and the last
-line says, per output, whether every tree gave the same bits. One line
-per tree starts with "AB " and holds a JSON object. Nothing of JAX is
-imported.
+times K5 on the streams of its three call sites beside torch.sparse.mm
+of the CSR matrix that computes the same function (the sender
+backward's: the tight graph's sender stream with ``rows``; the unfused
+aggregation's: the Loader graph's receivers with the edge mask; K6's
+backward: the same receivers without a mask; pad sink declared on all
+three) and on a stream without long runs (4 rows a node, random
+``rows``),
+profiles K2's, K4's and K5's kernels (device ms per call by kernel name,
+both dtypes), and times 12 bf16 train steps and 10 bf16 forwards of the
+flagship MeshGraphNet on mesh 0 (host clock to a synchronize, both
+switches unset), with the card's name and power limit. It hashes K7's
+outputs, K2's activation gradients (d_e, d_sg), K4's (d_x, d_agg) and
+K5's outputs on its streams on seeded inputs, and the last line says,
+per output, whether every tree gave the same bits; the line before it
+holds K4's weight gradients of each tree to the first tree's with
+chip_smoke.py's GRAD_TOL rule (the gradients are saved under
+build/chip_ab/, which git ignores). One line per tree starts with "AB "
+and holds a JSON object. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -70,27 +80,6 @@ def measure_k7(torch, C, sample, dev) -> tuple:
     return ms, hashes
 
 
-def k2_hashes(torch, C, graph) -> dict:
-    """Hashes of K2's d_e and d_sg on phase_kernels' seeded inputs."""
-    from aero_gnn_tpu_torch.ops import hopper_fused as HF
-
-    out = {}
-    for dtype_name in ("bfloat16", "float32"):
-        gen = torch.Generator(device=graph.device).manual_seed(1234)
-        dt = getattr(torch, dtype_name)
-
-        def randn(*shape, scale=1.0):
-            return (torch.randn(*shape, generator=gen, device=graph.device)
-                    * scale).to(dt)
-
-        edge_bwd = C.bwd_cases(torch, graph, dt, randn, C.HIDDEN,
-                               C.N_HIDDEN)[1]
-        d_e, d_sg = HF.fused_edge_layer_bwd(*edge_bwd)[:2]
-        out[f"k2_d_e[{dtype_name}]"] = digest(torch, d_e)
-        out[f"k2_d_sg[{dtype_name}]"] = digest(torch, d_sg)
-    return out
-
-
 def k7_uniform_ms(torch, C, dev) -> dict:
     """K7 with ``rows`` on a stream without pad rows: 4 rows a node over
     the fine level's 78,336 nodes, random senders, weights in [0.5, 1.5),
@@ -113,15 +102,38 @@ def k7_uniform_ms(torch, C, dev) -> dict:
     return out
 
 
-def k2_kernels_ms(torch, C, graph, calls: int = 10) -> dict:
-    """Device ms per K2 call of each kernel it launches, by name
-    (torch.profiler over ``calls`` calls at the flagship shapes)."""
+def kernels_ms(torch, fn, calls: int = 10) -> dict:
+    """Device ms per call of ``fn`` of each kernel it launches, by name
+    (torch.profiler over ``calls`` calls after 3 warm ones)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if ev.device_type == DeviceType.CUDA and us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1]
+            rows[name] = rows.get(name, 0.0) + us / calls / 1e3
+    return rows
 
-    out = {}
+
+def chain_bwd(torch, C, graph, grads_path: str) -> tuple:
+    """Device ms per call by kernel name of K2 and K4 at the flagship
+    shapes, and hashes of their activation gradients (K2's d_e, d_sg;
+    K4's d_x, d_agg) on phase_kernels' seeded inputs, both dtypes; K4's
+    weight gradients saved to ``grads_path`` ({dtype: [tensors]})."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    ms, hashes, grads = {"k2": {}, "k4": {}}, {}, {}
     for dtype_name in ("bfloat16", "float32"):
         gen = torch.Generator(device=graph.device).manual_seed(1234)
         dt = getattr(torch, dtype_name)
@@ -130,28 +142,109 @@ def k2_kernels_ms(torch, C, graph, calls: int = 10) -> dict:
             return (torch.randn(*shape, generator=gen, device=graph.device)
                     * scale).to(dt)
 
-        edge_bwd = C.bwd_cases(torch, graph, dt, randn, C.HIDDEN,
-                               C.N_HIDDEN)[1]
-        for _ in range(3):
-            HF.fused_edge_layer_bwd(*edge_bwd)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                HF.fused_edge_layer_bwd(*edge_bwd)
-            torch.cuda.synchronize()
-        rows = {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", 0)
-            if ev.device_type == DeviceType.CUDA and us > 0:
-                name = ev.key.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].split("<")[0].split()[-1]
-                rows[name] = rows.get(name, 0.0) + us / calls / 1e3
-        out[dtype_name] = rows
-        del edge_bwd
-    return out
+        _, edge_bwd, _, node_bwd, _ = C.bwd_cases(torch, graph, dt, randn,
+                                                  C.HIDDEN, C.N_HIDDEN)
+        d_e, d_sg = HF.fused_edge_layer_bwd(*edge_bwd)[:2]
+        k4 = HN.fused_node_layer_bwd(*node_bwd)
+        d_x, d_agg = k4[:2]
+        grads[dtype_name] = [t.cpu() for t in k4[2:]]
+        for key, t in (("k2_d_e", d_e), ("k2_d_sg", d_sg), ("k4_d_x", d_x),
+                       ("k4_d_agg", d_agg)):
+            hashes[f"{key}[{dtype_name}]"] = digest(torch, t)
+        del d_e, d_sg, d_x, d_agg, k4
+        ms["k2"][dtype_name] = kernels_ms(
+            torch, lambda: HF.fused_edge_layer_bwd(*edge_bwd))
+        ms["k4"][dtype_name] = kernels_ms(
+            torch, lambda: HN.fused_node_layer_bwd(*node_bwd))
+        del edge_bwd, node_bwd
+    torch.save(grads, grads_path)
+    return ms, hashes
 
 
-def measure(tree: str) -> dict:
+def k5_streams(torch, C, sample, tight, dev) -> tuple:
+    """K5 on the streams of its three call sites, both dtypes (seeded
+    data): the sender backward's (the tight graph's sender stream,
+    ``rows`` = sender_perm, the data zero on pad rows as on the training
+    path), the unfused aggregation's (mesh 0's Loader graph: receivers,
+    edge mask) and K6's backward (the same receivers, no mask, the data
+    zero on pad rows); the pad sink declared on all three; and on a stream
+    without long runs (4 rows a node over the tight graph's nodes, random
+    ``rows``). Returns (ms per
+    call with CUDA events, beside torch.sparse.mm of the CSR matrix of the
+    live rows; device ms of both by kernel name; output hashes; each
+    stream's rows per node: the largest count and the rows in nodes of
+    more than 128)."""
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    loader = next(iter(Loader([sample], 1, align_edges=True,
+                              device=dev)))[0]
+    ms, dev_ms, hashes, runs = {}, {}, {}, {}
+    n_u = tight.num_nodes_pad
+    gen = torch.Generator(device=dev).manual_seed(516)
+    u_ids = torch.arange(n_u, device=dev, dtype=torch.int32).repeat_interleave(
+        4)
+    u_rows = torch.randint(0, 4 * n_u, (4 * n_u,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(515)
+        streams = {}
+        g, N = tight, tight.num_nodes_pad
+        real = (g.edge_mask > 0).to(dt)[:, None]
+        data = torch.randn(g.num_edges_pad, C.HIDDEN, generator=gen,
+                           device=dev).to(dt) * real
+        live = g.senders_sorted != N - 1
+        streams["sender"] = (data, g.senders_sorted, N, dict(
+            rows=g.sender_perm, pad_sink=True), g.sender_perm[live],
+            torch.ones(int(live.sum()), dtype=dt, device=dev), live)
+        g, N = loader, loader.num_nodes_pad
+        msgs = torch.randn(g.num_edges_pad, C.HIDDEN, generator=gen,
+                           device=dev).to(dt)
+        mask = g.edge_mask.to(dt)
+        live = (g.edge_mask != 0) & (g.receivers != N - 1)
+        rows = torch.nonzero(live).flatten()
+        streams["receiver"] = (msgs, g.receivers, N, dict(
+            mask=mask, pad_sink=True), rows, mask[rows], live)
+        walked = g.receivers != N - 1
+        rows = torch.nonzero(walked).flatten()
+        streams["receiver_unmasked"] = (
+            msgs * (g.edge_mask > 0).to(dt)[:, None], g.receivers, N,
+            dict(pad_sink=True), rows,
+            torch.ones(rows.numel(), dtype=dt, device=dev), walked)
+        u_data = torch.randn(4 * n_u, C.HIDDEN, generator=gen,
+                             device=dev).to(dt)
+        streams["uniform"] = (u_data, u_ids, n_u, dict(rows=u_rows), u_rows,
+                              torch.ones(4 * n_u, dtype=dt, device=dev),
+                              torch.ones(4 * n_u, dtype=torch.bool,
+                                         device=dev))
+        for name, (d, ids, n, kw, cols, vals, live) in streams.items():
+            per_node = torch.bincount(ids[live], minlength=n)
+            runs[name] = {"max_rows_a_node": int(per_node.max()),
+                          "rows_in_nodes_over_128": int(
+                              per_node[per_node > 128].sum())}
+            key = f"segment_sum_{name}[{dtype_name}]"
+            hashes[f"k5_{name}[{dtype_name}]"] = digest(
+                torch, HS.segment_sum(d, ids, n, **kw))
+            ms[key] = C.cuda_time_ms(
+                torch, lambda: HS.segment_sum(d, ids, n, **kw))
+            crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+            crow[1:] = torch.cumsum(torch.bincount(ids[live], minlength=n),
+                                    0)
+            csr = torch.sparse_csr_tensor(crow, cols.long(), vals,
+                                          size=(n, d.shape[0]))
+            ms[f"sparse_mm_{name}[{dtype_name}]"] = C.cuda_time_ms(
+                torch, lambda: torch.sparse.mm(csr, d))
+            dev_ms[key] = kernels_ms(
+                torch, lambda: HS.segment_sum(d, ids, n, **kw))
+            dev_ms[f"sparse_mm_{name}[{dtype_name}]"] = kernels_ms(
+                torch, lambda: torch.sparse.mm(csr, d))
+            del csr
+        del streams, data, msgs, u_data
+    return ms, dev_ms, hashes, runs
+
+
+def measure(tree: str, grads_path: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -170,8 +263,14 @@ def measure(tree: str) -> dict:
     k7_ms, hashes = measure_k7(torch, C, sample, dev)
     out["kernel_ms"].update(k7_ms)
     out["kernel_ms"].update(k7_uniform_ms(torch, C, dev))
-    out["k2_kernels_ms"] = k2_kernels_ms(torch, C, g)
-    hashes.update(k2_hashes(torch, C, g))
+    k5_ms, k5_dev_ms, k5_hashes, out["k5_runs"] = k5_streams(
+        torch, C, sample, g, dev)
+    out["kernel_ms"].update(k5_ms)
+    out["k5_kernels_ms"] = k5_dev_ms
+    bwd_ms, bwd_hashes = chain_bwd(torch, C, g, grads_path)
+    out["k2_kernels_ms"], out["k4_kernels_ms"] = bwd_ms["k2"], bwd_ms["k4"]
+    hashes.update(k5_hashes)
+    hashes.update(bwd_hashes)
     out["hashes"] = hashes
     torch.cuda.empty_cache()
     cfg = C.flagship_config(compute_dtype="bfloat16")
@@ -187,21 +286,52 @@ def measure(tree: str) -> dict:
     return out
 
 
+def grads_against_first(torch, paths) -> dict:
+    """K4's weight gradients of each tree against the first tree's, with
+    the GRAD_TOL rule of the chip_smoke.py beside this script (|a - b| <=
+    a_tol max|b| + r_tol |b|): {dtype: [within, worst max|a - b| /
+    max|b|]}."""
+    from chip_smoke import GRAD_TOL
+
+    first = torch.load(paths[0])
+    out = {}
+    for dtype_name, (a_tol, r_tol) in GRAD_TOL.items():
+        ok, worst = True, 0.0
+        for path in paths[1:]:
+            for a, b in zip(torch.load(path)[dtype_name], first[dtype_name]):
+                err, scale = (a - b).abs(), float(b.abs().max())
+                ok = ok and bool((err <= a_tol * scale
+                                  + r_tol * b.abs()).all())
+                worst = max(worst, float(err.max()) / scale if scale else 0.0)
+        out[dtype_name] = [ok, worst]
+    return out
+
+
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print("AB " + json.dumps(measure(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == "--one":
+        print("AB " + json.dumps(measure(sys.argv[2], sys.argv[3])),
+              flush=True)
         return 0
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    hashes = []
-    for tree in sys.argv[1:]:
+    import torch
+
+    # K4's weight gradients of each tree, compared after the last
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    hashes, paths = [], []
+    for i, tree in enumerate(sys.argv[1:]):
+        paths.append(os.path.join(out_dir, f"k4_grads_{i}.pt"))
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree], check=True, text=True,
-                             stdout=subprocess.PIPE)
+                              "--one", tree, paths[-1]], check=True,
+                             text=True, stdout=subprocess.PIPE)
         sys.stdout.write(run.stdout)
         line = [ln for ln in run.stdout.splitlines() if ln.startswith("AB ")]
         hashes.append(json.loads(line[-1][3:])["hashes"])
+    print("AB-GRADS " + json.dumps(grads_against_first(torch, paths)),
+          flush=True)
     same = {k: len({h[k] for h in hashes}) == 1 for k in hashes[0]}
     print("AB-BITS " + json.dumps(same), flush=True)
     return 0

@@ -26,9 +26,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                after warm-up) beside the bound and, for K5, the library
                calls of the same function: torch.sparse.mm of a 0/1 CSR
                matrix with its ``rows`` (the timed call), torch.segment_reduce
-               on the pre-gathered rows beside K5 without them; K1's agg and
-               K2's / K4's weight gradients must be bit-equal across two
-               launches; nvcc's register and spill report for K2. K7 at the
+               on the pre-gathered rows beside K5 without them; K1's agg,
+               K2's / K4's outputs and K5's must be bit-equal across two
+               launches; nvcc's register, shared memory and spill report
+               for K2, K4 and K5, and K4's plan (grid, weights resident or
+               in the ring, shared memory). K5 also at the widths its
+               lane groups take (1, 34, 640) on the sender stream, K4 also
+               at 10 hidden layers (ReLU masks read back past the ones
+               kept in registers), and K5 on the Loader graph's receiver
+               stream (pad sink declared) in its other two uses, the
+               unfused aggregation's (edge mask) and K6's backward (no
+               mask): against the plain version, across launches, timed
+               beside the bound and torch.sparse.mm of the CSR matrix of
+               the rows each reads. K7 at the
                BSMS path's shapes (fine level, level 1, level 2 of mesh 0's
                Loader batch, WEC weights from its hierarchy), with and
                without ``rows``, bit-equal across launches, timed at the
@@ -443,9 +453,9 @@ def bwd_cases(torch, graph, dt, randn, h, nh):
 
 def check_backward_kernels(torch, tag, dtype_name, graph, edge_bwd, node_bwd,
                            seg):
-    """K2, K4 and K5 against their plain versions; K2's and K4's outputs
-    (weight gradients included) bit-equal across two launches; K5's rows of
-    nodes without a row exact zeros. Returns the max abs errors."""
+    """K2, K4 and K5 against their plain versions; their outputs (K2's and
+    K4's weight gradients included) bit-equal across two launches; K5's
+    rows of nodes without a row exact zeros. Returns the max abs errors."""
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_node as HN
     from aero_gnn_tpu_torch.ops import hopper_segment as HS
@@ -462,7 +472,9 @@ def check_backward_kernels(torch, tag, dtype_name, graph, edge_bwd, node_bwd,
     e5 = check_close(torch, f"K5 {tag}", k5, p5, dtype_name)
     for name, again, first in (
             ("K2", HF.fused_edge_layer_bwd(*edge_bwd), k2),
-            ("K4", HN.fused_node_layer_bwd(*node_bwd), k4)):
+            ("K4", HN.fused_node_layer_bwd(*node_bwd), k4),
+            ("K5", (HS.segment_sum(*seg, rows=graph.sender_perm,
+                                   pad_sink=True),), (k5,))):
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{name} {tag}: outputs differ between two "
                                  "launches on the same inputs")
@@ -746,9 +758,22 @@ def phase_kernels(torch, graph):
                     f"on them {rec5['library_ms_without_rows']:.3f} ms); the "
                     f"permutation gather alone {rec5['perm_gather_ms']:.3f} "
                     f"ms; with rows, sparse.mm {fmt_ms(library_ms)}")
-            if name == "fused_edge_bwd":
-                for line in ptxas_lines("fused_edge_bwd"):
-                    log(f"[kernels] fused_edge_bwd ptxas: {line}")
+            if name == "fused_node_bwd":
+                plan = HN.node_bwd_plan(
+                    N, h, nh, dt, torch.cuda.get_device_properties(
+                        dev).multi_processor_count,
+                    torch.cuda.get_device_properties(
+                        dev).shared_memory_per_block_optin)
+                results[-1]["plan"] = plan
+                log(f"[kernels] fused_node_bwd {dtype_name} plan: grid "
+                    f"{plan['grid']}, weights "
+                    f"{'resident' if plan['resident'] else 'in the ring'}, "
+                    f"dynamic shared memory {plan['smem_bytes']} B (row "
+                    f"kernel) / {plan['dw_smem_bytes']} B (weight "
+                    f"gradients), workspace {plan['ws_bytes'] / 1e6:.1f} MB")
+            if name in ("fused_edge_bwd", "fused_node_bwd", "segment_sum"):
+                for line in ptxas_lines(name):
+                    log(f"[kernels] {name} ptxas: {line}")
             lib_txt = ("" if library_ms is None
                        else f", library {library_ms:.3f} ms")
             log(f"[kernels] {name} {dtype_name}: {ms:.3f} ms (plain "
@@ -758,16 +783,159 @@ def phase_kernels(torch, graph):
         del edge_args, edge_bwd, node_args, node_bwd, seg, gathered, kernels
         del k5_csr
         torch.cuda.empty_cache()
+        check_k5_widths(torch, graph, dtype_name)
+        check_deep_node_bwd(torch, dev, dtype_name)
     return results
 
 
+def check_k5_widths(torch, graph, dtype_name):
+    """K5 (the counted wrapper) against its plain version on the sender
+    stream with ``rows`` and the pad sink at the widths that do not take
+    its bulk-copy ring: 1 and 34 (no whole number of 16-byte pieces) and
+    640 (wider than the ring takes; lane groups in two column blocks)."""
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    dev, N = graph.device, graph.num_nodes_pad
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    real = (graph.edge_mask > 0).to(dt)[:, None]
+    kw = dict(rows=graph.sender_perm, pad_sink=True)
+    errs = []
+    for w in (1, 34, 640):
+        data = torch.randn(graph.num_edges_pad, w, generator=gen,
+                           device=dev).to(dt) * real
+        k = HS.segment_sum(data, graph.senders_sorted, N, **kw)
+        p = HS.segment_sum_ref(data, graph.senders_sorted, N, **kw)
+        torch.cuda.synchronize()
+        errs.append(check_close(torch, f"K5 {dtype_name} h={w}", k, p,
+                                dtype_name))
+        if not torch.equal(k, HS.segment_sum(data, graph.senders_sorted, N,
+                                             **kw)):
+            raise AssertionError(f"K5 {dtype_name} h={w}: outputs differ "
+                                 "between two launches on the same inputs")
+        del data, k, p
+    log(f"[kernels] segment_sum {dtype_name} at h = 1, 34, 640 (lane "
+        f"groups): max abs err " + ", ".join(f"{e:.3e}" for e in errs)
+        + "; bit-equal across launches")
+
+
+def check_deep_node_bwd(torch, dev, dtype_name, n_rows=2048, nh=10):
+    """K4 on a stack deeper than the ReLU masks its row kernel keeps in
+    registers (csrc/rows_bwd.cuh kMaxHidden), against its plain version
+    (the K3 rule and GRAD_TOL) and across two launches."""
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    dt, h = getattr(torch, dtype_name), HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    w = 1.0 / h ** 0.5
+    args = (randn(n_rows, h), randn(n_rows, h, scale=3.0),
+            randn(h, h, scale=w), randn(h, h, scale=w), randn(h, scale=0.1),
+            randn(nh, h, h, scale=w), randn(nh, h, scale=0.1),
+            randn(h, h, scale=w), randn(h, scale=0.1),
+            1 + randn(h, scale=0.1), randn(h, scale=0.1), randn(n_rows, h))
+    k4 = HN.fused_node_layer_bwd(*args)
+    p4 = HN.fused_node_layer_bwd_ref(*args)
+    torch.cuda.synchronize()
+    act, wrel = check_bwd(torch, f"K4 {dtype_name} n_hidden={nh}", k4, p4,
+                          dtype_name, 2)
+    if not all(torch.equal(a, b)
+               for a, b in zip(k4, HN.fused_node_layer_bwd(*args))):
+        raise AssertionError(f"K4 {dtype_name} n_hidden={nh}: outputs differ "
+                             "between two launches on the same inputs")
+    log(f"[kernels] fused_node_bwd {dtype_name} at n_hidden={nh}, {n_rows} "
+        f"rows: max abs err {act:.3e} (weight grads {wrel:.3e} of max|p|); "
+        "bit-equal across launches")
+
+
+def phase_k5_receiver(torch, g):
+    """K5 on the receiver stream of the Loader graph ``g`` (FourierMGN's
+    main path), pad sink declared, in its two uses: the unfused
+    aggregation's (``masked``: the edge mask) and K6's backward
+    (``unmasked``: no mask, the data zero on pad rows as the cotangent is
+    there, so every row before the sink is read). Both dtypes against the
+    plain version and across two launches, timed beside its bound (the
+    rows it must read once, ids and mask of the rows before the sink read
+    once, the output written once) and torch.sparse.mm of the [N, E] CSR
+    matrix holding each row's mask (masked: the rows of mask 1) or a 1
+    (unmasked: every row before the sink) at (receiver, row). Returns
+    {dtype: {use: record}}."""
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    dev, N = g.device, g.num_nodes_pad
+    walked = g.receivers != N - 1
+    n_walked = int(walked.sum())
+    uses = {"masked": (g.edge_mask != 0) & walked, "unmasked": walked}
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        isz = torch.finfo(dt).bits // 8
+        gen = torch.Generator(device=dev).manual_seed(707)
+        msgs = torch.randn(g.num_edges_pad, HIDDEN, generator=gen,
+                           device=dev).to(dt)
+        out[dtype_name] = {}
+        for use, live in uses.items():
+            if use == "masked":
+                data, kw = msgs, dict(mask=g.edge_mask.to(dt), pad_sink=True)
+                vals = kw["mask"]
+            else:
+                data = msgs * (g.edge_mask > 0).to(dt)[:, None]
+                kw, vals = dict(pad_sink=True), torch.ones_like(msgs[:, 0])
+            label = f"K5 receiver stream {use} {dtype_name}"
+            k = HS.segment_sum(data, g.receivers, N, **kw)
+            p = HS.segment_sum_ref(data, g.receivers, N, **kw)
+            torch.cuda.synchronize()
+            err = check_close(torch, label, k, p, dtype_name)
+            if not torch.equal(k, HS.segment_sum(data, g.receivers, N, **kw)):
+                raise AssertionError(f"{label}: outputs differ between two "
+                                     "launches on the same inputs")
+            rows = torch.nonzero(live).flatten()
+            n_live = rows.numel()
+            crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+            crow[1:] = torch.cumsum(torch.bincount(g.receivers[rows],
+                                                   minlength=N), 0)
+            csr = torch.sparse_csr_tensor(crow, rows, vals[rows],
+                                          size=(N, g.num_edges_pad))
+            nbytes = ((n_live * HIDDEN + N * HIDDEN) * isz
+                      + n_walked * (4 + (isz if "mask" in kw else 0)))
+            rec = {"E": g.num_edges_pad, "N": N, "walked_rows": n_walked,
+                   "live_rows": n_live, "bytes": nbytes,
+                   "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                   "max_abs_err": err,
+                   "ms": cuda_time_ms(torch, lambda: HS.segment_sum(
+                       data, g.receivers, N, **kw)),
+                   "plain_ms": cuda_time_ms(torch, lambda: HS.segment_sum_ref(
+                       data, g.receivers, N, **kw)),
+                   "library_ms": sparse_mm_ms(torch, csr, data, label)}
+            log(f"[kernels] segment_sum receiver stream {use} {dtype_name} "
+                f"(Loader graph: {n_walked} rows before the sink, {n_live} "
+                f"read): {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, "
+                f"sparse.mm {fmt_ms(rec['library_ms'])}), bound "
+                f"{rec['bound_ms']:.4f} ms by bytes, max abs err {err:.3e}; "
+                "bit-equal across launches")
+            out[dtype_name][use] = rec
+            del data, k, p, csr
+        del msgs
+    torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_lines(name: str) -> list:
-    """nvcc's register / shared memory / spill lines for csrc/<name>.cu."""
+    """nvcc's register / shared memory / spill lines for csrc/<name>.cu,
+    each after the line naming its kernel."""
     from aero_gnn_tpu_torch.ops import _build
 
-    return [line.replace("ptxas info    :", "").strip()
-            for line in _build.ptxas_report.get(name, "").splitlines()
-            if "registers" in line or "spill" in line]
+    out = []
+    for line in _build.ptxas_report.get(name, "").splitlines():
+        if "entry function" in line:
+            out.append("kernel " + line.split(chr(39))[1])
+        elif "registers" in line or "spill" in line or "smem" in line:
+            out.append(line.replace("ptxas info    :", "").strip())
+    return out
 
 
 def phase_gather(torch, graphs):
@@ -2141,6 +2309,12 @@ def main() -> int:
     k6, k6_record = phase_gather(torch, [("tight", graphs[0][1]),
                                          ("loader", zoo_reqs[0][1])])
     kernels += k6
+    k5_receiver = phase_k5_receiver(torch, zoo_reqs[0][1])
+    for k in kernels:
+        base, dtype = k["name"].rstrip("]").split("[")
+        if base == "segment_sum":
+            k["receiver_stream"] = k5_receiver[dtype]["masked"]
+            k["receiver_unmasked_stream"] = k5_receiver[dtype]["unmasked"]
     requests, bsms_host = bsms_requests(torch, [s for s, _ in graphs], dev)
     k7, k7_record = phase_weighted(torch, requests[0][1],
                                    requests[0][2]["hierarchy"])

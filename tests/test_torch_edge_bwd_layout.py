@@ -1,6 +1,6 @@
 """K2's launch layout, computed in Python and checked on the CPU: the
 weights' operand layout (one copy each, ``_build.edge_bwd_operands``, and
-the two-copy ``_build.mma_b_operands`` that K4, K8 and K9 keep reading),
+the two-copy ``_build.mma_b_operands`` that K8 and K9 keep reading),
 the workspace plan (``hopper_fused.edge_bwd_plan``), and the widest row K7
 takes (``hopper_segment.weighted_max_width``). Weights from a numpy seed."""
 
@@ -47,7 +47,7 @@ def test_edge_bwd_operands_layout(dt, h, nh):
 
 @pytest.mark.parametrize("dt,h,nh", CASES, ids=IDS)
 def test_mma_b_operands_unchanged(dt, h, nh):
-    """The two-copy layout K4, K8 and K9 read ([m][0] forward, [m][1]
+    """The two-copy layout K8 and K9 read ([m][0] forward, [m][1]
     backward): K2's fp32 layout, and its forward half K2's bf16 one."""
     w_e, ws, w_out = _weights(dt, h, nh)
     pair = _build.mma_b_operands([w_e, ws, w_out])
