@@ -12,7 +12,9 @@
 //     activation between two products never leaves registers: the mma
 //     accumulator of one product, rounded and packed in pairs, is the A
 //     fragment of the next (the m16n8 accumulator layout is the k16 A
-//     layout), and the ReLU masks are kept as bits. fp32 (FFMA, no TF32)
+//     layout), and the ReLU masks are kept as bits (those past kMaxHidden
+//     + 1 read back from the a(i) it stores, so any depth runs, as the
+//     TPU kernel's). fp32 (FFMA, no TF32)
 //     stages each product's A operand in a warp-private slice of shared
 //     memory. Weights: in bf16 one copy of each, the forward product
 //     reading it with ldmatrix and the backward one (dz @ W^T) with
@@ -68,7 +70,10 @@ struct RowsBwdArgs {
   int n_nodes, n_hidden, edge_tile, n_chunks;
 };
 
-template <typename T, int H>
+// kDeep: the stack is deeper than the ReLU masks kept in registers
+// (n_hidden > kMaxHidden); the shallower ones compile without the read-back
+// path, which slowed the flagship's bf16 row kernel by a third on the H100
+template <typename T, int H, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
   using N = Num<T>;
@@ -131,7 +136,7 @@ edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
     for (int i = 0; i <= nh; ++i) {
       // acc holds a(i): keep it for the weight gradients and its mask
       store_rows_of(a.acts + i * E * H);
-      bits[i] = relu_bits<H>(acc);
+      if (!kDeep || i <= kMaxHidden) bits[i] = relu_bits<H>(acc);
       op.from_acc(acc, stg);
       zero<H>(acc);
       op.template mm<false>(ring.get(1 + i), acc, stg);
@@ -177,18 +182,28 @@ edge_rows_kernel(RowsBwdArgs<T> a, int resident) {
         }
     }
 
+    // a(i)'s ReLU mask: the bits kept, or deeper in the stack the a(i)
+    // this thread stored, the same bits (a(i) is rounded to T before the
+    // ReLU, so the store is exact)
+    auto mask_of = [&](int i) {
+      return !kDeep || i <= kMaxHidden
+                 ? bits[i]
+                 : stored_relu_bits<T, H>(a.acts + i * E * H + ra * H,
+                                          a.acts + i * E * H + rb * H);
+    };
+
     // ---- acc = d_d: output linear and hidden stack, in reverse ----
     store_rows_of(a.cots + nh * E * H);
     op.from_acc(acc, stg);
     zero<H>(acc);
     op.template mm<true>(ring.get(nh + 2), acc, stg);
-    relu_grad<T, H>(acc, bits[nh]);
+    relu_grad<T, H>(acc, mask_of(nh));
     for (int i = nh - 1; i >= 0; --i) {
       store_rows_of(a.cots + i * E * H);  // dz(i + 1)
       op.from_acc(acc, stg);
       zero<H>(acc);
       op.template mm<true>(ring.get(2 * nh + 2 - i), acc, stg);
-      relu_grad<T, H>(acc, bits[i]);
+      relu_grad<T, H>(acc, mask_of(i));
     }
 
     // ---- acc = dz(0) = d_sg; d_e = ct + dz @ W_e^T ----
@@ -309,7 +324,7 @@ cudaError_t launch_rows_bwd(RowsBwdArgs<T> a, float* dw, void* workspace,
                             int64_t ws_bytes, int grid,
                             cudaStream_t stream) {
   const int nh = a.n_hidden, n_mats = nh + 2;
-  if (nh < 0 || nh > kMaxHidden || grid <= 0 || a.n_edges % kRows ||
+  if (nh < 0 || grid <= 0 || a.n_edges % kRows ||
       a.edge_tile % kRows)
     return cudaErrorInvalidValue;
   int64_t acts_at = 0;
@@ -333,7 +348,8 @@ cudaError_t launch_rows_bwd(RowsBwdArgs<T> a, float* dw, void* workspace,
   if (resident) err = rows_smem<T, H>(n_mats, 1, &smem, &resident);
   if (err != cudaSuccess) return err;
 
-  auto rows = edge_rows_kernel<T, H>;
+  auto rows = nh > kMaxHidden ? edge_rows_kernel<T, H, true>
+                              : edge_rows_kernel<T, H, false>;
   err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return err;

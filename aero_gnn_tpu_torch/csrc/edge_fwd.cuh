@@ -1,6 +1,8 @@
 // One node block of the fused concat-trick edge layer's forward: the device
-// code of kernel K1 (fused_edge_fwd.cu), of its save variant, and of the
-// edge half of K9-fwd (fused_mgn_fwd.cu). Per receiver-sorted edge row
+// code of the edge half of K9-fwd (fused_mgn_fwd.cu). K1 and its save
+// variant ran it before their row kernel (edge_fwd_rows.cuh), which keeps
+// its rounding points, so K9-fwd's e' and agg are K1's bits. Per
+// receiver-sorted edge row
 //
 //   dg  = mask * d_proj[recv]                   (direct row read, no one-hot)
 //   h0  = e @ W_e + sg + dg;  z = relu(h0)
@@ -24,12 +26,6 @@
 // atomics and the result is deterministic. The CTA walks only its block's
 // tiles before the first pad tile (chain.cuh): pad tiles add nothing to
 // agg, and the launch's fill_pad_tiles gives their e' rows e.
-//
-// kSave (the save variant, AERO_GNN_SAVE_ACTS): the chunk also writes what
-// the saved-activation backward K8 reads instead of recomputing the chain:
-// every post-ReLU activation zs[i] (the rounded values the next product
-// read), the rounded pre-LayerNorm output d and the fp32 statistics mu,
-// inv of d (pallas_fused.py:215-268). Rows of pad tiles are not written.
 #pragma once
 
 #include "chain.cuh"
@@ -42,9 +38,6 @@ struct EdgeFwdArgs {
   const int* recv;
   const T *w_e, *ws, *bs, *w_out, *b_out, *ln_scale, *ln_bias;
   T *e_out, *agg;
-  T *zs, *d;         // kSave: [n_hidden + 1][n_edges][H], [n_edges][H]
-  float *mu, *inv;   // kSave: [n_edges]
-  int64_t n_edges;
   int n_tiles, n_nodes, n_hidden, node_block, edge_tile;
 
   // weights in chain order: 0 W_e, 1.. ws[i], n_hidden + 1 W_out
@@ -58,7 +51,7 @@ struct EdgeFwdArgs {
 // Node block b of the edge layer. `act` is the CTA's [kRows][LD] activation
 // buffer, `recv_s` [kRows] ints and `range_s` [2] ints of shared memory.
 // Every thread of the CTA calls it; it ends with a __syncthreads.
-template <typename T, int H, bool kSave>
+template <typename T, int H>
 __device__ void edge_fwd_block(const EdgeFwdArgs<T>& a,
                                const WeightSlots<T, H>& w, T* act,
                                int* recv_s, int* range_s, int b) {
@@ -91,11 +84,6 @@ __device__ void edge_fwd_block(const EdgeFwdArgs<T>& a,
     for (int z = max(from, node_lo); z < min(to, node_hi); ++z)
       N::store1(a.agg + int64_t(z) * H + tid, 0.f);
   };
-  // kSave: the warp's rows of activation i (post-ReLU) from its buffer
-  auto save_act = [&](int i, int64_t rw) {
-    if constexpr (kSave)
-      store_rows<T, H>(a.zs + (size_t(i) * a.n_edges + rw) * H, my_act);
-  };
 
   for (int64_t r0 = row_lo; r0 < row_hi; r0 += kRows) {
     const int64_t rw = r0 + warp * 16;
@@ -124,7 +112,6 @@ __device__ void edge_fwd_block(const EdgeFwdArgs<T>& a,
       N::store2(my_act + (g + 8) * LD + col, fmaxf(v2, 0.f), fmaxf(v3, 0.f));
     }
     __syncwarp();
-    save_act(0, rw);
 
     for (int i = 0; i < a.n_hidden; ++i) {
       zero<H>(acc);
@@ -132,7 +119,6 @@ __device__ void edge_fwd_block(const EdgeFwdArgs<T>& a,
       __syncwarp();
       bias_relu_store<T, H>(acc, a.bs + size_t(i) * H, my_act);
       __syncwarp();
-      save_act(1 + i, rw);
     }
 
     // e' = e + LayerNorm(z @ W_out + b_out)
@@ -144,15 +130,6 @@ __device__ void edge_fwd_block(const EdgeFwdArgs<T>& a,
     float mu[2], inv[2];
     row_stats<H>(acc, 0, mu[0], inv[0]);
     row_stats<H>(acc, 1, mu[1], inv[1]);
-    if constexpr (kSave) {
-      store_acc<T, H>(acc, a.d + ra * H, a.d + rb * H);
-      if (t == 0) {
-        a.mu[ra] = mu[0];
-        a.inv[ra] = inv[0];
-        a.mu[rb] = mu[1];
-        a.inv[rb] = inv[1];
-      }
-    }
     layer_norm_rows<T, H>(acc, mu, inv, a.ln_scale, a.ln_bias);
 #pragma unroll
     for (int j = 0; j < H / 8; ++j) {

@@ -57,7 +57,7 @@ fused_mgn_fwd_kernel(EdgeFwdArgs<T> ea, NodeFwdArgs<T> na, int edge_resident,
   __syncthreads();
   const int n_blocks = ea.n_nodes / ea.node_block;
   for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
-    edge_fwd_block<T, H, false>(ea, we, act, recv_s, range_s, b);
+    edge_fwd_block<T, H>(ea, we, act, recv_s, range_s, b);
     const int64_t node_lo = int64_t(b) * ea.node_block;
     for (int64_t r0 = node_lo; r0 < node_lo + ea.node_block; r0 += kRows)
       node_fwd_chunk<T, H>(na, wn, act, r0);
@@ -120,9 +120,9 @@ int dispatch(void* const* p, int64_t n_edges, int64_t n_nodes, int h,
   // 13-21 node weights | 22 e', 23 agg (the node chain's input), 24 x'
   const EdgeFwdArgs<T> ea{
       in(0), in(1), in(2), in(4), static_cast<const int*>(p[5]), in(6),
-      in(7), in(8), in(9), in(10), in(11), in(12), out(22), out(23), nullptr,
-      nullptr, nullptr, nullptr, n_edges, int(n_edges / edge_tile),
-      int(n_nodes), ne_hidden, node_block, edge_tile};
+      in(7), in(8), in(9), in(10), in(11), in(12), out(22), out(23),
+      int(n_edges / edge_tile), int(n_nodes), ne_hidden, node_block,
+      edge_tile};
   const NodeFwdArgs<T> na{in(3),  out(23), in(13), in(14), in(15), in(16),
                           in(17), in(18),  in(19), in(20), in(21), out(24),
                           nn_hidden};

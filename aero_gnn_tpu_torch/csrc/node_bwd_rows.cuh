@@ -55,22 +55,6 @@ struct NodeRowsArgs {
   int n_hidden, n_chunks;
 };
 
-// acc = relu(rnd(rnd(acc) + b)), in registers
-template <typename T, int H>
-__device__ __forceinline__ void bias_relu(float (&acc)[H / 8][4],
-                                          const T* __restrict__ b) {
-  using N = Num<T>;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j) {
-    const float2 bb = N::load2(b + 8 * j + 2 * t);
-    acc[j][0] = fmaxf(N::rnd(N::rnd(acc[j][0]) + bb.x), 0.f);
-    acc[j][1] = fmaxf(N::rnd(N::rnd(acc[j][1]) + bb.y), 0.f);
-    acc[j][2] = fmaxf(N::rnd(N::rnd(acc[j][2]) + bb.x), 0.f);
-    acc[j][3] = fmaxf(N::rnd(N::rnd(acc[j][3]) + bb.y), 0.f);
-  }
-}
-
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 node_rows_kernel(NodeRowsArgs<T> a, int resident) {

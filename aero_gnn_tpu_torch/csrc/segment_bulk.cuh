@@ -27,7 +27,7 @@
 // row (8 bytes of bf16, 16 of fp32), kBatch rows (and their ids and masks, as
 // broadcasts) read from shared memory before they are added, in fp32 with the
 // mask folded as in segment_rows.cuh, one rounding per output row: the same
-// bits as that schedule and as the one before it (segment_sum.cuh) wherever
+// bits as that schedule and as the first one (one thread a column) wherever
 // the data is finite.
 //
 // Where the time goes is the runs of a thousand rows that an aligned stream

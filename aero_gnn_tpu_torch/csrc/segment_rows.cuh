@@ -27,8 +27,8 @@
 // kInFlight gathers issued before their sums. Each node's rows are added
 // in fp32 in stream order with the weight folded as m * rnd_T(w), one
 // rounding per output row: the order and arithmetic of the first K5 / K7
-// schedule (segment_sum.cuh, K10's now), so the output is the same bits
-// wherever the node table is finite. No shared memory, no CTA barrier,
+// schedule (one thread a column walking a node block's rows), so the
+// output is the same bits wherever the node table is finite. No shared memory, no CTA barrier,
 // no atomics: every output row, empty nodes included (exact zeros), is
 // written by its group alone.
 #pragma once

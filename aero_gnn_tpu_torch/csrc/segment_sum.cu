@@ -27,8 +27,8 @@
 // blocks where the rows are wider than a group takes. The ring measured
 // faster than the lane groups on the sender and the receiver stream of
 // the H100 (PERF.md). Both give the same bits (fp32 sums in stream order,
-// one rounding per row), which are those of the schedule before them
-// (segment_sum.cuh, which K10 keeps) wherever the data is finite.
+// one rounding per row), which are those of the first schedule (one
+// thread a column) wherever the data is finite.
 
 #include "segment_bulk.cuh"
 

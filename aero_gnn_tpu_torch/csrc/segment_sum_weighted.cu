@@ -25,8 +25,9 @@
 // flight, their row indices and weights in registers, rows of weight 0
 // not read, no shared memory and no CTA barrier. The sums keep the earlier
 // schedule's order and arithmetic, so the output is the same bits for a
-// finite node table; K10 (segment_sum_weighted2.cu, segment_sum.cuh)
-// still runs that schedule and matches two K7 launches bit for bit.
+// finite node table; K10 (segment_sum_weighted2.cu, segment_pair.cuh)
+// runs the pair on this machinery and matches two K7 launches bit for
+// bit.
 
 #include "segment_rows.cuh"
 

@@ -41,16 +41,21 @@ row. K2 sums d_dproj with the pad sink declared (``graph.padded`` reserves
 the last node as the sink of the pad rows, so it has no real edge and its
 row is 0).
 
-K2 runs as a row kernel, a segmented sum for d_dproj and a split-K
-weight-gradient kernel (``csrc/edge_bwd_rows.cuh``); ``edge_bwd_plan``
-lays out its workspace and ``_build.edge_bwd_operands`` its weights (in
-bf16 one copy each). K8 keeps the single-kernel schedule of ``csrc/edge_bwd.cuh``
-with the weights laid out twice (``_build.mma_b_operands``).
+K1 runs as a row kernel (each warp's 16 rows through the whole chain
+without a CTA barrier, the weights read as they lie) and K5's segmented
+sum over e' for agg (``csrc/edge_fwd_rows.cuh``); ``edge_fwd_plan`` plans
+its grid, shared memory and the row pointer's workspace. K2 runs as a row
+kernel, a segmented sum for d_dproj and a split-K weight-gradient kernel
+(``csrc/edge_bwd_rows.cuh``), at any depth; ``edge_bwd_plan`` lays out its
+workspace and ``_build.edge_bwd_operands`` its weights (in bf16 one copy
+each). K8 keeps the single-kernel schedule of ``csrc/edge_bwd.cuh`` with
+the weights laid out twice (``_build.mma_b_operands``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -64,13 +69,11 @@ from aero_gnn_tpu_torch.ops.scatter import gather
 NB = ALIGN_NODE_BLOCK
 ET = ALIGN_EDGE_TILE
 KERNEL_WIDTHS = (64, 128)
-# K2's row chunk (8 warps of 16 rows) and the ReLU masks it keeps per row
-# (csrc/edge_bwd_rows.cuh kRows, kMaxHidden)
+# the row kernels' chunk: 8 warps of 16 rows (csrc/chain.cuh kRows)
 CHUNK_ROWS = 128
-MAX_HIDDEN_BWD = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_P] * 18 + [_I64, _I64, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 19 + [_I64, _I64, _I64, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 16 + [_I64, _I64, _I64, _I, _I, _I, _I, _I, _P]
 _WS_ARGTYPES = [_I64, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)]
 
@@ -188,7 +191,7 @@ def _check_args(e, receivers, num_nodes, **tensors):
               "ct_agg": (num_nodes, h), "zs": (n_hidden + 1, n_edges, h),
               "d": (n_edges, h), "mu": (n_edges,), "inv": (n_edges,)}
     for name, t in tensors.items():
-        if tuple(t.shape) != shapes[name]:
+        if t.shape != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
     stats = {k: tensors.pop(k) for k in ("mu", "inv") if k in tensors}
@@ -196,6 +199,47 @@ def _check_args(e, receivers, num_nodes, **tensors):
     _build.check_tensors(e.device, torch.float32, **stats)
     _build.check_tensors(e.device, torch.int32, receivers=receivers)
     return n_edges, h, n_hidden
+
+
+def edge_fwd_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int, dtype,
+                  sm_count: int, max_smem: int) -> dict:
+    """K1's launch plan (csrc/edge_fwd_rows.cuh, which checks it against
+    its own reckoning): ``grid`` CTAs of the row kernel (one per SM, at
+    most one per 128-row chunk of ``n_chunks``); ``resident``: every
+    weight stays in shared memory for the CTA's life (``smem_bytes`` of
+    the ``max_smem`` a CTA may have), else the weights stream through a
+    ring of two slots; fp32 adds the warps' A operand slices. The
+    workspace (``ws_bytes``) holds the receiver stream's row pointer,
+    n_nodes + 1 int32, for the aggregation."""
+    return dict(_edge_fwd_plan(n_edges, n_nodes, h, n_hidden, dtype,
+                               sm_count, max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _edge_fwd_plan(n_edges, n_nodes, h, n_hidden, dtype, sm_count,
+                   max_smem):
+    if n_edges <= 0 or n_edges % CHUNK_ROWS:
+        raise ValueError(f"K1 takes a positive multiple of {CHUNK_ROWS} edge "
+                         f"rows, not {n_edges}")
+    if n_nodes <= 0:
+        raise ValueError(f"K1 takes a positive number of nodes, not "
+                         f"{n_nodes}")
+    if n_hidden < 0:
+        raise ValueError(f"K1 takes 0 or more hidden layers, not {n_hidden}")
+    isz = torch.finfo(dtype).bits // 8
+    n_chunks = n_edges // CHUNK_ROWS
+    # csrc/chain.cuh Layout: [h][ld] weight tiles, rows padded by 16 bytes
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = CHUNK_ROWS * ld * 4 if isz == 4 else 0
+    resident = (n_hidden + 2) * mat + fixed <= max_smem
+    smem = (n_hidden + 2 if resident else 2) * mat + fixed
+    if smem > max_smem:
+        raise ValueError(f"K1 at h={h} needs {smem} bytes of shared memory, "
+                         f"more than {max_smem}")
+    return {"grid": max(1, min(sm_count, n_chunks)), "n_chunks": n_chunks,
+            "resident": resident, "smem_bytes": smem,
+            "ws_bytes": 4 * (n_nodes + 1)}
 
 
 def _launch_fwd(save: bool, e, sg, d_proj, mask, receivers, w_e, ws, bs,
@@ -207,8 +251,11 @@ def _launch_fwd(save: bool, e, sg, d_proj, mask, receivers, w_e, ws, bs,
         ws=ws, bs=bs, w_out=w_out, b_out=b_out, ln_scale=ln_scale,
         ln_bias=ln_bias)
     dev = e.device
+    plan = edge_fwd_plan(n_edges, num_nodes, h, n_hidden, e.dtype,
+                         *_build.device_limits(dev))
     e_out = torch.empty_like(e)
     agg = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
+    workspace = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
     saved = ()
     if save:
         saved = (torch.empty((n_hidden + 1, n_edges, h), dtype=e.dtype,
@@ -224,8 +271,10 @@ def _launch_fwd(save: bool, e, sg, d_proj, mask, receivers, w_e, ws, bs,
                  ws.data_ptr(), bs.data_ptr(), w_out.data_ptr(),
                  b_out.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                  e_out.data_ptr(), agg.data_ptr(),
-                 *([t.data_ptr() for t in saved] or [None] * 4), n_edges,
-                 num_nodes, h, n_hidden, NB, ET, _DTYPE_CODE[e.dtype], stream)
+                 *([t.data_ptr() for t in saved] or [None] * 4),
+                 workspace.data_ptr(), plan["ws_bytes"], n_edges, num_nodes,
+                 h, n_hidden, plan["grid"], int(plan["resident"]), ET,
+                 _DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_edge_fwd", err)
     return (e_out, agg, *saved)
 
@@ -317,9 +366,8 @@ def edge_bwd_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int, dtype,
     if n_edges <= 0 or n_edges % CHUNK_ROWS:
         raise ValueError(f"K2 takes a positive multiple of {CHUNK_ROWS} edge "
                          f"rows, not {n_edges}")
-    if not 0 <= n_hidden <= MAX_HIDDEN_BWD:
-        raise ValueError(f"K2 takes 0 to {MAX_HIDDEN_BWD} hidden layers, not "
-                         f"{n_hidden}")
+    if n_hidden < 0:
+        raise ValueError(f"K2 takes 0 or more hidden layers, not {n_hidden}")
     n_chunks = n_edges // CHUNK_ROWS
     grid = max(1, min(sm_count, n_chunks))
     part_len = (n_hidden + 2) * h * h + (n_hidden + 3) * h

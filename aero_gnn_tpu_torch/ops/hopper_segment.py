@@ -18,7 +18,8 @@ launch ``csrc/segment_sum.cu`` / ``csrc/segment_sum_weighted.cu`` on CUDA
 tensors and run ``segment_sum_ref`` / ``segment_sum_weighted_ref`` on CPU
 tensors; ``segment_sum_weighted2`` (the WEC pair probe of
 ``benchmarks/micro_wec2.py``, on no model path) launches
-``csrc/segment_sum_weighted2.cu`` / runs ``segment_sum_weighted2_ref``.
+``csrc/segment_sum_weighted2.cu`` (one row pointer for both sums, on K7's
+lane groups) / runs ``segment_sum_weighted2_ref``.
 
 ``pad_sink=True`` declares ``ids`` a stream of the aligned layout
 (``graph.padded``), whose last segment is the pad sink: its rows are pad
@@ -40,7 +41,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I64, _I64, _I, _I, _I, _P]
 _W_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _I, _P]
-_W2_ARGTYPES = [_P] * 7 + [_I64, _I64, _I, _I, _P]
+_W2_ARGTYPES = [_P] * 8 + [_I64, _I64, _I, _I, _P]
 
 
 def segment_sum_ref(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -222,14 +223,17 @@ def segment_sum_weighted2(m1: torch.Tensor, w1: torch.Tensor,
     out1 = torch.empty((num_nodes, m1.shape[1]), dtype=m1.dtype,
                        device=m1.device)
     out2 = torch.empty_like(out1)
+    # the kernel's scratch: the id stream's row pointer, shared by both sums
+    offsets = torch.empty(num_nodes + 1, dtype=torch.int32,
+                          device=m1.device)
     fn = _build.c_function("segment_sum_weighted2",
                            "aero_segment_sum_weighted2", _W2_ARGTYPES)
     with torch.cuda.device(m1.device):
         stream = torch.cuda.current_stream(m1.device).cuda_stream
         err = fn(m1.data_ptr(), m2.data_ptr(), receivers.data_ptr(),
-                 w1.data_ptr(), w2.data_ptr(), out1.data_ptr(),
-                 out2.data_ptr(), n_ids, num_nodes, m1.shape[1],
-                 _DTYPE_CODE[m1.dtype], stream)
+                 w1.data_ptr(), w2.data_ptr(), offsets.data_ptr(),
+                 out1.data_ptr(), out2.data_ptr(), n_ids, num_nodes,
+                 m1.shape[1], _DTYPE_CODE[m1.dtype], stream)
     _build.check_launch("aero_segment_sum_weighted2", err)
     segment_sum_weighted2.launches += 1
     return out1, out2

@@ -17,11 +17,14 @@ backward: the same receivers without a mask; pad sink declared on all
 three) and on a stream without long runs (4 rows a node, random
 ``rows``),
 profiles K2's, K4's and K5's kernels (device ms per call by kernel name,
-both dtypes), and times 12 bf16 train steps and 10 bf16 forwards of the
+both dtypes), times and profiles K1, its save variant and K10 (micro_wec2's
+shapes) in both dtypes (also the host's ms per call, without waiting
+for the card), and times 12 bf16 train steps and 10 bf16 forwards of the
 flagship MeshGraphNet on mesh 0 (host clock to a synchronize, both
 switches unset), with the card's name and power limit. It hashes K7's
-outputs, K2's activation gradients (d_e, d_sg), K4's (d_x, d_agg) and
-K5's outputs on its streams on seeded inputs, and the last line says,
+outputs, K2's activation gradients (d_e, d_sg), K4's (d_x, d_agg), K5's
+outputs on its streams, K1's (e', agg), its save variant's six outputs
+and K10's two, both dtypes, on seeded inputs, and the last line says,
 per output, whether every tree gave the same bits; the line before it
 holds K4's weight gradients of each tree to the first tree's with
 chip_smoke.py's GRAD_TOL rule (the gradients are saved under
@@ -49,6 +52,18 @@ def host_ms(torch, fn, n: int, skip: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times[skip:])
+
+
+def host_call_ms(torch, fn, n: int = 50) -> float:
+    """Host ms per call of ``fn`` without waiting for the card (the
+    wrapper's own work and the launches; the queue stays short of full)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
 
 
 def digest(torch, t) -> str:
@@ -161,6 +176,69 @@ def chain_bwd(torch, C, graph, grads_path: str) -> tuple:
     return ms, hashes
 
 
+def k1_k10(torch, C, graph) -> tuple:
+    """K1, its save variant and K10 at their main paths' shapes, both
+    dtypes: ms per call (CUDA events), device ms per call by kernel name,
+    and hashes of K1's (e', agg), the save variant's six outputs (zs, d,
+    mu, inv on the rows of live tiles, the only ones it writes) on
+    phase_kernels' seeded inputs, and K10's (out1, out2) on
+    phase_weighted2's (micro_wec2's shapes: the tight graph, h = 128,
+    weights zero on pad edges; fp32 from the same bf16 messages)."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    dev, E, N = graph.device, graph.num_edges_pad, graph.num_nodes_pad
+    tile = 1024  # graph.padded ALIGN_EDGE_TILE
+    live = (graph.edge_mask[::tile] != 0).repeat_interleave(tile)
+    ms, dev_ms, hashes = {}, {}, {}
+    for dtype_name in ("bfloat16", "float32"):
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        dt = getattr(torch, dtype_name)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dt)
+
+        edge_args = C.bwd_cases(torch, graph, dt, randn, C.HIDDEN,
+                                C.N_HIDDEN)[0]
+        k1 = HF.fused_edge_layer(*edge_args)
+        sv = HF.fused_edge_layer_save(*edge_args)
+        outs = {"k1_e": k1[0], "k1_agg": k1[1], "k1save_e": sv[0],
+                "k1save_agg": sv[1], "k1save_zs": sv[2][:, live],
+                "k1save_d": sv[3][live], "k1save_mu": sv[4][live],
+                "k1save_inv": sv[5][live]}
+        for key, t in outs.items():
+            hashes[f"{key}[{dtype_name}]"] = digest(torch, t)
+        del k1, sv, outs
+        for name, fn in (
+                ("fused_edge_fwd", lambda: HF.fused_edge_layer(*edge_args)),
+                ("fused_edge_fwd_save",
+                 lambda: HF.fused_edge_layer_save(*edge_args))):
+            ms[f"{name}[{dtype_name}]"] = C.cuda_time_ms(torch, fn)
+            ms[f"{name}_host[{dtype_name}]"] = host_call_ms(torch, fn)
+            dev_ms[f"{name}[{dtype_name}]"] = kernels_ms(torch, fn)
+        del edge_args
+        gen = torch.Generator(device=dev).manual_seed(0)
+        m1, m2 = (torch.randn(E, C.HIDDEN, generator=gen, device=dev).to(
+            torch.bfloat16).to(dt) for _ in range(2))
+        w1, w2 = (torch.randn(E, generator=gen, device=dev)
+                  * graph.edge_mask for _ in range(2))
+        args = (m1, w1, m2, w2, graph.receivers, N)
+        out = HS.segment_sum_weighted2(*args)
+        hashes[f"k10_out1[{dtype_name}]"] = digest(torch, out[0])
+        hashes[f"k10_out2[{dtype_name}]"] = digest(torch, out[1])
+        key = f"segment_sum_weighted2[{dtype_name}]"
+        ms[key] = C.cuda_time_ms(
+            torch, lambda: HS.segment_sum_weighted2(*args))
+        ms[f"segment_sum_weighted2_host[{dtype_name}]"] = host_call_ms(
+            torch, lambda: HS.segment_sum_weighted2(*args))
+        dev_ms[key] = kernels_ms(
+            torch, lambda: HS.segment_sum_weighted2(*args))
+        del m1, m2, out, args
+    torch.cuda.empty_cache()
+    return ms, dev_ms, hashes
+
+
 def k5_streams(torch, C, sample, tight, dev) -> tuple:
     """K5 on the streams of its three call sites, both dtypes (seeded
     data): the sender backward's (the tight graph's sender stream,
@@ -268,6 +346,9 @@ def measure(tree: str, grads_path: str) -> dict:
     out["kernel_ms"].update(k5_ms)
     out["k5_kernels_ms"] = k5_dev_ms
     bwd_ms, bwd_hashes = chain_bwd(torch, C, g, grads_path)
+    fwd_ms, out["k1_k10_kernels_ms"], fwd_hashes = k1_k10(torch, C, g)
+    out["kernel_ms"].update(fwd_ms)
+    hashes.update(fwd_hashes)
     out["k2_kernels_ms"], out["k4_kernels_ms"] = bwd_ms["k2"], bwd_ms["k4"]
     hashes.update(k5_hashes)
     hashes.update(bwd_hashes)

@@ -17,8 +17,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                pad sink declared) on the Loader-padded 65,536-node graph
                (whose edge stream ends in a tail of pad rows keyed by the
                pad sink) against the tight aligned graph, both dtypes,
-               checked against the plain versions and timed; one bf16 MGN
-               train step through each graph;
+               checked against the plain versions and timed (K1's Loader /
+               tight time at most 1.3); one bf16 MGN train step through
+               each graph;
   4. kernels — each Hopper kernel against its plain PyTorch version on the
                card, at the flagship shapes (the 65,536-node mesh's aligned
                layout, h = 128, 2 hidden layers; K5 on its aligned sender
@@ -29,8 +30,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                on the pre-gathered rows beside K5 without them; K1's agg,
                K2's / K4's outputs and K5's must be bit-equal across two
                launches; nvcc's register, shared memory and spill report
-               for K2, K4 and K5, and K4's plan (grid, weights resident or
-               in the ring, shared memory). K5 also at the widths its
+               for K1, K2, K4 and K5, and K1's and K4's plans (grid,
+               weights resident or in the ring, shared memory). K5 also at the widths its
                lane groups take (1, 34, 640) on the sender stream, K4 also
                at 10 hidden layers (ReLU masks read back past the ones
                kept in registers), and K5 on the Loader graph's receiver
@@ -53,7 +54,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                torch.index_select, with nvcc's register and spill report;
   4b. shapes — the kernels' other configurations (no hidden layer, weights
                streamed per stage, h = 64) against the plain versions on a
-               4,096-node mesh, K1's save variant, K8 and K9 included;
+               4,096-node mesh, K1's save variant, K8 and K9 included; K1
+               and K2 at 10 hidden layers (K2's ReLU masks read back past
+               the ones kept in registers, K1's bf16 weights in its ring)
+               against their plain versions and across launches;
   4c. switched — K1's save variant, K8 (AERO_GNN_SAVE_ACTS), K9-fwd and
                K9-bwd (AERO_GNN_MEGA) at the flagship shapes, both dtypes:
                against their plain versions (K8 on the plain version's
@@ -64,14 +68,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                saved against K2, K9-fwd against K1 -> K3 and K9-bwd against
                K4 -> K2 on the same inputs (max abs differences recorded),
                and the Loader / tight time of K2, K8, K9-fwd and K9-bwd,
-               at most 1.3;
+               at most 1.3; K9-fwd's x', e' (real rows) and agg must be
+               bit-equal to K1 -> K3's, K8's d_e, d_sg, d_dproj to K2's;
   4d. weighted2 — K10, the WEC pair probe of benchmarks/micro_wec2.py, at
                its shapes (the tight 65,536-node graph, h = 128, bf16
                messages, fp32 weights zero on pad edges): its timed run of
                30 dual launches (the probe's main path, counted), then K10
-               against its plain version and bit-equal to two K7 launches,
-               timed beside the two K7 launches, its bound and two
-               torch.sparse.mm of CSR matrices;
+               against its plain version and bit-equal to two K7 launches
+               (also in fp32), timed beside the two K7 launches, its
+               bound and two torch.sparse.mm of CSR matrices, with nvcc's
+               register and shared memory report;
   5. serve   — the flagship MeshGraphNet (15 layers, width 128) from a seeded
                init served through AeroInference on the card: 3 requests of
                65,536-node meshes in bf16 and in fp32. Launch counters are set
@@ -300,6 +306,46 @@ def phase_shapes(torch, graph):
                 f"K5 {e5:.3e} / masked {errs[3]:.3e}")
             check_switched_shapes(torch, tag, dtype_name, graph, edge_args,
                                   edge_bwd, node_args, node_bwd[-1])
+    for dtype_name in ("bfloat16", "float32"):
+        check_deep_edge(torch, graph, dtype_name)
+
+
+def check_deep_edge(torch, graph, dtype_name, nh=10):
+    """K1 and K2 on a stack deeper than the ReLU masks K2's row kernel
+    keeps in registers (csrc/rows_bwd.cuh kMaxHidden; K1's bf16 weights no
+    longer fit resident either, so they stream through its ring), against
+    their plain versions (the K1 rule; K2's activation gradients by it, its
+    weight gradients by GRAD_TOL) and across two launches."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+
+    dt, h = getattr(torch, dtype_name), HIDDEN
+    dev, real = graph.device, graph.edge_mask > 0
+    gen = torch.Generator(device=dev).manual_seed(1010)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    edge_args, edge_bwd, _, _, _ = bwd_cases(torch, graph, dt, randn, h, nh)
+    k1, p1 = HF.fused_edge_layer(*edge_args), HF.fused_edge_layer_ref(
+        *edge_args)
+    k2 = HF.fused_edge_layer_bwd(*edge_bwd)
+    p2 = HF.fused_edge_layer_bwd_ref(*edge_bwd)
+    torch.cuda.synchronize()
+    tag = f"{dtype_name} n_hidden={nh}"
+    e1 = max(check_close(torch, f"K1 {tag} e'", k1[0], p1[0], dtype_name,
+                         rows=real),
+             check_close(torch, f"K1 {tag} agg", k1[1], p1[1], dtype_name))
+    act, wrel = check_bwd(torch, f"K2 {tag}", k2, p2, dtype_name, 3)
+    for name, fn, first in (
+            ("K1", lambda: HF.fused_edge_layer(*edge_args), k1),
+            ("K2", lambda: HF.fused_edge_layer_bwd(*edge_bwd), k2)):
+        if not same_bits(torch, fn(), first):
+            raise AssertionError(f"{name} {tag}: outputs differ between two "
+                                 "launches on the same inputs")
+    log(f"[shapes] {tag}, E={graph.num_edges_pad}: max abs err K1 {e1:.3e}, "
+        f"K2 {act:.3e} (weight grads {wrel:.3e} of max|p|); bit-equal across "
+        "launches")
 
 
 def check_switched_shapes(torch, tag, dtype_name, graph, edge_args, edge_bwd,
@@ -603,6 +649,10 @@ def phase_tail(torch, sample, tight):
             rec.setdefault("ratio", {})[f"{k}[{dtype_name}]"] = ratio
     log(f"[tail] loader / tight time: " + ", ".join(
         f"{k} {v:.2f}" for k, v in rec["ratio"].items()))
+    over = {k: v for k, v in rec["ratio"].items()
+            if k.startswith("K1[") and v > 1.3}
+    if over:
+        raise AssertionError(f"K1 Loader / tight time above 1.3: {over}")
     cfg = flagship_config(compute_dtype="bfloat16")
     for name, g in graphs.items():
         params = cfg.init(torch.Generator().manual_seed(0), device=dev)
@@ -771,7 +821,18 @@ def phase_kernels(torch, graph):
                     f"dynamic shared memory {plan['smem_bytes']} B (row "
                     f"kernel) / {plan['dw_smem_bytes']} B (weight "
                     f"gradients), workspace {plan['ws_bytes'] / 1e6:.1f} MB")
-            if name in ("fused_edge_bwd", "fused_node_bwd", "segment_sum"):
+            if name == "fused_edge_fwd":
+                props = torch.cuda.get_device_properties(dev)
+                plan = HF.edge_fwd_plan(
+                    E, N, h, nh, dt, props.multi_processor_count,
+                    props.shared_memory_per_block_optin)
+                results[-1]["plan"] = plan
+                log(f"[kernels] fused_edge_fwd {dtype_name} plan: grid "
+                    f"{plan['grid']}, weights "
+                    f"{'resident' if plan['resident'] else 'in the ring'}, "
+                    f"dynamic shared memory {plan['smem_bytes']} B")
+            if name in ("fused_edge_fwd", "fused_edge_bwd", "fused_node_bwd",
+                        "segment_sum"):
                 for line in ptxas_lines(name):
                     log(f"[kernels] {name} ptxas: {line}")
             lib_txt = ("" if library_ms is None
@@ -1885,6 +1946,15 @@ def phase_switched_kernels(torch, sample, tight):
             if not same_bits(torch, sv[:2], k1):
                 raise AssertionError(f"K1 save variant {tag}: e' / agg "
                                      "differ from K1's")
+            # K9-fwd = K1 -> K3 and K8 = K2, bit for bit (the same products
+            # and rounding points, csrc/edge_fwd_rows.cuh)
+            if not same_bits(torch, (x9, e9[real], a9),
+                             (x3, k1[0][real], k1[1])):
+                raise AssertionError(f"K9-fwd {tag}: x' / e' / agg differ "
+                                     "from K1 -> K3's")
+            if not same_bits(torch, k8[:3], k2[:3]):
+                raise AssertionError(f"K8 {tag}: d_e / d_sg / d_dproj differ "
+                                     "from K2's")
             if name == "loader" and not (a9[n_pad - 1] == 0).all():
                 raise AssertionError(f"K9-fwd {tag}: the sink's agg is not 0")
             r = {"K8_vs_K2": check_bwd(torch, f"K8 vs K2 {tag}", k8, k2,
@@ -1923,7 +1993,8 @@ def phase_switched_kernels(torch, sample, tight):
                 f"{r['K8_vs_K2'][1]:.3e} of max|p|), K9-fwd vs K1 -> K3 "
                 f"{r['K9fwd_vs_K1K3']:.3e}, K9-bwd vs K4 -> K2 "
                 f"{r['K9bwd_vs_K4K2'][0]:.3e} ({r['K9bwd_vs_K4K2'][1]:.3e}); "
-                f"the save variant's e', agg bit-equal to K1's")
+                f"the save variant's e', agg bit-equal to K1's, K9-fwd's to "
+                f"K1 -> K3's, K8's activation gradients to K2's")
             del edge_args, edge_bwd, node_args, ma, sv, a8, x9, e9, a9, b9
             del b9_args
             torch.cuda.empty_cache()
@@ -2222,6 +2293,13 @@ def phase_weighted2(torch, graph):
         raise AssertionError("K10: outputs differ between two launches")
     if not same_bits(torch, k, singles):
         raise AssertionError("K10: outputs differ from two K7 launches")
+    # fp32: the pair against two K7 launches on the same streams
+    f32 = (m1.float(), w1, m2.float(), w2, recv, N)
+    if not same_bits(torch, HS.segment_sum_weighted2(*f32), (
+            HS.segment_sum_weighted(f32[0], recv, w1, N),
+            HS.segment_sum_weighted(f32[2], recv, w2, N))):
+        raise AssertionError("K10 float32: outputs differ from two K7 "
+                             "launches")
     live = int((w1 != 0).sum())
     # inputs read once (the messages of the rows with a weight, ids and
     # both weights of every row), the outputs written once
@@ -2261,11 +2339,14 @@ def phase_weighted2(torch, graph):
         log(f"[weighted2] no bf16 sparse.mm "
             f"({str(exc).splitlines()[0][:80]})")
     log(f"[weighted2] E={E} ({live} rows with a weight), N={N}, bf16: dual "
-        f"{rec['ms']:.4f} ms, two K7 {rec['two_single_ms']:.4f} ms (one K7 "
-        f"{rec['k7_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
-        f"{rec['library_ms']}, bound {rec['bound_ms']:.4f} ms by "
-        f"{rec['bound_by']}; max abs err {err:.3e}; bit-equal to two K7 "
-        f"launches and across launches; {WEC2_PAIRS} launches in the probe")
+        f"{rec['ms']:.4f} ms; two K7 "
+        f"{rec['two_single_ms']:.4f} ms (one K7 {rec['k7_ms']:.4f} ms), "
+        f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']}, bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; max abs err "
+        f"{err:.3e}; bit-equal to two K7 launches (also in fp32), across "
+        f"launches; {WEC2_PAIRS} launches in the probe")
+    for line in ptxas_lines("segment_sum_weighted2"):
+        log(f"[weighted2] ptxas: {line}")
     entry = {"name": "segment_sum_weighted2[bfloat16]", "route": "cuda",
              "source": "aero_gnn_tpu_torch/csrc/segment_sum_weighted2.cu",
              "replaces": "aero_gnn_tpu/ops/pallas_segment.py:282",

@@ -82,11 +82,27 @@ def test_edge_bwd_plan_small_grids(n_edges, sms, grid):
     assert p["grid"] == grid and p["n_chunks"] == n_edges // 128
 
 
-@pytest.mark.parametrize("n_edges,nh", [(1000, 2), (0, 2), (1024, 9),
-                                        (1024, -1)])
+@pytest.mark.parametrize("n_edges,nh", [(1000, 2), (0, 2), (1024, -1)])
 def test_edge_bwd_plan_refuses(n_edges, nh):
     with pytest.raises(ValueError):
         HF.edge_bwd_plan(n_edges, 512, 128, nh, torch.bfloat16, H100_SMS)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("nh", [9, 12, 16])
+def test_edge_bwd_plan_deep_stacks(dt, nh):
+    """Stacks deeper than the ReLU masks the row kernel keeps in registers
+    (csrc/rows_bwd.cuh kMaxHidden = 8; it reads the rest back from the
+    activations it stored) are planned like any other: one partial a CTA,
+    the workspace growing with the stack."""
+    isz = 2 if dt == torch.bfloat16 else 4
+    p = HF.edge_bwd_plan(FLAGSHIP_E, FLAGSHIP_N, 128, nh, dt, H100_SMS)
+    assert p["grid"] == H100_SMS and p["n_chunks"] == 2064
+    assert p["part_len"] == (nh + 2) * 128 * 128 + (nh + 3) * 128
+    act = (nh + 1) * FLAGSHIP_E * 128 * isz
+    assert p["offsets_offset"] == p["acts_offset"] + 2 * act
+    assert p["ws_bytes"] == p["offsets_offset"] + 4 * (FLAGSHIP_N + 1)
 
 
 @pytest.mark.parametrize("dt,width,limit", [

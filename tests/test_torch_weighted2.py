@@ -93,3 +93,42 @@ def test_weighted2_is_two_weighted_sums(case):
     assert empty.any()
     for o in out:
         assert (o.numpy()[empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weighted2_zero_weights_on_different_rows(case, dtype):
+    """w1 and w2 zero on different real rows (each stream drops a row only
+    where its own weight is 0, csrc/segment_pair.cuh): the port's plain
+    version against segment_agg_weighted2_pallas in interpret mode, and a
+    node whose only real rows have w1 = 0 gets 0 in out1 and its sum in
+    out2."""
+    jb, tb, (m1, w1, m2, w2) = case
+    N = tb.num_nodes_pad
+    recv = tb.receivers.numpy()
+    real = np.flatnonzero(tb.edge_mask.numpy() != 0)
+    w1, w2 = w1.copy(), w2.copy()
+    w1[real[0::3]] = 0.0
+    w2[real[1::3]] = 0.0
+    # every real row of one node without a weight in stream 1 only
+    node = recv[real[len(real) // 2]]
+    rows = real[recv[real] == node]
+    w1[rows], w2[rows] = 0.0, 1.0 + np.arange(len(rows), dtype=np.float32)
+    assert ((w1 == 0) != (w2 == 0)).any()
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        ref = PS.segment_agg_weighted2_pallas(
+            jnp.asarray(m1).astype(jdt), jnp.asarray(w1),
+            jnp.asarray(m2).astype(jdt), jnp.asarray(w2), jb.receivers, N)
+    t1, t2 = (torch.from_numpy(m).to(tdt) for m in (m1, m2))
+    out = HS.segment_sum_weighted2(t1, torch.from_numpy(w1), t2,
+                                   torch.from_numpy(w2), tb.receivers, N)
+    rtol, atol = TOLS[dtype]
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.float().numpy(),
+                                   np.asarray(r.astype(jnp.float32)),
+                                   rtol=rtol, atol=atol)
+    assert (out[0][node] == 0).all()
+    expect = (t2[rows].float() * torch.from_numpy(w2[rows]).to(tdt).float()
+              [:, None]).sum(0).to(tdt)
+    assert torch.equal(out[1][node], expect)
+
