@@ -1,7 +1,7 @@
-// Shared pieces of the fused MLP-chain kernels (the forward chains of
-// edge_fwd.cuh and node_fwd.cuh, and through chain_bwd.cuh the backward
-// ones): a row chunk of 128 rows per CTA step, 8 warps of 16
-// rows each, every h x h product as warp-level tiles whose accumulator
+// Shared pieces of the fused MLP-chain kernels (the row kernels of
+// rows_bwd.cuh and, through chain_bwd.cuh, the single-kernel backward
+// schedules of K8 and K9-bwd): a row chunk of 128 rows per CTA step, 8
+// warps of 16 rows each, every h x h product as warp-level tiles whose accumulator
 // layout is that of mma.sync m16n8k16 (thread (g = lane/4, t = lane%4) holds
 // rows g and g+8, columns 8j+2t and 8j+2t+1 for j < H/8), so one epilogue
 // (bias, ReLU, rounding, LayerNorm) serves both number types:
@@ -14,9 +14,9 @@
 //
 // Rows are padded in shared memory (8 bf16 / 4 fp32) so the fragment loads
 // are free of bank conflicts. Each warp reads and writes only its own 16
-// rows of the activation buffer, so the chain needs only __syncwarp; when
-// the weights do not all fit in shared memory at once ("resident"), they are
-// streamed one matrix per stage and the whole CTA synchronises per stage.
+// rows of an activation buffer, so a chain needs only __syncwarp between
+// products apart from the barriers of weights streamed through shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,7 +36,6 @@ struct Num;
 template <>
 struct Num<float> {
   static constexpr int kPad = 4;
-  static constexpr bool kTransposeW = false;
   __device__ __forceinline__ static float rnd(float v) { return v; }
   __device__ __forceinline__ static float load1(const float* p) { return *p; }
   __device__ __forceinline__ static float2 load2(const float* p) {
@@ -51,7 +50,6 @@ struct Num<float> {
 template <>
 struct Num<__nv_bfloat16> {
   static constexpr int kPad = 8;
-  static constexpr bool kTransposeW = true;
   // round to the nearest bf16, as every bf16 PyTorch op does on its output
   __device__ __forceinline__ static float rnd(float v) {
     return __bfloat162float(__float2bfloat16(v));
@@ -76,49 +74,6 @@ struct Layout {
   static constexpr int kLd = H + Num<T>::kPad;  // padded row, elements
   static constexpr size_t kMatBytes = size_t(H) * kLd * sizeof(T);
   static constexpr size_t kActBytes = size_t(kRows) * kLd * sizeof(T);
-};
-
-// Copy one [H, H] weight ([in][out] in device memory) into shared memory in
-// the layout the product wants. All threads of the CTA take part.
-template <typename T, int H>
-__device__ __forceinline__ void load_weight(T* dst, const T* __restrict__ src) {
-  constexpr int LD = Layout<T, H>::kLd;
-  if constexpr (Num<T>::kTransposeW) {
-    for (int i = threadIdx.x; i < H * H; i += kThreads) {
-      const int k = i / H, n = i % H;
-      dst[n * LD + k] = src[i];
-    }
-  } else {
-    for (int i = threadIdx.x; i < H * H / 4; i += kThreads) {
-      const int k = (4 * i) / H, n = (4 * i) % H;
-      *reinterpret_cast<float4*>(dst + k * LD + n) =
-          reinterpret_cast<const float4*>(src)[i];
-    }
-  }
-}
-
-// The weights of a chain in shared memory: all resident (matrix m in slot
-// m) when they fit, else streamed one matrix per stage through slot 0, the
-// whole CTA swapping it.
-template <typename T, int H>
-struct WeightSlots {
-  T* wbuf;
-  int resident;
-
-  // Matrix m into its slot when resident; the caller synchronises.
-  __device__ void preload(int m, const T* src) const {
-    if (resident)
-      load_weight<T, H>(wbuf + size_t(m) * H * Layout<T, H>::kLd, src);
-  }
-  // The slot holding matrix m (`src`), loaded first when streamed. Every
-  // thread of the CTA calls it.
-  __device__ const T* use(int m, const T* src) const {
-    if (resident) return wbuf + size_t(m) * H * Layout<T, H>::kLd;
-    __syncthreads();
-    load_weight<T, H>(wbuf, src);
-    __syncthreads();
-    return wbuf;
-  }
 };
 
 // Copy the warp's 16 rows of a row-major [*, H] tensor into its slice of the
@@ -314,39 +269,6 @@ __device__ __forceinline__ void layer_norm_rows(float (&acc)[H / 8][4],
     acc[j][2] = N::rnd((acc[j][2] - mu[1]) * inv[1] * sc.x + sh.x);
     acc[j][3] = N::rnd((acc[j][3] - mu[1]) * inv[1] * sc.y + sh.y);
   }
-}
-
-// acc = rnd(rnd(acc) + b_out); then LayerNorm of each row in place:
-// acc = rnd((acc - mu) * inv * scale + bias), statistics in fp32.
-template <typename T, int H>
-__device__ __forceinline__ void bias_layer_norm(float (&acc)[H / 8][4],
-                                                const T* __restrict__ b_out,
-                                                const T* __restrict__ scale,
-                                                const T* __restrict__ shift) {
-  bias_round<T, H>(acc, b_out);
-  float mu[2], inv[2];
-  row_stats<H>(acc, 0, mu[0], inv[0]);
-  row_stats<H>(acc, 1, mu[1], inv[1]);
-  layer_norm_rows<T, H>(acc, mu, inv, scale, shift);
-}
-
-// Shared memory the kernel needs: all n_mats weights resident when they fit
-// (with the activation buffer and `extra` bytes), else one weight slot.
-template <typename T, int H>
-__host__ inline cudaError_t plan_smem(int n_mats, size_t extra, int* resident,
-                                      size_t* bytes) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const size_t budget = size_t(max_smem) - 256;  // room for static smem
-  const size_t base = Layout<T, H>::kActBytes + extra;
-  const size_t all = size_t(n_mats) * Layout<T, H>::kMatBytes + base;
-  *resident = all <= budget;
-  *bytes = *resident ? all : Layout<T, H>::kMatBytes + base;
-  return *bytes <= budget ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // First edge tile of node block `block` in a block-aligned receiver stream:

@@ -2,8 +2,9 @@
 // device code of kernels K8 (fused_edge_bwd_saved.cu) and the edge half of
 // K9-bwd (fused_mgn_bwd.cu), with K8's kernel and launch; K2 ran it too
 // before its own schedule (edge_bwd_rows.cuh, the same math and rounding
-// points). The VJP of the edge layer (edge_fwd.cuh) for the cotangents
-// (ct_e of e', ct_agg of agg). Per receiver-sorted edge row the chain
+// points). The VJP of the edge layer (K1's row kernel, edge_fwd_rows.cuh,
+// whose rounding points the recompute follows) for the cotangents (ct_e
+// of e', ct_agg of agg). Per receiver-sorted edge row the chain
 //
 //   h0 = e @ W_e + sg + mask * d_proj[recv];  a0 = relu(h0)
 //   a(i+1) = relu(a(i) @ ws[i] + bs[i]);  d = a(nh) @ W_out + b_out
@@ -26,19 +27,19 @@
 // TPU kernels accumulate d_dproj per tile in the compute type; this code
 // carries it in fp32 and rounds once.
 //
-// Schedule: K1's. One CTA per node block (persistent over blocks), its rows
-// in chunks of 128; d_dproj is the segmented row sum of K1's agg carried
-// across chunks (exact zeros for nodes without a real edge). The chunk's
-// activations sit in buffers (chain_bwd.cuh); weights stream per stage,
-// each a 16-byte copy of an operand the wrapper laid out for that product
-// (8 stages a chunk at two hidden layers in K2, 4 in K8, which needs only
-// the backward products). Weight gradients go to per-CTA fp32 partials and
-// a second kernel sums them in CTA order: the same bits on every launch.
-// Pad tiles are skipped as in K1 (chain.cuh) -- in K8 this matters beyond
-// speed: K1's save variant never wrote the saved rows of those tiles -- and
-// fill_pad_tiles gives their d_e rows ct_e and their d_sg rows 0, which is
-// the VJP wherever the cotangent of pad rows is zero, as it is on the
-// training path.
+// Schedule: K1's before its row kernel. One CTA per node block (persistent
+// over blocks), its rows in chunks of 128; d_dproj is the segmented row
+// sum carried across chunks (exact zeros for nodes without a real edge).
+// The chunk's activations sit in buffers (chain_bwd.cuh); weights stream
+// per stage, each a 16-byte copy of an operand the wrapper laid out for
+// that product (8 stages a chunk at two hidden layers in K2, 4 in K8,
+// which needs only the backward products). Weight gradients go to per-CTA
+// fp32 partials and a second kernel sums them in CTA order: the same bits
+// on every launch. Pad tiles are skipped (chain.cuh first_pad_tile; K9-fwd
+// skips them too) -- in K8 this matters beyond speed: K1's save variant never
+// wrote the saved rows of those tiles -- and fill_pad_tiles gives their
+// d_e rows ct_e and their d_sg rows 0, which is the VJP wherever the
+// cotangent of pad rows is zero, as it is on the training path.
 #pragma once
 
 #include "chain_bwd.cuh"

@@ -9,13 +9,14 @@
 //   e'  = e + LayerNorm(de)                     (fp32 stats, eps 1e-5)
 //   agg[n] = sum over rows with recv == n of mask * e'
 //
-// with every rounding point of the schedule before it (edge_fwd.cuh, which
-// the edge half of K9-fwd runs), so e', agg and the save variant's outputs
-// are the same bits as that schedule gave.
+// with every rounding point of the node-block schedule it replaced, so e',
+// agg and the save variant's outputs are the same bits as that schedule
+// gave. K9-fwd (fused_mgn_fwd.cu) runs the same chunk body.
 //
 //  1. edge_fwd_rows_kernel: each warp owns 16 rows of a 128-row chunk and
 //     runs the whole chain for them with no CTA barrier between products
-//     (rows_bwd.cuh's machinery, the forward half of K2's row kernel). In
+//     (edge_rows_chunk on rows_bwd.cuh's machinery, the forward half of
+//     K2's row kernel). In
 //     bf16 the activation never leaves registers (the mma accumulator of
 //     one product, rounded and packed in pairs, is the A fragment of the
 //     next), the weights stay resident in shared memory for the CTA's life
@@ -67,144 +68,25 @@ struct FwdRowsArgs {
   int n_hidden, edge_tile, n_chunks;
 };
 
-// The chain's weights (0 W_e, 1.. ws[i], n_mats - 1 W_out) in shared
-// memory as [in][out] tiles: all resident (matrix m in slot m), or a ring
-// of two slots through which the products stream in chain order, the next
-// one's cp.async copy overlapping the current product. Every thread of the
-// CTA calls get() for every product.
+// The chain's weights (0 W_e, 1.. ws[i], n_hidden + 1 W_out).
 template <typename T, int H>
-struct FwdWeights {
-  static constexpr size_t kMat = size_t(H) * Layout<T, H>::kLd;
-  T* slots;
-  const T *w_e, *ws, *w_out;
-  int resident, n_mats, s;
-
-  __device__ const T* src(int m) const {
-    return m == 0 ? w_e
-                  : (m < n_mats - 1 ? ws + size_t(m - 1) * H * H : w_out);
-  }
-  __device__ void start() {
-    if (resident) {
-      for (int m = 0; m < n_mats; ++m)
-        copy_mat_async<T, H>(slots + m * kMat, src(m));
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      copy_mat_async<T, H>(slots, src(0));
-      cp_async_commit();
-    }
-  }
-  __device__ const T* get(int m) {
-    if (resident) return slots + m * kMat;
-    cp_async_wait<0>();
-    __syncthreads();  // the copy is visible; the product before is done
-    copy_mat_async<T, H>(slots + ((s + 1) & 1) * kMat,
-                         src((m + 1) % n_mats));
-    cp_async_commit();
-    return slots + ((s++) & 1) * kMat;
-  }
-  __device__ void finish() {
-    if (!resident) cp_async_wait<0>();
-  }
-};
-
-// A bf16 pair (one 32-bit register) as two floats, widened by its bits.
-__device__ __forceinline__ float2 widen(uint32_t w) {
-  return make_float2(__uint_as_float(w << 16),
-                     __uint_as_float(w & 0xffff0000u));
+__device__ __forceinline__ FwdChain<T, H> edge_chain(const FwdRowsArgs<T>& a) {
+  return {a.w_e, nullptr, a.ws, a.w_out, 1, a.n_hidden + 2};
 }
 
-// fp32 products: a register-blocked FFMA tile. Lane (rg, cg) = (lane / 16,
-// lane % 16) of the warp owns rows rg, rg + 2, .., rg + 14 of the warp's
-// 16 and the column quads 4 cg + 64 q (q < H / 64). Per 4 k it reads each
-// of its rows' A values as one float4 (a broadcast across its half-warp;
-// the two half-warps' rows sit 4 banks apart) and per k its B quads (the
-// 16 lanes of a half-warp side by side): 2 + H / 64 loads of 16 bytes for
-// H / 2 FMA, where chain.cuh's mm issues 2 + H / 8 (scalar A, float2 B).
-// Every output is the same fma chain over k in order, so the same bits.
-template <int H>
-struct RowTile {
-  static constexpr int LD = Layout<float, H>::kLd;
-  static constexpr int NQ = H / 64;
-  float v[8][NQ][4];
-
-  __device__ static int rg() { return (threadIdx.x & 31) >> 4; }
-  __device__ static int cg() { return threadIdx.x & 15; }
-  __device__ static int row(int i) { return rg() + 2 * i; }
-  __device__ static int col(int q) { return 64 * q + 4 * cg(); }
-
-  // v = act @ w: act the warp's [16][LD] rows, w an [H][LD] [in][out] tile
-  __device__ void mm(const float* __restrict__ act,
-                     const float* __restrict__ w) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[i][q][c] = 0.f;
-    const float* a0 = act + rg() * LD;
-    const float* b0 = w + 4 * cg();
-#pragma unroll 2
-    for (int k4 = 0; k4 < H; k4 += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(a0 + 2 * i * LD + k4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float4 b[NQ];
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-          b[q] = *reinterpret_cast<const float4*>(b0 + (k4 + kk) * LD +
-                                                  64 * q);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x = kk == 0 ? a[i].x
-                        : kk == 1 ? a[i].y
-                        : kk == 2 ? a[i].z
-                                  : a[i].w;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            v[i][q][0] = fmaf(x, b[q].x, v[i][q][0]);
-            v[i][q][1] = fmaf(x, b[q].y, v[i][q][1]);
-            v[i][q][2] = fmaf(x, b[q].z, v[i][q][2]);
-            v[i][q][3] = fmaf(x, b[q].w, v[i][q][3]);
-          }
-        }
-      }
-    }
-  }
-  // the tile's rows to a row-major [16][ld] buffer (shared or device
-  // memory), 16 bytes a store
-  __device__ void store(float* dst, int64_t ld) const {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        *reinterpret_cast<float4*>(dst + row(i) * ld + col(q)) =
-            make_float4(v[i][q][0], v[i][q][1], v[i][q][2], v[i][q][3]);
-  }
-};
-
-template <typename T, int H, bool kSave>
-__global__ void __launch_bounds__(kThreads, 1)
-edge_fwd_rows_kernel(FwdRowsArgs<T> a, int resident) {
+// Rows [r0, r0 + kRows) of a live chunk: e' (and, kSave, zs, d, mu, inv).
+// get(m) gives product m's [in][out] weight tile in shared memory; stg is
+// the warp's [16][LD] fp32 A operand slice. Every thread of the CTA calls
+// it; the warps share nothing but what get() does.
+template <typename T, int H, bool kSave, typename Get>
+__device__ __forceinline__ void edge_rows_chunk(const FwdRowsArgs<T>& a,
+                                                Get&& get, T* stg,
+                                                int64_t r0) {
   using N = Num<T>;
   constexpr int LD = Layout<T, H>::kLd;
-  constexpr bool kBf16 = sizeof(T) == 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nh = a.n_hidden, n_mats = nh + 2;
+  const int nh = a.n_hidden;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  constexpr size_t kMat = FwdWeights<T, H>::kMat;
-  FwdWeights<T, H> w{reinterpret_cast<T*>(smem_raw), a.w_e, a.ws, a.w_out,
-                     resident, n_mats, 0};
-  // fp32: the warps' A operand slices ([kRows][LD] after the weights)
-  T* stg = reinterpret_cast<T*>(smem_raw) +
-           (resident ? n_mats : 2) * kMat + size_t(warp) * 16 * LD;
-  w.start();
-
   const int64_t E = a.n_edges;
   // e' = e + LayerNorm(acc + b_out) for the rows ra / rb, acc the last
   // product (and, saved, d, mu, inv); e_at(j) gives e's values at acc[j]
@@ -235,9 +117,133 @@ edge_fwd_rows_kernel(FwdRowsArgs<T> a, int resident) {
     }
   };
 
+  const int64_t rw = r0 + warp * 16;
+  if constexpr (sizeof(T) == 2) {
+    const int64_t ra = rw + g, rb = ra + 8;
+    RowOperand<T, H> op;
+    const int na = a.recv[ra], nb = a.recv[rb];
+    const float ma = N::load1(a.mask + ra), mb = N::load1(a.mask + rb);
+    op.from_rows(a.e + ra * H, a.e + rb * H, stg);
+    // e's A fragments, kept for the residual: they are e's rows ra / rb
+    // in the accumulator layout
+    uint32_t e_frag[H / 16][4];
+#pragma unroll
+    for (int kb = 0; kb < H / 16; ++kb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) e_frag[kb][q] = op.f[kb][q];
+    // the first epilogue's operands, in flight during the product
+    uint32_t sga[H / 8], sgb[H / 8], dpa[H / 8], dpb[H / 8];
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      sga[j] = *reinterpret_cast<const uint32_t*>(a.sg + ra * H + col);
+      sgb[j] = *reinterpret_cast<const uint32_t*>(a.sg + rb * H + col);
+      dpa[j] = *reinterpret_cast<const uint32_t*>(
+          a.d_proj + int64_t(na) * H + col);
+      dpb[j] = *reinterpret_cast<const uint32_t*>(
+          a.d_proj + int64_t(nb) * H + col);
+    }
+    float acc[H / 8][4];
+    zero<H>(acc);
+    op.template mm<true>(get(0), acc, stg);
+    // h0 = e @ W_e + sg + mask * d_proj[recv];  z = relu(h0)
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j) {
+      const float2 sa = widen(sga[j]), sb = widen(sgb[j]);
+      const float2 da = widen(dpa[j]), db = widen(dpb[j]);
+      const float v0 = N::rnd(N::rnd(N::rnd(acc[j][0]) + sa.x) + N::rnd(da.x * ma));
+      const float v1 = N::rnd(N::rnd(N::rnd(acc[j][1]) + sa.y) + N::rnd(da.y * ma));
+      const float v2 = N::rnd(N::rnd(N::rnd(acc[j][2]) + sb.x) + N::rnd(db.x * mb));
+      const float v3 = N::rnd(N::rnd(N::rnd(acc[j][3]) + sb.y) + N::rnd(db.y * mb));
+      acc[j][0] = fmaxf(v0, 0.f);
+      acc[j][1] = fmaxf(v1, 0.f);
+      acc[j][2] = fmaxf(v2, 0.f);
+      acc[j][3] = fmaxf(v3, 0.f);
+    }
+    for (int i = 0; i <= nh; ++i) {
+      // acc holds a(i), the post-ReLU activation the next product reads
+      if constexpr (kSave)
+        store_acc<T, H>(acc, a.zs + (i * E + ra) * H,
+                        a.zs + (i * E + rb) * H);
+      op.from_acc(acc, stg);
+      zero<H>(acc);
+      op.template mm<true>(get(1 + i), acc, stg);
+      if (i < nh) bias_relu<T, H>(acc, a.bs + size_t(i) * H);
+    }
+    finish_rows(acc, ra, rb, [&](int j) {
+      const float2 ea = widen(e_frag[j / 2][2 * (j & 1)]);
+      const float2 eb = widen(e_frag[j / 2][2 * (j & 1) + 1]);
+      return make_float4(ea.x, ea.y, eb.x, eb.y);
+    });
+  } else {
+    // fp32: the chain on RowTile, each activation row-major in the warp's
+    // slice (the next product's A operand)
+    RowTile<H> tl;
+    __syncwarp();  // the chunk before has read the slice
+    load_rows<float, H>(stg, a.e + rw * H);
+    __syncwarp();
+    tl.mm(stg, get(0));
+    // h0 = e @ W_e + sg + mask * d_proj[recv];  z = relu(h0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t r = rw + tl.row(i);
+      const float m = a.mask[r];
+      const int n = a.recv[r];
+#pragma unroll
+      for (int q = 0; q < RowTile<H>::NQ; ++q) {
+        const int col = tl.col(q);
+        const float4 s4 = *reinterpret_cast<const float4*>(a.sg + r * H +
+                                                            col);
+        const float4 d4 = *reinterpret_cast<const float4*>(
+            a.d_proj + int64_t(n) * H + col);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = N::rnd(N::rnd(N::rnd(tl.v[i][q][c]) + sv[c]) +
+                                 N::rnd(dv[c] * m));
+          tl.v[i][q][c] = fmaxf(x, 0.f);
+        }
+      }
+    }
+    for (int i = 0; i <= nh; ++i) {
+      // tl holds a(i): the next product's A operand (and, saved, zs[i])
+      __syncwarp();  // the product has read the slice
+      tl.store(stg, LD);
+      if constexpr (kSave) tl.store(a.zs + (i * E + rw) * H, H);
+      __syncwarp();
+      tl.mm(stg, get(1 + i));
+      if (i < nh) tl.bias_relu(a.bs + size_t(i) * H);  // a(i + 1)
+    }
+    // the last product into the accumulator layout, through the slice
+    float acc[H / 8][4];
+    tl.to_acc(acc, stg);
+    const int64_t ra = rw + g, rb = ra + 8;
+    finish_rows(acc, ra, rb, [&](int j) {
+      const int col = 8 * j + 2 * t;
+      const float2 ea = N::load2(a.e + ra * H + col);
+      const float2 eb = N::load2(a.e + rb * H + col);
+      return make_float4(ea.x, ea.y, eb.x, eb.y);
+    });
+  }
+}
+
+template <typename T, int H, bool kSave>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_fwd_rows_kernel(FwdRowsArgs<T> a, int resident) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  constexpr size_t kMat = FwdWeights<T, H>::kMat;
+  FwdWeights<T, H> w{edge_chain<T, H>(a), {reinterpret_cast<T*>(smem_raw), 0},
+                     resident};
+  // fp32: the warps' A operand slices ([kRows][LD] after the weights)
+  T* stg = reinterpret_cast<T*>(smem_raw) +
+           (resident ? a.n_hidden + 2 : 2) * kMat +
+           size_t(warp) * 16 * Layout<T, H>::kLd;
+  w.start();
   for (int ch = blockIdx.x; ch < a.n_chunks; ch += gridDim.x) {
     const int64_t r0 = int64_t(ch) * kRows;
-    if (N::load1(a.mask + r0 / a.edge_tile * a.edge_tile) == 0.f) {
+    if (Num<T>::load1(a.mask + r0 / a.edge_tile * a.edge_tile) == 0.f) {
       // a chunk of a pad tile (the same for the whole CTA): e' = e, a zero
       // update, 16 bytes a thread and copy
       constexpr int kVecs = kRows * H * int(sizeof(T)) / 16;
@@ -252,153 +258,10 @@ edge_fwd_rows_kernel(FwdRowsArgs<T> a, int resident) {
         dst[k * kThreads + threadIdx.x] = v[k];
       continue;
     }
-    const int64_t rw = r0 + warp * 16;
-    if constexpr (kBf16) {
-      const int64_t ra = rw + g, rb = ra + 8;
-      RowOperand<T, H> op;
-      const int na = a.recv[ra], nb = a.recv[rb];
-      const float ma = N::load1(a.mask + ra), mb = N::load1(a.mask + rb);
-      op.from_rows(a.e + ra * H, a.e + rb * H, stg);
-      // e's A fragments, kept for the residual: they are e's rows ra / rb
-      // in the accumulator layout
-      uint32_t e_frag[H / 16][4];
-#pragma unroll
-      for (int kb = 0; kb < H / 16; ++kb)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) e_frag[kb][q] = op.f[kb][q];
-      // the first epilogue's operands, in flight during the product
-      uint32_t sga[H / 8], sgb[H / 8], dpa[H / 8], dpb[H / 8];
-#pragma unroll
-      for (int j = 0; j < H / 8; ++j) {
-        const int col = 8 * j + 2 * t;
-        sga[j] = *reinterpret_cast<const uint32_t*>(a.sg + ra * H + col);
-        sgb[j] = *reinterpret_cast<const uint32_t*>(a.sg + rb * H + col);
-        dpa[j] = *reinterpret_cast<const uint32_t*>(
-            a.d_proj + int64_t(na) * H + col);
-        dpb[j] = *reinterpret_cast<const uint32_t*>(
-            a.d_proj + int64_t(nb) * H + col);
-      }
-      float acc[H / 8][4];
-      zero<H>(acc);
-      op.template mm<true>(w.get(0), acc, stg);
-      // h0 = e @ W_e + sg + mask * d_proj[recv];  z = relu(h0)
-#pragma unroll
-      for (int j = 0; j < H / 8; ++j) {
-        const float2 sa = widen(sga[j]), sb = widen(sgb[j]);
-        const float2 da = widen(dpa[j]), db = widen(dpb[j]);
-        const float v0 = N::rnd(N::rnd(N::rnd(acc[j][0]) + sa.x) + N::rnd(da.x * ma));
-        const float v1 = N::rnd(N::rnd(N::rnd(acc[j][1]) + sa.y) + N::rnd(da.y * ma));
-        const float v2 = N::rnd(N::rnd(N::rnd(acc[j][2]) + sb.x) + N::rnd(db.x * mb));
-        const float v3 = N::rnd(N::rnd(N::rnd(acc[j][3]) + sb.y) + N::rnd(db.y * mb));
-        acc[j][0] = fmaxf(v0, 0.f);
-        acc[j][1] = fmaxf(v1, 0.f);
-        acc[j][2] = fmaxf(v2, 0.f);
-        acc[j][3] = fmaxf(v3, 0.f);
-      }
-      for (int i = 0; i <= nh; ++i) {
-        // acc holds a(i), the post-ReLU activation the next product reads
-        if constexpr (kSave)
-          store_acc<T, H>(acc, a.zs + (i * E + ra) * H,
-                          a.zs + (i * E + rb) * H);
-        op.from_acc(acc, stg);
-        zero<H>(acc);
-        op.template mm<true>(w.get(1 + i), acc, stg);
-        if (i < nh) bias_relu<T, H>(acc, a.bs + size_t(i) * H);
-      }
-      finish_rows(acc, ra, rb, [&](int j) {
-        const float2 ea = widen(e_frag[j / 2][2 * (j & 1)]);
-        const float2 eb = widen(e_frag[j / 2][2 * (j & 1) + 1]);
-        return make_float4(ea.x, ea.y, eb.x, eb.y);
-      });
-    } else {
-      // fp32: the chain on RowTile, each activation row-major in the
-      // warp's slice (the next product's A operand)
-      RowTile<H> tl;
-      __syncwarp();  // the chunk before has read the slice
-      load_rows<float, H>(stg, a.e + rw * H);
-      __syncwarp();
-      tl.mm(stg, w.get(0));
-      // h0 = e @ W_e + sg + mask * d_proj[recv];  z = relu(h0)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int64_t r = rw + tl.row(i);
-        const float m = a.mask[r];
-        const int n = a.recv[r];
-#pragma unroll
-        for (int q = 0; q < RowTile<H>::NQ; ++q) {
-          const int col = tl.col(q);
-          const float4 s4 = *reinterpret_cast<const float4*>(a.sg + r * H +
-                                                              col);
-          const float4 d4 = *reinterpret_cast<const float4*>(
-              a.d_proj + int64_t(n) * H + col);
-          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-          const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float x = N::rnd(N::rnd(N::rnd(tl.v[i][q][c]) + sv[c]) +
-                                   N::rnd(dv[c] * m));
-            tl.v[i][q][c] = fmaxf(x, 0.f);
-          }
-        }
-      }
-      for (int i = 0; i <= nh; ++i) {
-        // tl holds a(i): the next product's A operand (and, saved, zs[i])
-        __syncwarp();  // the product has read the slice
-        tl.store(stg, LD);
-        if constexpr (kSave) tl.store(a.zs + (i * E + rw) * H, H);
-        __syncwarp();
-        tl.mm(stg, w.get(1 + i));
-        if (i < nh) {  // a(i + 1) = relu(acc + bs[i])
-          const float* b = a.bs + size_t(i) * H;
-#pragma unroll
-          for (int q = 0; q < RowTile<H>::NQ; ++q) {
-            const float4 b4 = *reinterpret_cast<const float4*>(b + tl.col(q));
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                tl.v[r][q][c] = fmaxf(N::rnd(N::rnd(tl.v[r][q][c]) + bv[c]),
-                                      0.f);
-          }
-        }
-      }
-      // the last product into the accumulator layout, through the slice
-      float acc[H / 8][4];
-      __syncwarp();
-      tl.store(stg, LD);
-      __syncwarp();
-      load_acc<T, H>(acc, stg + g * LD, stg + (g + 8) * LD);
-      const int64_t ra = rw + g, rb = ra + 8;
-      finish_rows(acc, ra, rb, [&](int j) {
-        const int col = 8 * j + 2 * t;
-        const float2 ea = N::load2(a.e + ra * H + col);
-        const float2 eb = N::load2(a.e + rb * H + col);
-        return make_float4(ea.x, ea.y, eb.x, eb.y);
-      });
-    }
+    edge_rows_chunk<T, H, kSave>(a, [&](int m) { return w.get(m); }, stg,
+                                 r0);
   }
   w.finish();
-}
-
-// Shared memory of the row kernel: the n_mats weights all resident, or
-// the two-slot ring, and in fp32 the warps' A operand slices, against the
-// card's opt-in limit; *fits_resident says whether the weights fit
-// resident (ops/hopper_fused.py edge_fwd_plan reckons alike).
-template <typename T, int H>
-__host__ inline cudaError_t fwd_rows_smem(int n_mats, int* fits_resident,
-                                          size_t* smem) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const size_t mat = Layout<T, H>::kMatBytes;
-  const size_t fixed = sizeof(T) == 4 ? Layout<T, H>::kActBytes : 0;
-  *fits_resident = n_mats * mat + fixed <= size_t(max_smem);
-  *smem = (*fits_resident ? n_mats : 2) * mat + fixed;
-  return *smem <= size_t(max_smem) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The launches (module comment) on `stream`. `grid` and `resident`

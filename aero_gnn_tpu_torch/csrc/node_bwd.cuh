@@ -1,8 +1,9 @@
 // One 128-row chunk of the fused node block's backward: the device code of
 // the node half of K9-bwd (fused_mgn_bwd.cu), which K4 ran before its row
 // kernel (node_bwd_rows.cuh, the same math and rounding points). The VJP
-// of node_fwd.cuh for the cotangent ct of x' = x + LayerNorm(MLP([x,
-// agg])): per node row it recomputes
+// of K3 (node_fwd_rows.cuh, whose rounding points the recompute follows)
+// for the cotangent ct of x' = x + LayerNorm(MLP([x, agg])): per node row
+// it recomputes
 //
 //   a0 = relu(x @ W1x + agg @ W1a + b1)   (the two products summed in fp32
 //                                          before rounding, as K3 and the

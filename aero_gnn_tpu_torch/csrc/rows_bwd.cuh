@@ -1,19 +1,29 @@
-// The row-kernel machinery of the fused backward kernels K2
-// (edge_bwd_rows.cuh) and K4 (node_bwd_rows.cuh), on top of chain_bwd.cuh:
+// The row-kernel machinery of the fused kernels, on top of chain_bwd.cuh:
+// the forward ones K1 (edge_fwd_rows.cuh), K3 (node_fwd_rows.cuh) and
+// K9-fwd (fused_mgn_fwd.cu), and the backward ones K2 (edge_bwd_rows.cuh)
+// and K4 (node_bwd_rows.cuh). Each warp owns 16 rows of a 128-row chunk and
+// runs a chain's products for them with no CTA barrier between products.
 //
-//  * WeightRing: a chain's weights in shared memory, all resident for the
-//    CTA's life where they fit, else a ring of two slots through which the
-//    products' weights stream in product order (the next one's cp.async
-//    copy overlapping the current product, one CTA barrier per product).
-//    bf16 keeps one copy of each weight, the forward product reading it
-//    with ldmatrix and the backward one (dz @ W^T) with ldmatrix.trans from
-//    the same tile; fp32 keeps W and W^T, so both FFMA products stream B
-//    as float2 rows (ops/_build.py edge_bwd_operands lays them out).
+//  * WeightRing: a backward chain's weights in shared memory, all resident
+//    for the CTA's life where they fit, else a ring of two slots through
+//    which the products' weights stream in product order (the next one's
+//    cp.async copy overlapping the current product, one CTA barrier per
+//    product). bf16 keeps one copy of each weight, the forward product
+//    reading it with ldmatrix and the backward one (dz @ W^T) with
+//    ldmatrix.trans from the same tile; fp32 keeps W and W^T, so both FFMA
+//    products stream B as float2 rows (ops/_build.py edge_bwd_operands
+//    lays them out).
+//  * FwdChain, WeightStream and FwdWeights: a forward chain's weights read
+//    as they lie in device memory ([in][out]), resident or streamed through
+//    two slots in the same way; the bf16 product reads its B tile with
+//    ldmatrix.trans.
 //  * RowOperand: a product's A operand, a warp's 16 rows. In bf16 it never
 //    leaves registers: the mma accumulator of one product, rounded and
 //    packed in pairs, is the A fragment of the next (the m16n8 accumulator
 //    layout is the k16 A layout). fp32 stages it in a warp-private slice
 //    of shared memory. With relu_bits / relu_grad, the ReLU masks are bits.
+//  * RowTile: the forward chains' fp32 products, a register-blocked FFMA
+//    tile over the warp's slice.
 //  * DwAcc and dw_split: the split-K weight gradient dW = A^T D over a
 //    split's chunks in 64-row slabs that cp.async double-buffers, mma.sync
 //    on fragments ldmatrix.trans loads (bf16) or FFMA 8 x 8 register
@@ -209,6 +219,203 @@ struct RowOperand<float, H> {
     chain::mm<H>(stg, w, acc);
   }
 };
+
+// A forward chain's weights in product order, as they lie in device memory
+// ([in][out]): n_lead leading matrices (the edge chain's W_e; the node
+// chain's W1x, W1a), then ws[0 .. n_mats - n_lead - 1), then W_out.
+template <typename T, int H>
+struct FwdChain {
+  const T *w0, *w1, *ws, *w_out;
+  int n_lead, n_mats;
+
+  __device__ const T* src(int m) const {
+    if (m < n_lead) return m == 0 ? w0 : w1;
+    return m < n_mats - 1 ? ws + size_t(m - n_lead) * H * H : w_out;
+  }
+};
+
+// Two slots of shared memory through which weights stream one product
+// ahead: prime() starts the first copy, next() waits for the copy in
+// flight, returns its slot and starts the copy of the one after into the
+// other slot (one CTA barrier: every thread of the CTA calls it, after its
+// product on the slot it overwrites).
+template <typename T, int H>
+struct WeightStream {
+  static constexpr size_t kMat = size_t(H) * Layout<T, H>::kLd;
+  T* slots;
+  int s;
+
+  __device__ void prime(const T* src) {
+    copy_mat_async<T, H>(slots + (s & 1) * kMat, src);
+    cp_async_commit();
+  }
+  __device__ const T* next(const T* after) {
+    cp_async_wait<0>();
+    __syncthreads();  // the copy is visible; the product before is done
+    const T* cur = slots + (s & 1) * kMat;
+    ++s;
+    if (after) copy_mat_async<T, H>(slots + (s & 1) * kMat, after);
+    cp_async_commit();
+    return cur;
+  }
+  __device__ void finish() { cp_async_wait<0>(); }
+};
+
+// One forward chain's weights in shared memory as [in][out] tiles: all
+// resident (matrix m in slot m), or streamed in chain order through a
+// WeightStream, the chunk after's first matrix following the last. Every
+// thread of the CTA calls get() for every product.
+template <typename T, int H>
+struct FwdWeights {
+  static constexpr size_t kMat = WeightStream<T, H>::kMat;
+  FwdChain<T, H> c;
+  WeightStream<T, H> ring;  // the slots: c.n_mats when resident, else 2
+  int resident;
+
+  __device__ void start() {
+    if (resident) {
+      for (int m = 0; m < c.n_mats; ++m)
+        copy_mat_async<T, H>(ring.slots + m * kMat, c.src(m));
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      ring.prime(c.src(0));
+    }
+  }
+  __device__ const T* get(int m) {
+    if (resident) return ring.slots + m * kMat;
+    return ring.next(c.src((m + 1) % c.n_mats));
+  }
+  __device__ void finish() {
+    if (!resident) ring.finish();
+  }
+};
+
+// A bf16 pair (one 32-bit register) as two floats, widened by its bits.
+__device__ __forceinline__ float2 widen(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
+// fp32 forward products: a register-blocked FFMA tile. Lane (rg, cg) =
+// (lane / 16, lane % 16) of the warp owns rows rg, rg + 2, .., rg + 14 of
+// the warp's 16 and the column quads 4 cg + 64 q (q < H / 64). Per 4 k it
+// reads each of its rows' A values as one float4 (a broadcast across its
+// half-warp; the two half-warps' rows sit 4 banks apart) and per k its B
+// quads (the 16 lanes of a half-warp side by side): 2 + H / 64 loads of 16
+// bytes for H / 2 FMA, where chain.cuh's mm issues 2 + H / 8 (scalar A,
+// float2 B). Every output is the same fma chain over k in order, so the
+// same bits.
+template <int H>
+struct RowTile {
+  static constexpr int LD = Layout<float, H>::kLd;
+  static constexpr int NQ = H / 64;
+  float v[8][NQ][4];
+
+  __device__ static int rg() { return (threadIdx.x & 31) >> 4; }
+  __device__ static int cg() { return threadIdx.x & 15; }
+  __device__ static int row(int i) { return rg() + 2 * i; }
+  __device__ static int col(int q) { return 64 * q + 4 * cg(); }
+
+  // v = act @ w (kZero) or v += act @ w: act the warp's [16][LD] rows, w
+  // an [H][LD] [in][out] tile
+  template <bool kZero = true>
+  __device__ void mm(const float* __restrict__ act,
+                     const float* __restrict__ w) {
+    if constexpr (kZero) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[i][q][c] = 0.f;
+    }
+    const float* a0 = act + rg() * LD;
+    const float* b0 = w + 4 * cg();
+#pragma unroll 2
+    for (int k4 = 0; k4 < H; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(a0 + 2 * i * LD + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          b[q] = *reinterpret_cast<const float4*>(b0 + (k4 + kk) * LD +
+                                                  64 * q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = kk == 0 ? a[i].x
+                        : kk == 1 ? a[i].y
+                        : kk == 2 ? a[i].z
+                                  : a[i].w;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            v[i][q][0] = fmaf(x, b[q].x, v[i][q][0]);
+            v[i][q][1] = fmaf(x, b[q].y, v[i][q][1]);
+            v[i][q][2] = fmaf(x, b[q].z, v[i][q][2]);
+            v[i][q][3] = fmaf(x, b[q].w, v[i][q][3]);
+          }
+        }
+      }
+    }
+  }
+  // v = relu(v + b): a hidden layer's epilogue (fp32 rounds nowhere)
+  __device__ void bias_relu(const float* __restrict__ b) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 b4 = *reinterpret_cast<const float4*>(b + col(q));
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[i][q][c] = fmaxf(v[i][q][c] + bv[c], 0.f);
+    }
+  }
+  // the tile's rows to a row-major [16][ld] buffer (shared or device
+  // memory), 16 bytes a store
+  __device__ void store(float* dst, int64_t ld) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        *reinterpret_cast<float4*>(dst + row(i) * ld + col(q)) =
+            make_float4(v[i][q][0], v[i][q][1], v[i][q][2], v[i][q][3]);
+  }
+  // the tile in the accumulator layout (rows g, g + 8 of the thread),
+  // through the warp's slice `stg`
+  __device__ void to_acc(float (&acc)[H / 8][4], float* stg) const {
+    const int g = (threadIdx.x & 31) >> 2;
+    __syncwarp();  // the product has read the slice
+    store(stg, LD);
+    __syncwarp();
+    load_acc<float, H>(acc, stg + g * LD, stg + (g + 8) * LD);
+  }
+};
+
+// Shared memory of a forward row kernel whose chain has n_mats weights
+// (all resident, or the two-slot ring) and, in fp32, the warps' A operand
+// slices, against the card's opt-in limit; *fits_resident says whether the
+// weights fit resident (ops/hopper_fused.py edge_fwd_plan and
+// ops/hopper_node.py node_fwd_plan reckon alike).
+template <typename T, int H>
+__host__ inline cudaError_t fwd_rows_smem(int n_mats, int* fits_resident,
+                                          size_t* smem) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t mat = Layout<T, H>::kMatBytes;
+  const size_t fixed = sizeof(T) == 4 ? Layout<T, H>::kActBytes : 0;
+  *fits_resident = n_mats * mat + fixed <= size_t(max_smem);
+  *smem = (*fits_resident ? n_mats : 2) * mat + fixed;
+  return *smem <= size_t(max_smem) ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // acc = relu(rnd(rnd(acc) + b)), in registers (a hidden layer's epilogue)
 template <typename T, int H>

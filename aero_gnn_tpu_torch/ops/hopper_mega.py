@@ -9,9 +9,12 @@ aero_gnn_tpu.ops.pallas_mega).
 ``fused_mgn_layer`` launches ``csrc/fused_mgn_fwd.cu`` on CUDA tensors and
 runs ``fused_mgn_layer_ref`` (K1's plain version followed by K3's, as the
 JAX package's ``_equiv`` composes them) on CPU tensors; both return
-(x', e', agg). ``fused_mgn_layer_bwd`` launches ``csrc/fused_mgn_bwd.cu``
-(K4's backward over each node block, then K2's over its edge tiles with
-the aggregation cotangent K4 produced) or runs ``fused_mgn_layer_bwd_ref``.
+(x', e', agg). K9-fwd runs one CTA a node block: K1's row-kernel chunks
+over the block's edge tiles, the block's agg, then K3's chunks over its
+nodes; ``mega_fwd_plan`` plans its grid and shared memory.
+``fused_mgn_layer_bwd`` launches ``csrc/fused_mgn_bwd.cu`` (K4's backward
+over each node block, then K2's over its edge tiles with the aggregation
+cotangent K4 produced) or runs ``fused_mgn_layer_bwd_ref``.
 ``fused_mgn_layer_autograd`` is the differentiable layer, (x, e) ->
 (x', e'); it saves the layer's inputs and the aggregate, as ``_fmgn_fwd``
 does, so the backward never re-runs the forward. ``ep`` / ``npar`` are the
@@ -23,6 +26,7 @@ as in JAX); ``nn.blocks`` routes the fused layer here when it is on.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -36,7 +40,7 @@ EDGE_KEYS = ("w_e", "ws", "bs", "w_out", "b_out", "ln_scale", "ln_bias")
 NODE_KEYS = ("w1x", "w1a", "b1", "ws", "bs", "w_out", "b_out", "ln_scale",
              "ln_bias")
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 25 + [_I64, _I64] + [_I] * 6 + [_P]
+_FWD_ARGTYPES = [_P] * 25 + [_I64, _I64] + [_I] * 7 + [_P]
 _BWD_ARGTYPES = [_P] * 25 + [_I64] * 3 + [_I] * 6 + [_P]
 _WS_ARGTYPES = [_I64] + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64)]
 
@@ -97,6 +101,49 @@ def _check_args(e, sg, d_proj, x, mask, receivers, ep, npar, num_nodes,
     return h, ne, nn
 
 
+def mega_fwd_plan(n_edges: int, n_nodes: int, h: int, ne_hidden: int,
+                  nn_hidden: int, dtype, sm_count: int, max_smem: int) -> dict:
+    """K9-fwd's launch plan (csrc/fused_mgn_fwd.cu, which checks it against
+    its own reckoning): ``grid`` = one CTA per node block of ``NB`` nodes
+    (``waves`` of ``sm_count``); ``resident``: the weights stay in shared
+    memory (the edge chain's ne_hidden + 2 for the block's edge chunks,
+    then the node chain's nn_hidden + 3 in the same slots), where the
+    larger set fits, else both chains stream through a ring of two slots.
+    ``smem_bytes`` of the ``max_smem`` a CTA may have: the weights, fp32's
+    warps' A operand slices, and each node's live-row bounds and the
+    block's tile range. No workspace: a block's aggregate is summed by the
+    CTA that owns it."""
+    return dict(_mega_fwd_plan(n_edges, n_nodes, h, ne_hidden, nn_hidden,
+                               dtype, sm_count, max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _mega_fwd_plan(n_edges, n_nodes, h, ne_hidden, nn_hidden, dtype,
+                   sm_count, max_smem):
+    if n_edges <= 0 or n_edges % ET or n_nodes <= 0 or n_nodes % NB:
+        raise ValueError(f"K9-fwd needs the block-aligned layout: E={n_edges} "
+                         f"a positive multiple of {ET}, N={n_nodes} a "
+                         f"positive multiple of {NB}")
+    if ne_hidden < 0 or nn_hidden < 0:
+        raise ValueError(f"K9-fwd takes 0 or more hidden layers, not "
+                         f"{ne_hidden} / {nn_hidden}")
+    isz = torch.finfo(dtype).bits // 8
+    n_mats = max(ne_hidden + 2, nn_hidden + 3)
+    # csrc/chain.cuh Layout: [h][ld] weight tiles, rows padded by 16 bytes;
+    # fused_mgn_fwd.cu mega_fixed_smem
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = (HF.CHUNK_ROWS * ld * 4 if isz == 4 else 0) + (2 * NB + 4) * 4
+    resident = n_mats * mat + fixed <= max_smem
+    smem = (n_mats if resident else 2) * mat + fixed
+    if smem > max_smem:
+        raise ValueError(f"K9-fwd at h={h} needs {smem} bytes of shared "
+                         f"memory, more than {max_smem}")
+    n_blocks = n_nodes // NB
+    return {"grid": n_blocks, "waves": -(-n_blocks // sm_count),
+            "resident": resident, "smem_bytes": smem}
+
+
 def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
                     num_nodes: int):
     """(x', e', agg) of the whole MGN layer. CUDA tensors launch kernel
@@ -107,6 +154,8 @@ def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
                                    npar, num_nodes)
     h, ne, nn = _check_args(e, sg, d_proj, x, mask, receivers, ep, npar,
                             num_nodes)
+    plan = _mega_fwd_plan(e.shape[0], num_nodes, h, ne, nn, e.dtype,
+                          *_build.device_limits(e.device))
     e_out, x_out = torch.empty_like(e), torch.empty_like(x)
     agg = torch.empty((num_nodes, h), dtype=e.dtype, device=e.device)
     tensors = [e, sg, d_proj, x, mask, receivers,
@@ -117,7 +166,8 @@ def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
     with torch.cuda.device(e.device):
         stream = torch.cuda.current_stream(e.device).cuda_stream
         err = fn(*[t.data_ptr() for t in tensors], e.shape[0], num_nodes, h,
-                 ne, nn, NB, ET, HF._DTYPE_CODE[e.dtype], stream)
+                 ne, nn, NB, ET, int(plan["resident"]),
+                 HF._DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_mgn_fwd", err)
     fused_mgn_layer.launches += 1
     return x_out, e_out, agg

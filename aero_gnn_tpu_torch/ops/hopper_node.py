@@ -12,10 +12,12 @@ launches ``csrc/fused_node_bwd.cu`` / runs ``fused_node_layer_bwd_ref``.
 ``fused_node_layer_autograd`` is the differentiable layer (forward K3,
 backward K4), saving the layer's inputs only, as ``_fnl_fwd`` does.
 
-K4 is a barrier-free row kernel plus a split-K weight-gradient kernel
-(``csrc/node_bwd_rows.cuh``, on K2's machinery in ``csrc/rows_bwd.cuh``);
-``node_bwd_plan`` lays out its launch and workspace and
-``_build.edge_bwd_operands`` its weights.
+K3 is a barrier-free row kernel (``csrc/node_fwd_rows.cuh``, on the
+machinery of ``csrc/rows_bwd.cuh``) that reads the weights as they lie;
+``node_fwd_plan`` plans its grid and shared memory. K4 is the same kind of
+row kernel plus a split-K weight-gradient kernel
+(``csrc/node_bwd_rows.cuh``); ``node_bwd_plan`` lays out its launch and
+workspace and ``_build.edge_bwd_operands`` its weights.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ KERNEL_WIDTHS = (64, 128)
 DW_SLAB = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I64, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 12 + [_I64, _I, _I, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 12 + [_I64, _I64, _I, _I, _I, _I, _I, _P]
 
 
@@ -118,6 +120,41 @@ def _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
     return n, h, n_hidden
 
 
+def node_fwd_plan(n_rows: int, h: int, n_hidden: int, dtype, sm_count: int,
+                  max_smem: int) -> dict:
+    """K3's launch plan (csrc/node_fwd_rows.cuh, which checks it against its
+    own reckoning): ``grid`` CTAs (one per SM, at most one per 128-row
+    chunk of ``n_chunks``); ``resident``: the n_hidden + 3 weights stay in
+    shared memory for the CTA's life (``smem_bytes`` of the ``max_smem`` a
+    CTA may have), else they stream through a ring of two slots; fp32 adds
+    the warps' A operand slices."""
+    return dict(_node_fwd_plan(n_rows, h, n_hidden, dtype, sm_count,
+                               max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _node_fwd_plan(n_rows, h, n_hidden, dtype, sm_count, max_smem):
+    if n_rows <= 0 or n_rows % ROW_CHUNK:
+        raise ValueError(f"K3 takes a positive multiple of {ROW_CHUNK} rows, "
+                         f"not {n_rows}")
+    if n_hidden < 0:
+        raise ValueError(f"K3 takes 0 or more hidden layers, not {n_hidden}")
+    isz = torch.finfo(dtype).bits // 8
+    n_chunks = n_rows // ROW_CHUNK
+    # csrc/chain.cuh Layout: [h][ld] weight tiles, rows padded by 16 bytes;
+    # rows_bwd.cuh fwd_rows_smem
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = ROW_CHUNK * ld * 4 if isz == 4 else 0
+    resident = (n_hidden + 3) * mat + fixed <= max_smem
+    smem = (n_hidden + 3 if resident else 2) * mat + fixed
+    if smem > max_smem:
+        raise ValueError(f"K3 at h={h} needs {smem} bytes of shared memory, "
+                         f"more than {max_smem}")
+    return {"grid": max(1, min(sm_count, n_chunks)), "n_chunks": n_chunks,
+            "resident": resident, "smem_bytes": smem}
+
+
 def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
                      ln_bias):
     """x + LN(MLP([x, agg])). CUDA tensors launch kernel K3; CPU tensors run
@@ -127,6 +164,8 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
                                     b_out, ln_scale, ln_bias)
     n, h, n_hidden = _check_args(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
                                  ln_scale, ln_bias)
+    plan = _node_fwd_plan(n, h, n_hidden, x.dtype,
+                          *_build.device_limits(x.device))
     out = torch.empty_like(x)
     fn = _build.c_function("fused_node_fwd", "aero_fused_node_fwd",
                            _ARGTYPES)
@@ -136,7 +175,8 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
                  w1a.data_ptr(), b1.data_ptr(), ws.data_ptr(), bs.data_ptr(),
                  w_out.data_ptr(), b_out.data_ptr(), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), out.data_ptr(), n, h, n_hidden,
-                 _DTYPE_CODE[x.dtype], stream)
+                 plan["grid"], int(plan["resident"]), _DTYPE_CODE[x.dtype],
+                 stream)
     _build.check_launch("aero_fused_node_fwd", err)
     fused_node_layer.launches += 1
     return out

@@ -17,15 +17,16 @@ backward: the same receivers without a mask; pad sink declared on all
 three) and on a stream without long runs (4 rows a node, random
 ``rows``),
 profiles K2's, K4's and K5's kernels (device ms per call by kernel name,
-both dtypes), times and profiles K1, its save variant and K10 (micro_wec2's
-shapes) in both dtypes (also the host's ms per call, without waiting
-for the card), and times 12 bf16 train steps and 10 bf16 forwards of the
-flagship MeshGraphNet on mesh 0 (host clock to a synchronize, both
-switches unset), with the card's name and power limit. It hashes K7's
-outputs, K2's activation gradients (d_e, d_sg), K4's (d_x, d_agg), K5's
-outputs on its streams, K1's (e', agg), its save variant's six outputs
-and K10's two, both dtypes, on seeded inputs, and the last line says,
-per output, whether every tree gave the same bits; the line before it
+both dtypes), times and profiles K1, its save variant, K10 (micro_wec2's
+shapes), K3, K9-fwd and K1 -> K3 launched in turn in both dtypes (also
+the host's ms per call, without waiting for the card), and times 12 bf16
+train steps and 10 bf16 forwards of the flagship MeshGraphNet on mesh 0
+(host clock to a synchronize, both switches unset), with the card's name
+and power limit. It hashes K7's outputs, K2's activation gradients (d_e,
+d_sg), K4's (d_x, d_agg), K5's outputs on its streams, K1's (e', agg),
+its save variant's six outputs, K10's two, K3's x' and K9-fwd's (x', e',
+agg), both dtypes, on seeded inputs, and the last line says, per output,
+whether every tree gave the same bits; the line before it
 holds K4's weight gradients of each tree to the first tree's with
 chip_smoke.py's GRAD_TOL rule (the gradients are saved under
 build/chip_ab/, which git ignores). One line per tree starts with "AB "
@@ -239,6 +240,46 @@ def k1_k10(torch, C, graph) -> tuple:
     return ms, dev_ms, hashes
 
 
+def k3_k9(torch, C, graph) -> tuple:
+    """K3, K9-fwd and K1 -> K3 launched in turn (the two kernels K9-fwd
+    fuses) at the flagship shapes, both dtypes: ms per call (CUDA events)
+    and the host's ms per call, device ms per call by kernel name, and
+    hashes of K3's x' and K9-fwd's (x', e', agg) on phase_kernels' seeded
+    inputs."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    ms, dev_ms, hashes = {}, {}, {}
+    for dtype_name in ("bfloat16", "float32"):
+        gen = torch.Generator(device=graph.device).manual_seed(1234)
+        dt = getattr(torch, dtype_name)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=graph.device)
+                    * scale).to(dt)
+
+        edge_args, _, node_args, _, _ = C.bwd_cases(torch, graph, dt, randn,
+                                                    C.HIDDEN, C.N_HIDDEN)
+        ma = C.mega_args(HM, edge_args, node_args)
+        hashes[f"k3_x[{dtype_name}]"] = digest(
+            torch, HN.fused_node_layer(*node_args))
+        for key, t in zip(("x", "e", "agg"), HM.fused_mgn_layer(*ma)):
+            hashes[f"k9fwd_{key}[{dtype_name}]"] = digest(torch, t)
+        for name, fn in (
+                ("fused_node_fwd", lambda: HN.fused_node_layer(*node_args)),
+                ("fused_mgn_fwd", lambda: HM.fused_mgn_layer(*ma)),
+                ("k1_then_k3", lambda: HN.fused_node_layer(
+                    ma[3], HF.fused_edge_layer(*edge_args)[1],
+                    *node_args[2:]))):
+            ms[f"{name}[{dtype_name}]"] = C.cuda_time_ms(torch, fn)
+            ms[f"{name}_host[{dtype_name}]"] = host_call_ms(torch, fn)
+            dev_ms[f"{name}[{dtype_name}]"] = kernels_ms(torch, fn)
+        del edge_args, node_args, ma
+    torch.cuda.empty_cache()
+    return ms, dev_ms, hashes
+
+
 def k5_streams(torch, C, sample, tight, dev) -> tuple:
     """K5 on the streams of its three call sites, both dtypes (seeded
     data): the sender backward's (the tight graph's sender stream,
@@ -349,6 +390,9 @@ def measure(tree: str, grads_path: str) -> dict:
     fwd_ms, out["k1_k10_kernels_ms"], fwd_hashes = k1_k10(torch, C, g)
     out["kernel_ms"].update(fwd_ms)
     hashes.update(fwd_hashes)
+    node_ms, out["k3_k9_kernels_ms"], node_hashes = k3_k9(torch, C, g)
+    out["kernel_ms"].update(node_ms)
+    hashes.update(node_hashes)
     out["k2_kernels_ms"], out["k4_kernels_ms"] = bwd_ms["k2"], bwd_ms["k4"]
     hashes.update(k5_hashes)
     hashes.update(bwd_hashes)

@@ -28,13 +28,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                calls of the same function: torch.sparse.mm of a 0/1 CSR
                matrix with its ``rows`` (the timed call), torch.segment_reduce
                on the pre-gathered rows beside K5 without them; K1's agg,
-               K2's / K4's outputs and K5's must be bit-equal across two
-               launches; nvcc's register, shared memory and spill report
-               for K1, K2, K4 and K5, and K1's and K4's plans (grid,
-               weights resident or in the ring, shared memory). K5 also at the widths its
-               lane groups take (1, 34, 640) on the sender stream, K4 also
-               at 10 hidden layers (ReLU masks read back past the ones
-               kept in registers), and K5 on the Loader graph's receiver
+               K3's x', K2's / K4's outputs and K5's must be bit-equal
+               across two launches; nvcc's register, shared memory and
+               spill report for K1, K2, K3, K4 and K5, and K1's, K3's and
+               K4's plans (grid, weights resident or in the ring, shared
+               memory). K5 also at the widths its
+               lane groups take (1, 34, 640) on the sender stream, K3 and
+               K4 also at 10 hidden layers (K3's bf16 weights in its ring;
+               K4's ReLU masks read back past the ones kept in registers),
+               and K5 on the Loader graph's receiver
                stream (pad sink declared) in its other two uses, the
                unfused aggregation's (edge mask) and K6's backward (no
                mask): against the plain version, across launches, timed
@@ -68,8 +70,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                saved against K2, K9-fwd against K1 -> K3 and K9-bwd against
                K4 -> K2 on the same inputs (max abs differences recorded),
                and the Loader / tight time of K2, K8, K9-fwd and K9-bwd,
-               at most 1.3; K9-fwd's x', e' (real rows) and agg must be
-               bit-equal to K1 -> K3's, K8's d_e, d_sg, d_dproj to K2's;
+               at most 1.3, K9-fwd timed beside K1 -> K3 launched in turn;
+               K9-fwd's x', e' (real rows) and agg must be
+               bit-equal to K1 -> K3's (also with 0 and 10 hidden layers in
+               both chains) and to its own across 5 launches, K8's d_e,
+               d_sg, d_dproj to K2's; K9-fwd's plan and nvcc's report;
   4d. weighted2 — K10, the WEC pair probe of benchmarks/micro_wec2.py, at
                its shapes (the tight 65,536-node graph, h = 128, bf16
                messages, fp32 weights zero on pad edges): its timed run of
@@ -122,7 +127,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                K1, K2 0 times; one bf16 step profiled;
   11. mega   — with AERO_GNN_MEGA=1 the flagship MGN served (3 requests
                per dtype, K9-fwd 15 launches per forward, K1 and K3 0; fp32
-               request 0 against the plain path) and trained on mesh 0
+               request 0 against the plain path; one warm forward per
+               dtype profiled) and trained on mesh 0
                (fp32 first-step gradients against the plain path, 3 bf16
                steps and 1 fp32 step, each launching K9-fwd, K9-bwd and K5
                15 times and K1-K4 0); one bf16 step profiled.
@@ -720,6 +726,9 @@ def phase_kernels(torch, graph):
         xp = HN.fused_node_layer_ref(*node_args)
         torch.cuda.synchronize()
         err_x = check_close(torch, f"K3 {dtype_name} x'", xk, xp, dtype_name)
+        if not torch.equal(xk, HN.fused_node_layer(*node_args)):
+            raise AssertionError(f"K3 {dtype_name}: x' differs between two "
+                                 "launches on the same inputs")
         del ek, ak, ak2, ep, ap, xk, xp
         e2, e4, e5 = check_backward_kernels(torch, dtype_name, dtype_name,
                                             graph, edge_bwd, node_bwd, seg)
@@ -831,8 +840,18 @@ def phase_kernels(torch, graph):
                     f"{plan['grid']}, weights "
                     f"{'resident' if plan['resident'] else 'in the ring'}, "
                     f"dynamic shared memory {plan['smem_bytes']} B")
-            if name in ("fused_edge_fwd", "fused_edge_bwd", "fused_node_bwd",
-                        "segment_sum"):
+            if name == "fused_node_fwd":
+                props = torch.cuda.get_device_properties(dev)
+                plan = HN.node_fwd_plan(
+                    N, h, nh, dt, props.multi_processor_count,
+                    props.shared_memory_per_block_optin)
+                results[-1]["plan"] = plan
+                log(f"[kernels] fused_node_fwd {dtype_name} plan: grid "
+                    f"{plan['grid']} over {plan['n_chunks']} chunks, weights "
+                    f"{'resident' if plan['resident'] else 'in the ring'}, "
+                    f"dynamic shared memory {plan['smem_bytes']} B")
+            if name in ("fused_edge_fwd", "fused_node_fwd", "fused_edge_bwd",
+                        "fused_node_bwd", "segment_sum"):
                 for line in ptxas_lines(name):
                     log(f"[kernels] {name} ptxas: {line}")
             lib_txt = ("" if library_ms is None
@@ -845,6 +864,7 @@ def phase_kernels(torch, graph):
         del k5_csr
         torch.cuda.empty_cache()
         check_k5_widths(torch, graph, dtype_name)
+        check_deep_node_fwd(torch, dev, dtype_name)
         check_deep_node_bwd(torch, dev, dtype_name)
     return results
 
@@ -878,6 +898,37 @@ def check_k5_widths(torch, graph, dtype_name):
     log(f"[kernels] segment_sum {dtype_name} at h = 1, 34, 640 (lane "
         f"groups): max abs err " + ", ".join(f"{e:.3e}" for e in errs)
         + "; bit-equal across launches")
+
+
+def check_deep_node_fwd(torch, dev, dtype_name, n_rows=2048, nh=10):
+    """K3 on a stack deeper than its bf16 weights fit resident (they stream
+    through its ring), against its plain version (TOL) and across two
+    launches."""
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    dt, h = getattr(torch, dtype_name), HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    w = 1.0 / h ** 0.5
+    args = (randn(n_rows, h), randn(n_rows, h, scale=3.0),
+            randn(h, h, scale=w), randn(h, h, scale=w), randn(h, scale=0.1),
+            randn(nh, h, h, scale=w), randn(nh, h, scale=0.1),
+            randn(h, h, scale=w), randn(h, scale=0.1),
+            1 + randn(h, scale=0.1), randn(h, scale=0.1))
+    k3 = HN.fused_node_layer(*args)
+    p3 = HN.fused_node_layer_ref(*args)
+    torch.cuda.synchronize()
+    err = check_close(torch, f"K3 {dtype_name} n_hidden={nh}", k3, p3,
+                      dtype_name)
+    if not torch.equal(k3, HN.fused_node_layer(*args)):
+        raise AssertionError(f"K3 {dtype_name} n_hidden={nh}: x' differs "
+                             "between two launches on the same inputs")
+    log(f"[kernels] fused_node_fwd {dtype_name} at n_hidden={nh}, {n_rows} "
+        f"rows: max abs err {err:.3e}; bit-equal across launches")
 
 
 def check_deep_node_bwd(torch, dev, dtype_name, n_rows=2048, nh=10):
@@ -1957,6 +2008,14 @@ def phase_switched_kernels(torch, sample, tight):
                                      "from K2's")
             if name == "loader" and not (a9[n_pad - 1] == 0).all():
                 raise AssertionError(f"K9-fwd {tag}: the sink's agg is not 0")
+            # a missed ordering of e' before the block's sums would show as
+            # bits that change from launch to launch
+            for _ in range(5):
+                if not same_bits(torch, HM.fused_mgn_layer(*ma),
+                                 (x9, e9, a9)):
+                    raise AssertionError(f"K9-fwd {tag}: outputs differ "
+                                         "between launches on the same "
+                                         "inputs")
             r = {"K8_vs_K2": check_bwd(torch, f"K8 vs K2 {tag}", k8, k2,
                                        dtype_name, 3),
                  "K9fwd_vs_K1K3": max(
@@ -1982,19 +2041,37 @@ def phase_switched_kernels(torch, sample, tight):
                 "K8": cuda_time_ms(torch,
                                    lambda: HF.fused_edge_layer_bwd_saved(*a8)),
                 "K9fwd": cuda_time_ms(torch, lambda: HM.fused_mgn_layer(*ma)),
+                "K1K3": cuda_time_ms(torch, lambda: HN.fused_node_layer(
+                    x, HF.fused_edge_layer(*edge_args)[1], *node_args[2:])),
                 "K9bwd": cuda_time_ms(
                     torch, lambda: HM.fused_mgn_layer_bwd(*b9_args))}
+            r["K9fwd_vs_K1K3_depths"] = {
+                nd: check_mega_depth(torch, g, tag, dtype_name, nd)
+                for nd in (0, 10)}
+            if name == "tight":
+                props = torch.cuda.get_device_properties(dev)
+                plan = HM.mega_fwd_plan(
+                    g.num_edges_pad, n_pad, h, nh, nh, dt,
+                    props.multi_processor_count,
+                    props.shared_memory_per_block_optin)
+                r["K9fwd_plan"] = plan
+                log(f"[switched] fused_mgn_fwd {dtype_name} plan: grid "
+                    f"{plan['grid']} ({plan['waves']} waves), weights "
+                    f"{'resident' if plan['resident'] else 'in the ring'}, "
+                    f"dynamic shared memory {plan['smem_bytes']} B")
             rec[name][dtype_name] = r
             log(f"[switched] {tag}: E={g.num_edges_pad}, N={n_pad}; K2 "
                 f"{r['ms']['K2']:.3f} ms, K8 "
-                f"{r['ms']['K8']:.3f} ms, K9-fwd {r['ms']['K9fwd']:.3f} ms, "
+                f"{r['ms']['K8']:.3f} ms, K9-fwd {r['ms']['K9fwd']:.3f} ms "
+                f"(K1 -> K3 in turn {r['ms']['K1K3']:.3f} ms), "
                 f"K9-bwd {r['ms']['K9bwd']:.3f} ms; max abs diff K8 vs K2 "
                 f"{r['K8_vs_K2'][0]:.3e} (weight grads "
                 f"{r['K8_vs_K2'][1]:.3e} of max|p|), K9-fwd vs K1 -> K3 "
                 f"{r['K9fwd_vs_K1K3']:.3e}, K9-bwd vs K4 -> K2 "
                 f"{r['K9bwd_vs_K4K2'][0]:.3e} ({r['K9bwd_vs_K4K2'][1]:.3e}); "
                 f"the save variant's e', agg bit-equal to K1's, K9-fwd's to "
-                f"K1 -> K3's, K8's activation gradients to K2's")
+                f"K1 -> K3's (also at 0 and 10 hidden layers) and across 5 "
+                f"launches, K8's activation gradients to K2's")
             del edge_args, edge_bwd, node_args, ma, sv, a8, x9, e9, a9, b9
             del b9_args
             torch.cuda.empty_cache()
@@ -2007,7 +2084,41 @@ def phase_switched_kernels(torch, sample, tight):
     over = {k: v for k, v in ratios.items() if v > 1.3}
     if over:
         raise AssertionError(f"Loader / tight time above 1.3: {over}")
+    for line in ptxas_lines("fused_mgn_fwd"):
+        log(f"[switched] fused_mgn_fwd ptxas: {line}")
     return results, rec
+
+
+def check_mega_depth(torch, g, tag, dtype_name, nh):
+    """K9-fwd with ``nh`` hidden layers in both chains on graph ``g``: x',
+    e' (real rows) and agg bit-equal to K1 -> K3's on the same inputs (K1
+    and K3 are held to their plain versions at 10 hidden layers in phases
+    4 and 4b). Returns True."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    dt, dev = getattr(torch, dtype_name), g.device
+    gen = torch.Generator(device=dev).manual_seed(4000 + nh)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    edge_args, _, node_args, _, _ = bwd_cases(torch, g, dt, randn, HIDDEN,
+                                              nh)
+    ma = mega_args(HM, edge_args, node_args)
+    real = g.edge_mask > 0
+    x9, e9, a9 = HM.fused_mgn_layer(*ma)
+    e1, a1 = HF.fused_edge_layer(*edge_args)
+    x3 = HN.fused_node_layer(ma[3], a1, *node_args[2:])
+    torch.cuda.synchronize()
+    if not torch.isfinite(x9).all():
+        raise AssertionError(f"K9-fwd {tag} n_hidden={nh}: non-finite x'")
+    if not same_bits(torch, (x9, e9[real], a9), (x3, e1[real], a1)):
+        raise AssertionError(f"K9-fwd {tag} n_hidden={nh}: x' / e' / agg "
+                             "differ from K1 -> K3's")
+    return True
 
 
 def switched_against_plain(torch, tag, dtype_name, g, edge_args, node_args,
@@ -2212,6 +2323,9 @@ def phase_mega(torch, graphs):
                     f"forward (median of 2)")
             launches["serve"][dtype] = read_counters()
             record["serve"][dtype] = {"ms": ms_list, "n_forwards": n_fwd}
+            record["serve"][f"profile_{dtype}"] = phase_profile(
+                torch, f"mega {dtype} forward",
+                lambda: eng.predict(graphs[0][1]))
             if dtype == "float32":
                 with ops.use_backend("torch"):
                     before = read_counters()

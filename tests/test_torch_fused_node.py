@@ -15,7 +15,7 @@ RTOL, ATOL = 2e-4, 2e-5  # fp32 CPU bar (tests/test_reference_parity.py)
 H = 32
 
 
-@pytest.mark.parametrize("n_hidden", [0, 2])
+@pytest.mark.parametrize("n_hidden", [0, 2, 9])
 def test_fused_node_plain_matches_jax(n_hidden):
     rng = np.random.default_rng(11 + n_hidden)
 

@@ -53,8 +53,9 @@ def graphs():
             TP.build_graph_batch(**g, align_edges=True, device="cpu"))
 
 
-def _data(gb, seed):
-    """The inputs of tests/test_pallas.py TestFusedMGNLayer._data, as numpy."""
+def _data(gb, seed, nh=2):
+    """The inputs of tests/test_pallas.py TestFusedMGNLayer._data, as numpy
+    (nh hidden layers in each chain)."""
     rng = np.random.default_rng(seed)
 
     def f(*s):
@@ -62,11 +63,11 @@ def _data(gb, seed):
 
     E, N = gb.num_edges_pad, gb.num_nodes_pad
     e, sg, d_proj, x = f(E, H) * 10, f(E, H) * 10, f(N, H) * 10, f(N, H) * 10
-    ep = dict(w_e=f(H, H), ws=f(2, H, H), bs=f(2, H), w_out=f(H, H),
+    ep = dict(w_e=f(H, H), ws=f(nh, H, H), bs=f(nh, H), w_out=f(H, H),
               b_out=f(H), ln_scale=np.ones(H, np.float32),
               ln_bias=np.zeros(H, np.float32))
-    npar = dict(w1x=f(H, H), w1a=f(H, H), b1=f(H), ws=f(2, H, H),
-                bs=f(2, H), w_out=f(H, H), b_out=f(H),
+    npar = dict(w1x=f(H, H), w1a=f(H, H), b1=f(H), ws=f(nh, H, H),
+                bs=f(nh, H), w_out=f(H, H), b_out=f(H),
                 ln_scale=np.ones(H, np.float32),
                 ln_bias=np.zeros(H, np.float32))
     return e, sg, d_proj, x, ep, npar
@@ -100,6 +101,33 @@ def test_mega_forward_matches_jax(graphs):
         *map(_torch, (e, sg, d_proj)), tb.edge_mask, tb.receivers,
         *[_torch(ep[k]) for k in HM.EDGE_KEYS], N)
     assert torch.equal(e2, e_k1) and torch.equal(agg, agg_k1)
+
+
+def test_mega_forward_deep_matches_jax(graphs):
+    """A deep stack (9 hidden layers in each chain): K9's plain version
+    against pallas_mega's kernel in interpret mode, and bit-equal to the
+    edge layer's plain version followed by the node layer's."""
+    jb, tb = graphs
+    e, sg, d_proj, x, ep, npar = _data(jb, seed=37, nh=9)
+    N = jb.num_nodes_pad
+    with pltpu.force_tpu_interpret_mode():
+        x_ref, e_ref = PM.fused_mgn_layer(*map(jnp.asarray, (e, sg, d_proj,
+                                                             x)),
+                                          jb.edge_mask, jb.receivers,
+                                          ep, npar, N)
+    HM.fused_mgn_layer.launches = 0
+    x2, e2, agg = HM.fused_mgn_layer(*map(_torch, (e, sg, d_proj, x)),
+                                     tb.edge_mask, tb.receivers,
+                                     _torch(ep), _torch(npar), N)
+    assert HM.fused_mgn_layer.launches == 0  # CPU tensors: plain version
+    real = tb.edge_mask.numpy() > 0
+    np.testing.assert_allclose(x2.numpy(), np.asarray(x_ref), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(e2.numpy()[real], np.asarray(e_ref)[real],
+                               rtol=TOL, atol=TOL)
+    x3 = HN.fused_node_layer(_torch(x), agg,
+                             *[_torch(npar[k]) for k in HM.NODE_KEYS])
+    assert torch.equal(x2, x3)
 
 
 def test_mega_grads_match_jax(graphs):
