@@ -30,7 +30,7 @@
 //     overlapping the current product (one CTA barrier a product). The
 //     weights are read as they lie in device memory ([in][out]): the bf16
 //     product reads its B tile with ldmatrix.trans. The CTAs walk the
-//     chunks round robin; a chunk of a pad tile (chain.cuh first_pad_tile:
+//     chunks round robin; a chunk of a pad tile (chain.cuh "Pad tiles":
 //     all its rows are masked) gets e' = e, a zero update, copied across
 //     the CTA, so no pad tile falls to one CTA alone. It writes e' and, in
 //     the save variant (kSave), zs, d, mu and inv (not on the rows of pad

@@ -3,9 +3,9 @@
 // Replaces: aero_gnn_tpu/ops/pallas_fused.py _fel_bwd -> _fused_bwd
 // (pallas_call of _make_bwd_kernel / _make_bwd_kernel_split). The VJP of
 // K1 (fused_edge_fwd.cu) for the cotangents (ct_e of e', ct_agg of agg),
-// recomputing K1's chain per row; the rounding points are those of
-// edge_bwd.cuh (which K8 and K9-bwd still run), the schedule is
-// edge_bwd_rows.cuh's.
+// recomputing K1's chain per row. The math, its rounding points and the
+// schedule are edge_bwd_rows.cuh's, whose chunk body K8 (without the
+// recompute) and K9-bwd run too.
 //
 // Bound on the H100 (flagship E = 264,192, N = 66,048, h = 128, 2 hidden):
 // 3 x 4 products of 2*E*h^2 = 104 GFLOP per launch; bytes: read e, sg,
@@ -80,17 +80,17 @@ extern "C" int aero_fused_edge_bwd(
                ct_e, ct_agg, d_e, d_sg, d_dproj, n_edges, n_nodes,        \
                n_hidden, edge_tile)
   if (dtype == 0 && h == 128)
-    return int(chain::launch_rows_bwd<float, 128>(
-        AERO_K2_ARGS(float), out, workspace, ws_bytes, grid, s));
+    return int(chain::launch_rows_bwd<float, 128, false>(
+        AERO_K2_ARGS(float), out, workspace, ws_bytes, grid, 0, s));
   if (dtype == 0 && h == 64)
-    return int(chain::launch_rows_bwd<float, 64>(
-        AERO_K2_ARGS(float), out, workspace, ws_bytes, grid, s));
+    return int(chain::launch_rows_bwd<float, 64, false>(
+        AERO_K2_ARGS(float), out, workspace, ws_bytes, grid, 0, s));
   if (dtype == 1 && h == 128)
-    return int(chain::launch_rows_bwd<__nv_bfloat16, 128>(
-        AERO_K2_ARGS(__nv_bfloat16), out, workspace, ws_bytes, grid, s));
+    return int(chain::launch_rows_bwd<__nv_bfloat16, 128, false>(
+        AERO_K2_ARGS(__nv_bfloat16), out, workspace, ws_bytes, grid, 0, s));
   if (dtype == 1 && h == 64)
-    return int(chain::launch_rows_bwd<__nv_bfloat16, 64>(
-        AERO_K2_ARGS(__nv_bfloat16), out, workspace, ws_bytes, grid, s));
+    return int(chain::launch_rows_bwd<__nv_bfloat16, 64, false>(
+        AERO_K2_ARGS(__nv_bfloat16), out, workspace, ws_bytes, grid, 0, s));
 #undef AERO_K2_ARGS
   return int(cudaErrorInvalidValue);
 }

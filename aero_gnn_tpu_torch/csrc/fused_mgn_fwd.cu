@@ -19,24 +19,20 @@
 //  1. runs K1's chunk body (edge_fwd_rows.cuh edge_rows_chunk) over the
 //     128-row chunks of the block's live tiles (those whose first row is
 //     real; chain.cuh "Pad tiles"), writing e', while the block's first
-//     and last live row of each node are noted in shared memory (integer
-//     atomics: they decide bounds, never the order of a sum);
+//     and last live row of each node are noted in shared memory
+//     (mega_block.cuh node_bounds);
 //  2. after one CTA barrier sums agg for the block's nodes from the e' rows
-//     it just wrote (4 lanes a node, 4 values a lane and vector, rows read
-//     a few at a time): the fp32 sum of mask * e' over each node's rows in
-//     stream order (segment_rows.cuh madd), the rows of mask 0 passed over,
-//     rounded once, the pad sink (the last node) 0 -- the sum K1's agg
-//     pass (K5's ring) takes, so the same bits;
+//     it just wrote (mega_block.cuh block_sum): the fp32 sum of mask * e'
+//     over each node's rows in stream order, rounded once, the pad sink 0
+//     -- the sum K1's agg pass (K5's ring) takes, so the same bits;
 //  3. after another runs K3's chunk body (node_fwd_rows.cuh
 //     node_rows_chunk) over the block's rows, reading agg back in the
 //     compute type as K3 reads it.
 //
-// Each warp then copies e' = e for its share of the pad tiles' chunks, so
-// the pad-sink tail the Loader leaves in the last block is no CTA's alone
-// and needs no launch of its own. Every node row of the block gets x',
-// nodes without an edge and the pad sink included. The block's tile range
-// is counted over all tiles by one warp (independent loads), not found by
-// binary search (dependent ones) while the CTA waits.
+// Each warp then copies e' = e for its share of the pad tiles' chunks
+// (mega_block.cuh pad_chunks). Every node row of the block gets x', nodes
+// without an edge and the pad sink included. The block's tile range is
+// counted over all tiles by one warp (mega_block.cuh block_tiles).
 //
 // Why one CTA a block and not the edge chunks round robin with the node
 // update run by the CTA whose chunk completes a block: the flagship's 258
@@ -59,6 +55,7 @@
 // bf16: 0.08 ms); fp32: FFMA bounds it (0.68 ms). mma.sync, no wgmma/TMA.
 
 #include "edge_fwd_rows.cuh"
+#include "mega_block.cuh"
 #include "node_fwd_rows.cuh"
 
 namespace {
@@ -81,66 +78,13 @@ __host__ __device__ constexpr size_t mega_fixed_smem(int node_block) {
          (2 * size_t(node_block) + 4) * sizeof(int);
 }
 
-// agg of the block's nodes (module comment, 2): 4 lanes a node, lane `sub`
-// owning the 4-value vectors sub, sub + 4, ... of a row.
-template <typename T, int H>
-__device__ void block_agg(const MegaArgs<T>& a, int node_lo,
-                          const int* s_lo, const int* s_hi) {
-  using P = segrows::Pack<T, 4>;
-  using U = typename P::U;
-  constexpr int kG = 4;                       // lanes a node
-  constexpr int NV = H / 4 / kG;              // vectors a lane and row
-  constexpr int kB = sizeof(T) == 2 ? 4 : 2;  // rows in flight
-  const int sub = threadIdx.x % kG;
-  for (int i = threadIdx.x / kG; i < a.node_block; i += kThreads / kG) {
-    const int node = node_lo + i;
-    float sum[NV][4];
-#pragma unroll
-    for (int q = 0; q < NV; ++q)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sum[q][c] = 0.f;
-    if (node != a.n_nodes - 1) {
-      const int hi = s_hi[i];
-      for (int r = s_lo[i]; r < hi; r += kB) {
-        U v[kB][NV];
-        float m[kB];
-#pragma unroll
-        for (int k = 0; k < kB; ++k) {
-          const int rr = min(r + k, hi - 1);
-          m[k] = r + k < hi ? segrows::to_f(a.e.mask[rr]) : 0.f;
-          const U* row =
-              reinterpret_cast<const U*>(a.e.e_out + int64_t(rr) * H);
-#pragma unroll
-          for (int q = 0; q < NV; ++q) v[k][q] = row[sub + kG * q];
-        }
-#pragma unroll
-        for (int k = 0; k < kB; ++k) {
-          if (m[k] == 0.f) continue;
-#pragma unroll
-          for (int q = 0; q < NV; ++q) {
-            float f[4];
-            P::unpack(v[k][q], f);
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              sum[q][c] = segrows::madd(sum[q][c], f[c], m[k]);
-          }
-        }
-      }
-    }
-    U* out = reinterpret_cast<U*>(a.agg + int64_t(node) * H);
-#pragma unroll
-    for (int q = 0; q < NV; ++q) out[sub + kG * q] = P::pack(sum[q]);
-  }
-}
-
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mgn_fwd_kernel(MegaArgs<T> a) {
-  using N = Num<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = Layout<T, H>::kLd;
   constexpr size_t kMat = WeightStream<T, H>::kMat;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x, ET = a.e.edge_tile;
   const int ne = a.e.n_hidden + 2, nn = a.n.n_hidden + 3;
   const FwdChain<T, H> ec = edge_chain<T, H>(a.e);
@@ -160,43 +104,14 @@ fused_mgn_fwd_kernel(MegaArgs<T> a) {
       copy_mat_async<T, H>(w + m * kMat, ec.src(m));
     cp_async_commit();
   }
-  if (warp == 0) {
-    // the block's live tiles [lo, lo + live): tiles are in block order (a
-    // tile's block is its first receiver's), and a block's live tiles come
-    // before its pad tiles
-    int below = 0, live = 0;
-#pragma unroll 4
-    for (int t = lane; t < a.n_tiles; t += 32) {
-      const int blk = a.e.recv[int64_t(t) * ET] / a.node_block;
-      const float m = N::load1(a.e.mask + int64_t(t) * ET);
-      below += blk < b;
-      live += blk == b && m != 0.f;
-    }
-    below = __reduce_add_sync(0xffffffffu, below);
-    live = __reduce_add_sync(0xffffffffu, live);
-    if (lane == 0) {
-      range_s[0] = below;
-      range_s[1] = below + live;
-    }
-  }
-  for (int i = tid; i < a.node_block; i += kThreads) {
-    s_lo[i] = 0x7fffffff;
-    s_hi[i] = 0;
-  }
-  __syncthreads();
+  block_tiles(a.e.recv, a.e.mask, a.n_tiles, ET, a.node_block, b, s_lo, s_hi,
+              range_s);
   const int64_t row_lo = int64_t(range_s[0]) * ET;
   const int64_t row_hi = int64_t(range_s[1]) * ET;
   const int n_ec = int((row_hi - row_lo) / kRows);
   if (!a.resident) ring.prime(n_ec > 0 ? ec.src(0) : nc.src(0));
-  // each node's first and last live row
-  for (int64_t r = row_lo + tid; r < row_hi; r += kThreads) {
-    if (N::load1(a.e.mask + r) == 0.f) continue;
-    const int i = a.e.recv[r] - node_lo;
-    if (i >= 0 && i < a.node_block) {
-      atomicMin(s_lo + i, int(r));
-      atomicMax(s_hi + i, int(r) + 1);
-    }
-  }
+  node_bounds(a.e.recv, a.e.mask, row_lo, row_hi, node_lo, a.node_block,
+              s_lo, s_hi);
   if (a.resident) {
     cp_async_wait<0>();
     __syncthreads();  // the edge weights are visible
@@ -220,7 +135,8 @@ fused_mgn_fwd_kernel(MegaArgs<T> a) {
       copy_mat_async<T, H>(w + m * kMat, nc.src(m));
     cp_async_commit();
   }
-  block_agg<T, H>(a, node_lo, s_lo, s_hi);
+  block_sum<T, H>(a.e.e_out, a.e.mask, a.n_nodes, a.node_block, node_lo,
+                  s_lo, s_hi, a.agg);
   if (a.resident) cp_async_wait<0>();
   __syncthreads();  // the block's agg rows; the node weights
   const int nk = a.node_block / kRows;
@@ -237,24 +153,9 @@ fused_mgn_fwd_kernel(MegaArgs<T> a) {
   }
   ring.finish();
 
-  // this warp's share of the pad tiles' chunks: e' = e, a zero update, 16
-  // bytes a lane and copy
-  constexpr int kVecs = kRows * H * int(sizeof(T)) / 16;
-  const int n_chunks = int(a.e.n_edges / kRows);
-  for (int c = b * kWarps + warp; c < n_chunks; c += gridDim.x * kWarps) {
-    const int64_t r0 = int64_t(c) * kRows;
-    if (N::load1(a.e.mask + r0 / ET * ET) != 0.f) continue;
-    const uint4* src = reinterpret_cast<const uint4*>(a.e.e + r0 * H);
-    uint4* dst = reinterpret_cast<uint4*>(a.e.e_out + r0 * H);
-#pragma unroll
-    for (int k0 = 0; k0 < kVecs / 32; k0 += 8) {
-      uint4 v[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = src[(k0 + k) * 32 + lane];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dst[(k0 + k) * 32 + lane] = v[k];
-    }
-  }
+  // this warp's share of the pad tiles' chunks: e' = e, a zero update
+  pad_chunks<T, H>(a.e.mask, int(a.e.n_edges / kRows), ET, a.e.e,
+                   a.e.e_out, nullptr);
 }
 
 // The launch on `stream`. The residency flag is the plan's, checked

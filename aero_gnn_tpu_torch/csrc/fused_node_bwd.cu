@@ -2,9 +2,8 @@
 //
 // Replaces: aero_gnn_tpu/ops/pallas_node.py _fnl_bwd (pallas_call of
 // _make_bwd_kernel). The VJP of K3 (fused_node_fwd.cu) for the cotangent ct
-// of x' = x + LayerNorm(MLP([x, agg])); the rounding points are those of
-// node_bwd.cuh (which the node half of K9-bwd still runs), the schedule is
-// node_bwd_rows.cuh's.
+// of x' = x + LayerNorm(MLP([x, agg])). The math, its rounding points and
+// the schedule are node_bwd_rows.cuh's, whose chunk body K9-bwd runs too.
 //
 // Bound on the H100 (flagship N = 66,048, h = 128, 2 hidden): 3 x 5
 // products of 2*N*h^2 = 32 GFLOP per launch; bytes: read x, agg, ct, write

@@ -1,7 +1,8 @@
 // Kernel K4 of the port: the fused node block's backward, as two kernels
-// and a reduction that fused_node_bwd.cu launches in turn. The math, with
-// every rounding point, is node_bwd.cuh's (which the node half of K9-bwd
-// still runs): per node row the chain recomputed,
+// and a reduction that fused_node_bwd.cu launches in turn. Per node row,
+// the VJP of K3 (node_fwd_rows.cuh) for the cotangent ct of x' = x +
+// LayerNorm(MLP([x, agg])), with every rounding point of the plain version
+// (ops/hopper_node.py): the chain recomputed,
 //
 //   a0 = relu(x @ W1x + agg @ W1a + b1)   (the two products in one fp32
 //                                          accumulator before the single
@@ -11,10 +12,11 @@
 //
 // the LayerNorm backward with the statistics of d in fp32, the cotangent
 // run back through the stack, d_x = ct + dz0 @ W1x^T (the residual) and
-// d_agg = dz0 @ W1a^T.
+// d_agg = dz0 @ W1a^T (pallas_node.py:226-265).
 //
 //  1. node_rows_kernel: each warp owns 16 rows of a 128-row chunk and runs
-//     that whole chain for them with no CTA barrier (rows_bwd.cuh: in bf16
+//     that whole chain for them with no CTA barrier (node_bwd_chunk, which
+//     K9-bwd runs on its node blocks; rows_bwd.cuh: in bf16
 //     the activation between two products stays in registers and the ReLU
 //     masks are bits, those past kMaxHidden + 1 read back from the a(i)
 //     it stored; fp32 stages the A operand per warp). Its products
@@ -55,14 +57,116 @@ struct NodeRowsArgs {
   int n_hidden, n_chunks;
 };
 
+// Rows [r0, r0 + kRows) (module comment, 1): d_x, d_agg and the workspace
+// rows. get(p) gives product p's weight tile (mat_of's numbering); stg is
+// the warp's [16][LD] fp32 A operand slice, warp_part the CTA's
+// [2][kWarps][H] LayerNorm column sums of one chunk (ln_backward);
+// add_sums(c) takes the warp's dscale / dbias sums at warp_part[c] and
+// warp_part[kWarps * H + c], c = warp * H + column (the lanes of g == 0
+// call it). Every thread of the CTA calls it; the warps share nothing but
+// what get() does. nh (n_hidden), warp, g, t (the lane's row pair and
+// column pair) and NH (n_rows * H) come from the caller, computed once
+// for its kernel, as in edge_bwd_chunk.
+template <typename T, int H, typename Get, typename Sums>
+__device__ __forceinline__ void node_bwd_chunk(const NodeRowsArgs<T>& a,
+                                               Get&& get, T* stg,
+                                               float* warp_part,
+                                               Sums&& add_sums, int64_t r0,
+                                               int nh, int warp, int g, int t,
+                                               int64_t NH) {
+  using N = Num<T>;
+  const int n_mats = nh + 3;
+  RowOperand<T, H> op;
+  float acc[H / 8][4];
+  uint64_t bits[kMaxHidden + 1];
+  const int64_t ra = r0 + warp * 16 + g, rb = ra + 8;
+  auto store_rows_of = [&](T* base) {
+    store_acc<T, H>(acc, base + ra * H, base + rb * H);
+  };
+
+  // ---- forward recompute, as K3: x @ W1x + agg @ W1a in one sum ----
+  zero<H>(acc);
+  op.from_rows(a.x + ra * H, a.x + rb * H, stg);
+  op.template mm<false>(get(0), acc, stg);
+  op.from_rows(a.agg + ra * H, a.agg + rb * H, stg);
+  op.template mm<false>(get(1), acc, stg);
+  bias_relu<T, H>(acc, a.b1);
+  for (int i = 0; i <= nh; ++i) {
+    // acc holds a(i): keep it for the weight gradients and its mask
+    store_rows_of(a.acts + i * NH);
+    if (i <= kMaxHidden) bits[i] = relu_bits<H>(acc);
+    op.from_acc(acc, stg);
+    zero<H>(acc);
+    op.template mm<false>(get(2 + i), acc, stg);
+    if (i < nh) bias_relu<T, H>(acc, a.bs + size_t(i) * H);
+  }
+  bias_round<T, H>(acc, a.b_out);  // d, the pre-LayerNorm output
+
+  // ---- LayerNorm backward ----
+  {
+    float ct[H / 8][4];
+    load_acc<T, H>(ct, a.ct + ra * H, a.ct + rb * H);
+    ln_backward<T, H>(acc, ct, a.ln_scale, warp_part);
+  }
+  if (g == 0) {  // this lane's columns of the warp's dscale / dbias sums
+#pragma unroll
+    for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) add_sums(warp * H + 8 * j + 2 * t + q);
+  }
+
+  // a(i)'s ReLU mask: the bits kept, or deeper in the stack the a(i)
+  // this thread stored, the same bits (a(i) is rounded to T before the
+  // ReLU, so the store is exact)
+  auto mask_of = [&](int i) {
+    return i <= kMaxHidden
+               ? bits[i]
+               : stored_relu_bits<T, H>(a.acts + i * NH + ra * H,
+                                        a.acts + i * NH + rb * H);
+  };
+
+  // ---- acc = d_d: output linear and hidden stack, in reverse ----
+  store_rows_of(a.cots + (nh + 1) * NH);
+  op.from_acc(acc, stg);
+  zero<H>(acc);
+  op.template mm<true>(get(n_mats), acc, stg);
+  relu_grad<T, H>(acc, mask_of(nh));
+  for (int i = nh - 1; i >= 0; --i) {
+    store_rows_of(a.cots + (i + 1) * NH);  // dz(i + 1)
+    op.from_acc(acc, stg);
+    zero<H>(acc);
+    op.template mm<true>(get(2 * n_mats - 3 - i), acc, stg);
+    relu_grad<T, H>(acc, mask_of(i));
+  }
+
+  // ---- acc = dz0: d_agg = dz0 @ W1a^T, d_x = ct + dz0 @ W1x^T ----
+  store_rows_of(a.cots);
+  op.from_acc(acc, stg);
+  zero<H>(acc);
+  op.template mm<true>(get(2 * n_mats - 2), acc, stg);
+  store_rows_of(a.d_agg);
+  zero<H>(acc);
+  op.template mm<true>(get(2 * n_mats - 1), acc, stg);
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 ca = N::load2(a.ct + ra * H + col);
+    const float2 cb = N::load2(a.ct + rb * H + col);
+    N::store2(a.d_x + ra * H + col, N::rnd(ca.x + N::rnd(acc[j][0])),
+              N::rnd(ca.y + N::rnd(acc[j][1])));
+    N::store2(a.d_x + rb * H + col, N::rnd(cb.x + N::rnd(acc[j][2])),
+              N::rnd(cb.y + N::rnd(acc[j][3])));
+  }
+}
+
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 node_rows_kernel(NodeRowsArgs<T> a, int resident) {
-  using N = Num<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nh = a.n_hidden, n_mats = nh + 3;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int64_t NH = a.n_rows * H;
   constexpr size_t kMat = WeightRing<T, H>::kMat;
   WeightRing<T, H> ring{reinterpret_cast<T*>(smem_raw), a.wb, resident,
                         n_mats, 0};
@@ -80,94 +184,14 @@ node_rows_kernel(NodeRowsArgs<T> a, int resident) {
   __syncwarp();
   ring.start();
 
-  RowOperand<T, H> op;
-  float acc[H / 8][4];
-  uint64_t bits[kMaxHidden + 1];
-  const int64_t NH = a.n_rows * H;
-  for (int ch = blockIdx.x; ch < a.n_chunks; ch += gridDim.x) {
-    const int64_t ra = int64_t(ch) * kRows + warp * 16 + g, rb = ra + 8;
-    auto store_rows_of = [&](T* base) {
-      store_acc<T, H>(acc, base + ra * H, base + rb * H);
-    };
-
-    // ---- forward recompute, as K3: x @ W1x + agg @ W1a in one sum ----
-    zero<H>(acc);
-    op.from_rows(a.x + ra * H, a.x + rb * H, stg);
-    op.template mm<false>(ring.get(0), acc, stg);
-    op.from_rows(a.agg + ra * H, a.agg + rb * H, stg);
-    op.template mm<false>(ring.get(1), acc, stg);
-    bias_relu<T, H>(acc, a.b1);
-    for (int i = 0; i <= nh; ++i) {
-      // acc holds a(i): keep it for the weight gradients and its mask
-      store_rows_of(a.acts + i * NH);
-      if (i <= kMaxHidden) bits[i] = relu_bits<H>(acc);
-      op.from_acc(acc, stg);
-      zero<H>(acc);
-      op.template mm<false>(ring.get(2 + i), acc, stg);
-      if (i < nh) bias_relu<T, H>(acc, a.bs + size_t(i) * H);
-    }
-    bias_round<T, H>(acc, a.b_out);  // d, the pre-LayerNorm output
-
-    // ---- LayerNorm backward ----
-    {
-      float ct[H / 8][4];
-      load_acc<T, H>(ct, a.ct + ra * H, a.ct + rb * H);
-      ln_backward<T, H>(acc, ct, a.ln_scale, warp_part);
-    }
-    if (g == 0) {  // this lane's columns of the warp's dscale / dbias sums
-#pragma unroll
-      for (int j = 0; j < H / 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int c = warp * H + 8 * j + 2 * t + q;
+  for (int ch = blockIdx.x; ch < a.n_chunks; ch += gridDim.x)
+    node_bwd_chunk<T, H>(
+        a, [&](int p) { return ring.get(p); }, stg, warp_part,
+        [&](int c) {
           vsum[c] += warp_part[c];
           vsum[kWarps * H + c] += warp_part[kWarps * H + c];
-        }
-    }
-
-    // a(i)'s ReLU mask: the bits kept, or deeper in the stack the a(i)
-    // this thread stored, the same bits (a(i) is rounded to T before the
-    // ReLU, so the store is exact)
-    auto mask_of = [&](int i) {
-      return i <= kMaxHidden
-                 ? bits[i]
-                 : stored_relu_bits<T, H>(a.acts + i * NH + ra * H,
-                                          a.acts + i * NH + rb * H);
-    };
-
-    // ---- acc = d_d: output linear and hidden stack, in reverse ----
-    store_rows_of(a.cots + (nh + 1) * NH);
-    op.from_acc(acc, stg);
-    zero<H>(acc);
-    op.template mm<true>(ring.get(n_mats), acc, stg);
-    relu_grad<T, H>(acc, mask_of(nh));
-    for (int i = nh - 1; i >= 0; --i) {
-      store_rows_of(a.cots + (i + 1) * NH);  // dz(i + 1)
-      op.from_acc(acc, stg);
-      zero<H>(acc);
-      op.template mm<true>(ring.get(2 * n_mats - 3 - i), acc, stg);
-      relu_grad<T, H>(acc, mask_of(i));
-    }
-
-    // ---- acc = dz0: d_agg = dz0 @ W1a^T, d_x = ct + dz0 @ W1x^T ----
-    store_rows_of(a.cots);
-    op.from_acc(acc, stg);
-    zero<H>(acc);
-    op.template mm<true>(ring.get(2 * n_mats - 2), acc, stg);
-    store_rows_of(a.d_agg);
-    zero<H>(acc);
-    op.template mm<true>(ring.get(2 * n_mats - 1), acc, stg);
-#pragma unroll
-    for (int j = 0; j < H / 8; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float2 ca = N::load2(a.ct + ra * H + col);
-      const float2 cb = N::load2(a.ct + rb * H + col);
-      N::store2(a.d_x + ra * H + col, N::rnd(ca.x + N::rnd(acc[j][0])),
-                N::rnd(ca.y + N::rnd(acc[j][1])));
-      N::store2(a.d_x + rb * H + col, N::rnd(cb.x + N::rnd(acc[j][2])),
-                N::rnd(cb.y + N::rnd(acc[j][3])));
-    }
-  }
+        },
+        int64_t(ch) * kRows, nh, warp, g, t, NH);
   ring.finish();
   __syncthreads();
   // this CTA's dscale (vector 1) and dbias (vector 2): warps in order
@@ -184,23 +208,31 @@ node_rows_kernel(NodeRowsArgs<T> a, int resident) {
   }
 }
 
-// CTA (s, p): pair p of the weight gradients over split s (dw_split): dW1x
-// = x^T dz0 with db1 (vector 3), dW1a = agg^T dz0, dWs[i] = a(i)^T dz(i +
-// 1) with dbs[i] (vector 4 + i), dW_out = a(nh)^T d_d with db_out (vector
-// 0). Every chunk is live.
+// Split s of `step`, pair p of the weight gradients (dw_split): dW1x =
+// x^T dz0 with db1 (vector 3), dW1a = agg^T dz0, dWs[i] = a(i)^T dz(i + 1)
+// with dbs[i] (vector 4 + i), dW_out = a(nh)^T d_d with db_out (vector 0).
+// Every chunk is live. Every thread of the CTA calls it.
 template <typename T, int H>
-__global__ void __launch_bounds__(kThreads)
-node_dw_kernel(NodeRowsArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int s = blockIdx.x, p = blockIdx.y, nh = a.n_hidden;
+__device__ __forceinline__ void node_dw_pair(unsigned char* smem,
+                                             const NodeRowsArgs<T>& a, int s,
+                                             int p, int step) {
+  const int nh = a.n_hidden;
   const int64_t NH = a.n_rows * H;
   const T* A = p == 0 ? a.x : p == 1 ? a.agg : a.acts + (p - 2) * NH;
   const T* D = p < 2 ? a.cots : a.cots + (p - 1) * NH;
   float* part = a.part + int64_t(s) * a.part_len;
   const int vi = p == 0 ? 3 : p == 1 ? -1 : p == nh + 2 ? 0 : 2 + p;
   float* vec = vi < 0 ? nullptr : part + int64_t(nh + 3) * H * H + vi * H;
-  dw_split<T, H>(smem_raw, A, D, s, gridDim.x, a.n_chunks,
-                 [](int q) { return q; }, part + int64_t(p) * H * H, vec);
+  dw_split<T, H>(smem, A, D, s, step, a.n_chunks, [](int q) { return q; },
+                 part + int64_t(p) * H * H, vec);
+}
+
+// CTA (s, p): node_dw_pair over split s of gridDim.x.
+template <typename T, int H>
+__global__ void __launch_bounds__(kThreads)
+node_dw_kernel(NodeRowsArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  node_dw_pair<T, H>(smem_raw, a, blockIdx.x, blockIdx.y, gridDim.x);
 }
 
 // Bytes of workspace the launch needs: the partials (padded to 256 bytes),
@@ -232,7 +264,8 @@ cudaError_t launch_node_rows_bwd(NodeRowsArgs<T> a, float* dw,
     return cudaErrorInvalidValue;
   size_t smem = 0;
   int fits = 0;
-  cudaError_t err = rows_smem<T, H>(n_mats, resident, &smem, &fits);
+  cudaError_t err =
+      rows_smem<T, H>(n_mats * kCopies<T>, resident, &smem, &fits);
   if (err != cudaSuccess) return err;
   if (resident && !fits) return cudaErrorInvalidValue;
   a.part_len = int64_t(n_mats) * H * H + int64_t(nh + 4) * H;

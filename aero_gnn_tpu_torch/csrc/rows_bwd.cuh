@@ -1,8 +1,9 @@
 // The row-kernel machinery of the fused kernels, on top of chain_bwd.cuh:
 // the forward ones K1 (edge_fwd_rows.cuh), K3 (node_fwd_rows.cuh) and
-// K9-fwd (fused_mgn_fwd.cu), and the backward ones K2 (edge_bwd_rows.cuh)
-// and K4 (node_bwd_rows.cuh). Each warp owns 16 rows of a 128-row chunk and
-// runs a chain's products for them with no CTA barrier between products.
+// K9-fwd (fused_mgn_fwd.cu), and the backward ones K2 and K8
+// (edge_bwd_rows.cuh), K4 (node_bwd_rows.cuh) and K9-bwd (fused_mgn_bwd.cu).
+// Each warp owns 16 rows of a 128-row chunk and runs a chain's products for
+// them with no CTA barrier between products.
 //
 //  * WeightRing: a backward chain's weights in shared memory, all resident
 //    for the CTA's life where they fit, else a ring of two slots through
@@ -12,7 +13,9 @@
 //    reading it with ldmatrix and the backward one (dz @ W^T) with
 //    ldmatrix.trans from the same tile; fp32 keeps W and W^T, so both FFMA
 //    products stream B as float2 rows (ops/_build.py edge_bwd_operands
-//    lays them out).
+//    lays them out). A chain that runs only its backward products (K8,
+//    kBwd) keeps only what those read: W^T once, which is the same array
+//    in both types (ops/_build.py bwd_only_operands).
 //  * FwdChain, WeightStream and FwdWeights: a forward chain's weights read
 //    as they lie in device memory ([in][out]), resident or streamed through
 //    two slots in the same way; the bf16 product reads its B tile with
@@ -30,7 +33,9 @@
 //    blocks (fp32), the fp32 sum in registers for the split's whole range
 //    and written once, with the bias gradient as the column sums of D; the
 //    splits' partials are summed in split order by reduce_partials
-//    (chain_bwd.cuh). No float atomics: the same inputs give the same bits.
+//    (chain_bwd.cuh). ln_split rebuilds a split's LayerNorm column sums
+//    from per-chunk sums in the row kernels' order. No float atomics: the
+//    same inputs give the same bits.
 #pragma once
 
 #include "chain_bwd.cuh"
@@ -87,20 +92,28 @@ __device__ __forceinline__ void copy_mat_async(T* dst,
 template <typename T>
 constexpr int kCopies = sizeof(T) == 4 ? 2 : 1;
 
+// Matrices stored per weight: kCopies, or one where only the backward
+// products run (kBwd).
+template <typename T, bool kBwd = false>
+constexpr int kStored = kBwd ? 1 : kCopies<T>;
+
 // The stored matrix of product p of a chunk's 2 n_mats: the forward
 // products read matrices 0 .. n_mats - 1 in order, the backward ones the
-// same matrices in reverse (with fp32, their transposed copies).
-template <typename T>
+// same matrices in reverse (with fp32, their transposed copies; kBwd: the
+// backward products p = n_mats .. 2 n_mats - 1 only, one matrix each).
+template <typename T, bool kBwd = false>
 __device__ __forceinline__ int mat_of(int p, int n_mats) {
   const bool bwd = p >= n_mats;
   const int m = bwd ? 2 * n_mats - 1 - p : p;
+  if constexpr (kBwd) return m;
   return kCopies<T> == 2 ? 2 * m + bwd : m;
 }
 
 // The weights in shared memory: all resident, or a ring of two slots
 // through which the products' weights stream in order (cp.async one product
-// ahead; every thread of the CTA calls get() for every product).
-template <typename T, int H>
+// ahead; every thread of the CTA calls get() for every product). kBwd: the
+// chunk's products are the backward ones, n_mats .. 2 n_mats - 1.
+template <typename T, int H, bool kBwd = false>
 struct WeightRing {
   static constexpr size_t kMat = size_t(H) * Layout<T, H>::kLd;
   T* slots;
@@ -109,21 +122,25 @@ struct WeightRing {
 
   __device__ void start() {
     if (resident) {
-      for (int m = 0; m < n_mats * kCopies<T>; ++m)
+      for (int m = 0; m < n_mats * kStored<T, kBwd>; ++m)
         copy_mat_async<T, H>(slots + m * kMat, wb + size_t(m) * H * H);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
     } else {
-      copy_mat_async<T, H>(slots, wb);  // product 0
+      // the chunk's first product
+      const int m0 = kBwd ? mat_of<T, kBwd>(n_mats, n_mats) : 0;
+      copy_mat_async<T, H>(slots, wb + size_t(m0) * H * H);
       cp_async_commit();
     }
   }
   __device__ const T* get(int p) {
-    if (resident) return slots + mat_of<T>(p, n_mats) * kMat;
+    if (resident) return slots + mat_of<T, kBwd>(p, n_mats) * kMat;
     cp_async_wait<0>();
     __syncthreads();  // the copy is visible; product s - 1 is done
-    const int m_next = mat_of<T>((p + 1) % (2 * n_mats), n_mats);
+    const int p_next = kBwd ? (p + 1 == 2 * n_mats ? n_mats : p + 1)
+                            : (p + 1) % (2 * n_mats);
+    const int m_next = mat_of<T, kBwd>(p_next, n_mats);
     copy_mat_async<T, H>(slots + ((s + 1) & 1) * kMat,
                          wb + size_t(m_next) * H * H);
     cp_async_commit();
@@ -487,7 +504,7 @@ template <typename T, int H>
 struct DwAcc;
 
 // bf16: each warp's TnTile (chain_bwd.cuh) in mma accumulators, fragments
-// by ldmatrix.trans (as mm_tn).
+// of A^T and D by ldmatrix.trans.
 template <int H>
 struct DwAcc<__nv_bfloat16, H> {
   static constexpr int LD = Layout<__nv_bfloat16, H>::kLd;
@@ -638,11 +655,54 @@ __device__ __forceinline__ void dw_split(unsigned char* smem, const T* A,
   }
 }
 
-// Shared memory of a row kernel whose chain has n_mats weights (all
-// resident, or the two-slot ring) and of dw_split, against the card's
+// The split-K sums of the LayerNorm column sums (dscale, dbias) that a row
+// kernel's CTA s of `step` leaves in its partial, rebuilt from the sums of
+// each chunk's warps, `chunk_sums` [n_chunks][2][kWarps][H] (K9-bwd, whose
+// CTAs own node blocks, writes them): per warp over the chunks q = s, s +
+// step, ... that live(q) admits, in that order, then the warps in order,
+// each from +0 -- the row kernels' order, so the same bits. The sums of
+// kB chunks are loaded before they are added. `vec` is the partial's
+// [dscale | dbias] ([2][H]). Every thread of the CTA calls it.
+template <int H, typename Live>
+__device__ __forceinline__ void ln_split(const float* __restrict__ chunk_sums,
+                                         int s, int step, int n_chunks,
+                                         Live live, float* vec) {
+  constexpr int kB = 4;
+  for (int c = threadIdx.x; c < 2 * H; c += kThreads) {
+    const float* col = chunk_sums + (c / H) * kWarps * H + c % H;
+    float v[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v[w] = 0.f;
+    for (int q0 = s; q0 < n_chunks; q0 += kB * step) {
+      bool ok[kB];
+      float x[kB][kWarps];
+#pragma unroll
+      for (int k = 0; k < kB; ++k) {
+        const int q = q0 + k * step;
+        ok[k] = q < n_chunks && live(q);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w)
+          x[k][w] = ok[k] ? col[int64_t(q) * 2 * kWarps * H + w * H] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kB; ++k)
+        if (ok[k]) {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v[w] += x[k][w];
+        }
+    }
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += v[w];
+    vec[c] = total;
+  }
+}
+
+// Shared memory of a row kernel whose chain keeps n_stored weight matrices
+// (all resident, or the two-slot ring) and of dw_split, against the card's
 // opt-in limit; *fits_resident says whether the weights fit resident.
 template <typename T, int H>
-__host__ inline cudaError_t rows_smem(int n_mats, int resident,
+__host__ inline cudaError_t rows_smem(int n_stored, int resident,
                                       size_t* smem, int* fits_resident) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -652,7 +712,6 @@ __host__ inline cudaError_t rows_smem(int n_mats, int resident,
   if (err != cudaSuccess) return err;
   const size_t fixed = rows_fixed_smem<T, H>();
   const size_t mat = Layout<T, H>::kMatBytes;
-  const int n_stored = n_mats * kCopies<T>;
   *fits_resident = n_stored * mat + fixed <= size_t(max_smem);
   *smem = (resident ? n_stored : 2) * mat + fixed;
   if (*smem > size_t(max_smem) || dw_smem<T, H>() > size_t(max_smem))

@@ -154,29 +154,30 @@ def check_tensors(device, dtype, **tensors) -> None:
                 "under torch.no_grad()")
 
 
-def mma_b_operands(mats):
-    """[n, 2, h, h]: each [h, h] weight W of ``mats`` (a list of [h, h] or
-    [k, h, h] tensors, in order) laid out as the backward kernels' products
-    read their B operand from shared memory (csrc/chain_bwd.cuh load_b):
-    [m][0] for the forward product act @ W, [m][1] for the backward product
-    dz @ W^T; bf16 stores B transposed ([n][k]), fp32 as it is ([k][n])."""
+def bwd_only_operands(mats):
+    """[n, h, h]: each [h, h] weight W of ``mats`` (a list of [h, h] or
+    [k, h, h] tensors, in order) as a chain that runs only its backward
+    products dz @ W^T reads their B operand from shared memory
+    (csrc/rows_bwd.cuh WeightRing with kBwd, for K8): W transposed, which
+    is bf16's [n][k] tile that ldmatrix.trans reads as W^T and fp32's
+    [k][n] tile of W^T alike. One copy kernel: the transposed views into
+    one buffer."""
     import torch
 
-    w = torch.cat([m.reshape(-1, *m.shape[-2:]) for m in mats])
-    pair = (w.mT, w) if w.dtype == torch.bfloat16 else (w, w.mT)
-    return torch.stack(pair, dim=1).contiguous()
+    return torch.cat([m.reshape(-1, *m.shape[-2:]).mT for m in mats])
 
 
 def edge_bwd_operands(mats):
-    """The weights of ``mats`` (as for mma_b_operands) as K2's and K4's
-    products read their B operand from shared memory (csrc/rows_bwd.cuh
-    WeightRing, for edge_bwd_rows.cuh and node_bwd_rows.cuh): bf16
-    [n, h, h], each W once, transposed ([n][k]) for ldmatrix, the backward
-    product dz @ W^T reading the same tile transposed; fp32 [n, 2, h, h],
-    W and W^T (both [k][n]), which is mma_b_operands' layout."""
+    """The weights of ``mats`` (as for bwd_only_operands) as K2's, K4's and
+    K9-bwd's products read their B operand from shared memory
+    (csrc/rows_bwd.cuh WeightRing, for edge_bwd_rows.cuh and
+    node_bwd_rows.cuh): bf16 [n, h, h], each W once, transposed ([n][k])
+    for ldmatrix, the backward product dz @ W^T reading the same tile
+    transposed (bwd_only_operands' array); fp32 [n, 2, h, h], W and W^T
+    (both [k][n]), so both FFMA products stream B as rows."""
     import torch
 
-    if mats[0].dtype != torch.bfloat16:
-        return mma_b_operands(mats)
-    # one copy kernel: the transposed views into one buffer
-    return torch.cat([m.reshape(-1, *m.shape[-2:]).mT for m in mats])
+    if mats[0].dtype == torch.bfloat16:
+        return bwd_only_operands(mats)
+    w = torch.cat([m.reshape(-1, *m.shape[-2:]) for m in mats])
+    return torch.stack((w, w.mT), dim=1).contiguous()

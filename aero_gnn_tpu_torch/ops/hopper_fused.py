@@ -48,8 +48,12 @@ its grid, shared memory and the row pointer's workspace. K2 runs as a row
 kernel, a segmented sum for d_dproj and a split-K weight-gradient kernel
 (``csrc/edge_bwd_rows.cuh``), at any depth; ``edge_bwd_plan`` lays out its
 workspace and ``_build.edge_bwd_operands`` its weights (in bf16 one copy
-each). K8 keeps the single-kernel schedule of ``csrc/edge_bwd.cuh`` with
-the weights laid out twice (``_build.mma_b_operands``).
+each). K8 runs K2's three kernels without the forward recompute (the
+row kernel's masks read from zs, the weight-gradient kernel reading zs),
+on K2's grid, so its ten outputs are K2's bit for bit;
+``edge_bwd_saved_plan`` plans it (no activation workspace; the weights
+resident or in the ring) and ``_build.bwd_only_operands`` lays out the
+W^T its backward products read.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ import torch
 from aero_gnn_tpu_torch.graph.padded import ALIGN_EDGE_TILE, ALIGN_NODE_BLOCK
 from aero_gnn_tpu_torch.nn.mlp import LN_EPS
 from aero_gnn_tpu_torch.ops import _build
+from aero_gnn_tpu_torch.ops.hopper_node import DW_SLAB
 from aero_gnn_tpu_torch.ops.hopper_segment import segment_sum_ref
 from aero_gnn_tpu_torch.ops.scatter import gather
 
@@ -75,7 +80,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGTYPES = [_P] * 19 + [_I64, _I64, _I64, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P] * 16 + [_I64, _I64, _I64, _I, _I, _I, _I, _I, _P]
-_WS_ARGTYPES = [_I64, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int64)]
+_SAVED_ARGTYPES = [_P] * 16 + [_I64, _I64, _I64] + [_I] * 6 + [_P]
 
 
 def save_acts_enabled() -> bool:
@@ -312,35 +317,6 @@ def fused_edge_layer_save(e, sg, d_proj, mask, receivers, w_e, ws, bs,
     return out
 
 
-def _launch_bwd(lib: str, symbol: str, inputs, e, num_nodes: int,
-                n_hidden: int):
-    """K8 (``inputs``: the C entry's leading pointers) on CUDA tensors:
-    allocates the workspace the C side asks for and the outputs, launches,
-    and splits the fp32 weight gradients."""
-    h, code = e.shape[1], _DTYPE_CODE[e.dtype]
-    ws_bytes = ctypes.c_int64(0)
-    ws_fn = _build.c_function(lib, symbol + "_workspace", _WS_ARGTYPES)
-    with torch.cuda.device(e.device):
-        _build.check_launch(symbol + "_workspace",
-                            ws_fn(num_nodes, h, n_hidden, NB, code,
-                                  ctypes.byref(ws_bytes)))
-        workspace = torch.empty(ws_bytes.value, dtype=torch.uint8,
-                                device=e.device)
-        d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
-        d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=e.device)
-        n_mat = (n_hidden + 2) * h * h
-        dw = torch.empty(n_mat + (n_hidden + 3) * h, dtype=torch.float32,
-                         device=e.device)
-        fn = _build.c_function(lib, symbol, _BWD_ARGTYPES)
-        stream = torch.cuda.current_stream(e.device).cuda_stream
-        err = fn(*[t.data_ptr() for t in inputs], d_e.data_ptr(),
-                 d_sg.data_ptr(), d_dproj.data_ptr(), dw.data_ptr(),
-                 workspace.data_ptr(), ws_bytes.value, e.shape[0], num_nodes,
-                 h, n_hidden, NB, ET, code, stream)
-    _build.check_launch(symbol, err)
-    return _split_grads(d_e, d_sg, d_dproj, dw, h, n_hidden)
-
-
 def _split_grads(d_e, d_sg, d_dproj, dw, h: int, n_hidden: int):
     """The backward kernels' outputs in the plain versions' order, the fp32
     weight gradients cut from ``dw`` ([dW_e, dWs, dW_out] then [db_out,
@@ -350,6 +326,22 @@ def _split_grads(d_e, d_sg, d_dproj, dw, h: int, n_hidden: int):
     vecs = dw[n_mat:].view(n_hidden + 3, h)
     return (d_e, d_sg, d_dproj, mats[0], mats[1:n_hidden + 1], vecs[3:],
             mats[n_hidden + 1], vecs[0], vecs[1], vecs[2])
+
+
+def _bwd_splits(n_edges: int, h: int, n_hidden: int, sm_count: int,
+                kernel: str) -> tuple:
+    """K2's and K8's grid rule: (grid, n_chunks, part_len, bytes of the
+    partials padded to 256)."""
+    if n_edges <= 0 or n_edges % CHUNK_ROWS:
+        raise ValueError(f"{kernel} takes a positive multiple of {CHUNK_ROWS} "
+                         f"edge rows, not {n_edges}")
+    if n_hidden < 0:
+        raise ValueError(f"{kernel} takes 0 or more hidden layers, not "
+                         f"{n_hidden}")
+    n_chunks = n_edges // CHUNK_ROWS
+    grid = max(1, min(sm_count, n_chunks))
+    part_len = (n_hidden + 2) * h * h + (n_hidden + 3) * h
+    return grid, n_chunks, part_len, -(-grid * part_len * 4 // 256) * 256
 
 
 def edge_bwd_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int, dtype,
@@ -363,21 +355,58 @@ def edge_bwd_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int, dtype,
     dz(1..n_hidden), d_d, each [n_edges, h] of ``dtype``, at
     ``acts_offset`` and ``cots_offset``, then d_dproj's row pointer
     (n_nodes + 1 int32) at ``offsets_offset``; ``ws_bytes`` in all."""
-    if n_edges <= 0 or n_edges % CHUNK_ROWS:
-        raise ValueError(f"K2 takes a positive multiple of {CHUNK_ROWS} edge "
-                         f"rows, not {n_edges}")
-    if n_hidden < 0:
-        raise ValueError(f"K2 takes 0 or more hidden layers, not {n_hidden}")
-    n_chunks = n_edges // CHUNK_ROWS
-    grid = max(1, min(sm_count, n_chunks))
-    part_len = (n_hidden + 2) * h * h + (n_hidden + 3) * h
-    part_bytes = -(-grid * part_len * 4 // 256) * 256
+    grid, n_chunks, part_len, part_bytes = _bwd_splits(n_edges, h, n_hidden,
+                                                       sm_count, "K2")
     act_bytes = (n_hidden + 1) * n_edges * h * torch.finfo(dtype).bits // 8
     offsets_at = part_bytes + 2 * act_bytes
     return {"grid": grid, "n_chunks": n_chunks, "part_len": part_len,
             "acts_offset": part_bytes, "cots_offset": part_bytes + act_bytes,
             "offsets_offset": offsets_at,
             "ws_bytes": offsets_at + 4 * (n_nodes + 1)}
+
+
+def edge_bwd_saved_plan(n_edges: int, n_nodes: int, h: int, n_hidden: int,
+                        dtype, sm_count: int, max_smem: int) -> dict:
+    """K8's launch plan (csrc/edge_bwd_rows.cuh, which checks it against
+    its own reckoning): K2's ``grid`` and partials (so K2's bits), then the
+    cotangents dz(1..n_hidden), d_d at ``cots_offset`` and d_dproj's row
+    pointer at ``offsets_offset``: no activations, which K8 reads from the
+    save variant's zs (``ws_bytes`` is K2's less (n_hidden + 1) n_edges h
+    elements). ``resident``: the row kernel keeps the n_hidden + 2 weights
+    its backward products read (W^T, one copy each) in shared memory
+    (``smem_bytes`` of the ``max_smem`` a CTA may have, with fp32's A
+    operand slices and the warps' LayerNorm column sums), else streams
+    them through a ring of two slots; ``dw_smem_bytes`` the
+    weight-gradient kernel's."""
+    return dict(_edge_bwd_saved_plan(n_edges, n_nodes, h, n_hidden, dtype,
+                                     sm_count, max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _edge_bwd_saved_plan(n_edges, n_nodes, h, n_hidden, dtype, sm_count,
+                         max_smem):
+    grid, n_chunks, part_len, part_bytes = _bwd_splits(n_edges, h, n_hidden,
+                                                       sm_count, "K8")
+    isz = torch.finfo(dtype).bits // 8
+    cot_bytes = (n_hidden + 1) * n_edges * h * isz
+    # csrc/chain.cuh Layout (rows padded by 16 bytes) and rows_bwd.cuh
+    # rows_fixed_smem / dw_smem: fp32 stages the A operands ([128][ld]);
+    # both keep the warps' LayerNorm column sums ([2][2][8][h] fp32)
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = (CHUNK_ROWS * ld * 4 if isz == 4 else 0) + 2 * 2 * 8 * h * 4
+    resident = (n_hidden + 2) * mat + fixed <= max_smem
+    smem = (n_hidden + 2 if resident else 2) * mat + fixed
+    dw_smem = 2 * 2 * DW_SLAB * ld * isz
+    if max(smem, dw_smem) > max_smem:
+        raise ValueError(f"K8 at h={h} needs {max(smem, dw_smem)} bytes of "
+                         f"shared memory, more than {max_smem}")
+    return {"grid": grid, "n_chunks": n_chunks, "part_len": part_len,
+            "cots_offset": part_bytes,
+            "offsets_offset": part_bytes + cot_bytes,
+            "ws_bytes": part_bytes + cot_bytes + 4 * (n_nodes + 1),
+            "resident": resident, "smem_bytes": smem,
+            "dw_smem_bytes": dw_smem}
 
 
 def fused_edge_layer_bwd(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
@@ -422,20 +451,36 @@ def fused_edge_layer_bwd_saved(e, mask, receivers, w_e, ws, w_out, ln_scale,
                                zs, d, mu, inv, ct_e, ct_agg, num_nodes: int):
     """VJP of the fused edge layer from the save variant's zs, d, mu, inv:
     the outputs of fused_edge_layer_bwd. CUDA tensors launch kernel K8
-    (deterministic, as K2); CPU tensors run the plain version."""
+    (deterministic, and K2's bits); CPU tensors run the plain version."""
     if not e.is_cuda:
         return fused_edge_layer_bwd_saved_ref(e, mask, receivers, w_e, ws,
                                               w_out, ln_scale, zs, d, mu,
                                               inv, ct_e, ct_agg, num_nodes)
-    _, _, nh = _check_args(e, receivers, num_nodes, mask=mask, w_e=w_e,
-                           ws=ws, w_out=w_out, ln_scale=ln_scale, zs=zs, d=d,
-                           mu=mu, inv=inv, ct_e=ct_e, ct_agg=ct_agg)
-    wb = _build.mma_b_operands([w_e, ws, w_out])
-    out = _launch_bwd("fused_edge_bwd_saved", "aero_fused_edge_bwd_saved",
-                      [e, mask, receivers, wb, ln_scale, zs, d, mu, inv,
-                       ct_e, ct_agg], e, num_nodes, nh)
+    n_edges, h, nh = _check_args(
+        e, receivers, num_nodes, mask=mask, w_e=w_e, ws=ws, w_out=w_out,
+        ln_scale=ln_scale, zs=zs, d=d, mu=mu, inv=inv, ct_e=ct_e,
+        ct_agg=ct_agg)
+    dev = e.device
+    plan = edge_bwd_saved_plan(n_edges, num_nodes, h, nh, e.dtype,
+                               *_build.device_limits(dev))
+    wb = _build.bwd_only_operands([w_e, ws, w_out])
+    d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
+    d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
+    n_mat = (nh + 2) * h * h
+    dw = torch.empty(n_mat + (nh + 3) * h, dtype=torch.float32, device=dev)
+    workspace = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+    fn = _build.c_function("fused_edge_bwd_saved",
+                           "aero_fused_edge_bwd_saved", _SAVED_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in (
+                     e, mask, receivers, wb, ln_scale, zs, d, mu, inv, ct_e,
+                     ct_agg, d_e, d_sg, d_dproj, dw, workspace)],
+                 plan["ws_bytes"], n_edges, num_nodes, h, nh, plan["grid"],
+                 int(plan["resident"]), ET, _DTYPE_CODE[e.dtype], stream)
+    _build.check_launch("aero_fused_edge_bwd_saved", err)
     fused_edge_layer_bwd_saved.launches += 1
-    return out
+    return _split_grads(d_e, d_sg, d_dproj, dw, h, nh)
 
 
 # launches of K1, its save variant, K2 and K8 since the counts were last

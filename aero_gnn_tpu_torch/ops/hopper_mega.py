@@ -12,9 +12,12 @@ JAX package's ``_equiv`` composes them) on CPU tensors; both return
 (x', e', agg). K9-fwd runs one CTA a node block: K1's row-kernel chunks
 over the block's edge tiles, the block's agg, then K3's chunks over its
 nodes; ``mega_fwd_plan`` plans its grid and shared memory.
-``fused_mgn_layer_bwd`` launches ``csrc/fused_mgn_bwd.cu`` (K4's backward
-over each node block, then K2's over its edge tiles with the aggregation
-cotangent K4 produced) or runs ``fused_mgn_layer_bwd_ref``.
+``fused_mgn_layer_bwd`` launches ``csrc/fused_mgn_bwd.cu`` or runs
+``fused_mgn_layer_bwd_ref``: one CTA a node block runs K4's row-kernel
+chunks over its nodes, then K2's over its edge tiles with the aggregation
+cotangent K4 produced, and the block's d_dproj; K2's and K4's split-K
+kernels then give the weight gradients, all K4 -> K2's bits;
+``mega_bwd_plan`` plans its grids, shared memory and workspace.
 ``fused_mgn_layer_autograd`` is the differentiable layer, (x, e) ->
 (x', e'); it saves the layer's inputs and the aggregate, as ``_fmgn_fwd``
 does, so the backward never re-runs the forward. ``ep`` / ``npar`` are the
@@ -41,8 +44,9 @@ NODE_KEYS = ("w1x", "w1a", "b1", "ws", "bs", "w_out", "b_out", "ln_scale",
              "ln_bias")
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 25 + [_I64, _I64] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P] * 25 + [_I64] * 3 + [_I] * 6 + [_P]
-_WS_ARGTYPES = [_I64] + [_I] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+_BWD_ARGTYPES = [_P] * 24 + [_I64] * 3 + [_I] * 9 + [_P]
+# a row chunk's warps (csrc/chain.cuh kWarps)
+WARPS = 8
 
 
 def mega_enabled() -> bool:
@@ -144,6 +148,84 @@ def _mega_fwd_plan(n_edges, n_nodes, h, ne_hidden, nn_hidden, dtype,
             "resident": resident, "smem_bytes": smem}
 
 
+def mega_bwd_plan(n_edges: int, n_nodes: int, h: int, ne_hidden: int,
+                  nn_hidden: int, dtype, sm_count: int, max_smem: int) -> dict:
+    """K9-bwd's launch plan (csrc/fused_mgn_bwd.cu, which checks it against
+    its own reckoning): ``grid`` = one CTA per node block of ``NB`` nodes
+    (``waves`` of ``sm_count``); ``resident``: the weights stay in shared
+    memory (K4's nn_hidden + 3 for the block's node chunks, then K2's
+    ne_hidden + 2 in the same slots; bf16 one copy each, fp32 W and W^T),
+    where the larger set fits, else both chains stream through a ring of
+    two slots; ``smem_bytes`` of the ``max_smem`` a CTA may have: the
+    weights, fp32's warps' A operand slices, a chunk's LayerNorm column
+    sums, each node's live-row bounds and the block's tile range. The
+    weight gradients run on ``edge_grid`` and ``node_grid`` splits, the
+    grids K2's and K4's plans choose for the same E and N (so their bits),
+    in one launch of ``dw_blocks`` CTAs (``dw_smem_bytes`` each). The
+    workspace (``ws_bytes``), each region at a multiple of 256 bytes:
+    K2's partials (``edge_part_len`` floats a split) at
+    ``edge_part_offset`` = 0, K4's at ``node_part_offset``, K2's a(0..ne_hidden) at ``edge_acts_offset`` and
+    dz(1..ne_hidden), d_d at ``edge_cots_offset`` ([n_edges, h] each),
+    K4's a(0..nn_hidden) then dz(0..nn_hidden), d_d at
+    ``node_acts_offset`` ([n_nodes, h] each), each chunk's per-warp
+    LayerNorm column sums (fp32 [chunks, 2, 8, h]) of the edge chunks at
+    ``edge_sums_offset`` and of the node chunks at ``node_sums_offset``,
+    and d_agg [n_nodes, h] at ``d_agg_offset``."""
+    return dict(_mega_bwd_plan(n_edges, n_nodes, h, ne_hidden, nn_hidden,
+                               dtype, sm_count, max_smem))
+
+
+@functools.lru_cache(maxsize=64)
+def _mega_bwd_plan(n_edges, n_nodes, h, ne_hidden, nn_hidden, dtype,
+                   sm_count, max_smem):
+    if n_edges <= 0 or n_edges % ET or n_nodes <= 0 or n_nodes % NB:
+        raise ValueError(f"K9-bwd needs the block-aligned layout: E={n_edges} "
+                         f"a positive multiple of {ET}, N={n_nodes} a "
+                         f"positive multiple of {NB}")
+    if ne_hidden < 0 or nn_hidden < 0:
+        raise ValueError(f"K9-bwd takes 0 or more hidden layers, not "
+                         f"{ne_hidden} / {nn_hidden}")
+    isz = torch.finfo(dtype).bits // 8
+    copies = 2 if isz == 4 else 1
+    n_mats = max(ne_hidden + 2, nn_hidden + 3) * copies
+    # csrc/chain.cuh Layout: [h][ld] weight tiles, rows padded by 16 bytes;
+    # fused_mgn_bwd.cu mega_bwd_fixed_smem; rows_bwd.cuh dw_smem
+    ld = h + 16 // isz
+    mat = h * ld * isz
+    fixed = ((HF.CHUNK_ROWS * ld * 4 if isz == 4 else 0)
+             + 2 * WARPS * h * 4 + (2 * NB + 4) * 4)
+    resident = n_mats * mat + fixed <= max_smem
+    smem = (n_mats if resident else 2) * mat + fixed
+    dw_smem = 2 * 2 * HN.DW_SLAB * ld * isz
+    if max(smem, dw_smem) > max_smem:
+        raise ValueError(f"K9-bwd at h={h} needs {max(smem, dw_smem)} bytes "
+                         f"of shared memory, more than {max_smem}")
+    e_chunks, n_chunks = n_edges // HF.CHUNK_ROWS, n_nodes // HF.CHUNK_ROWS
+    e_grid, n_grid = min(sm_count, e_chunks), min(sm_count, n_chunks)
+    e_part = (ne_hidden + 2) * h * h + (ne_hidden + 3) * h
+    n_part = (nn_hidden + 3) * h * h + (nn_hidden + 4) * h
+    regions = (("edge_part", e_grid * e_part * 4),
+               ("node_part", n_grid * n_part * 4),
+               ("edge_acts", (ne_hidden + 1) * n_edges * h * isz),
+               ("edge_cots", (ne_hidden + 1) * n_edges * h * isz),
+               ("node_acts", (2 * nn_hidden + 3) * n_nodes * h * isz),
+               ("edge_sums", e_chunks * 2 * WARPS * h * 4),
+               ("node_sums", n_chunks * 2 * WARPS * h * 4),
+               ("d_agg", n_nodes * h * isz))
+    plan, at = {}, 0
+    for name, nbytes in regions:
+        plan[f"{name}_offset"] = at
+        at += -(-nbytes // 256) * 256
+    plan["ws_bytes"] = at
+    n_blocks = n_nodes // NB
+    plan.update(grid=n_blocks, waves=-(-n_blocks // sm_count),
+                resident=resident, smem_bytes=smem, edge_grid=e_grid,
+                node_grid=n_grid, edge_part_len=e_part, node_part_len=n_part,
+                dw_blocks=max(e_grid, n_grid) * (ne_hidden + nn_hidden + 7),
+                dw_smem_bytes=dw_smem)
+    return plan
+
+
 def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
                     num_nodes: int):
     """(x', e', agg) of the whole MGN layer. CUDA tensors launch kernel
@@ -177,46 +259,43 @@ def fused_mgn_layer_bwd(e, sg, d_proj, x, agg, mask, receivers, ep, npar,
                         ct_e, ct_x, num_nodes: int):
     """VJP of the whole MGN layer: (d_e, d_sg, d_dproj, d_x, d_ep, d_np),
     the weight gradients fp32 dicts keyed as ep / npar. CUDA tensors launch
-    kernel K9-bwd (deterministic: per-CTA partials summed in a fixed
-    order); CPU tensors run the plain version."""
+    kernel K9-bwd (deterministic, K4 -> K2's bits); CPU tensors run the
+    plain version."""
     if not e.is_cuda:
         return fused_mgn_layer_bwd_ref(e, sg, d_proj, x, agg, mask,
                                        receivers, ep, npar, ct_e, ct_x,
                                        num_nodes)
     h, ne, nn = _check_args(e, sg, d_proj, x, mask, receivers, ep, npar,
                             num_nodes, agg=agg, ct_e=ct_e, ct_x=ct_x)
-    code = HF._DTYPE_CODE[e.dtype]
-    ws_bytes = ctypes.c_int64(0)
-    ws_fn = _build.c_function("fused_mgn_bwd", "aero_fused_mgn_bwd_workspace",
-                              _WS_ARGTYPES)
     dev = e.device
+    plan = _mega_bwd_plan(e.shape[0], num_nodes, h, ne, nn, e.dtype,
+                          *_build.device_limits(dev))
+    d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
+    d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
+    d_x = torch.empty_like(x)
+    sizes = [(ne + 2) * h * h, (ne + 3) * h, (nn + 3) * h * h, (nn + 4) * h]
+    dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    workspace = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+    wb_e = _build.edge_bwd_operands([ep["w_e"], ep["ws"], ep["w_out"]])
+    wb_n = _build.edge_bwd_operands([npar["w1x"], npar["w1a"], npar["ws"],
+                                     npar["w_out"]])
+    tensors = [e, sg, d_proj, x, agg, mask, receivers, wb_e, ep["bs"],
+               ep["b_out"], ep["ln_scale"], wb_n, npar["b1"], npar["bs"],
+               npar["b_out"], npar["ln_scale"], ct_e, ct_x, d_e, d_sg,
+               d_dproj, d_x, dw, workspace]
+    fn = _build.c_function("fused_mgn_bwd", "aero_fused_mgn_bwd",
+                           _BWD_ARGTYPES)
     with torch.cuda.device(dev):
-        _build.check_launch("aero_fused_mgn_bwd_workspace",
-                            ws_fn(num_nodes, h, ne, nn, NB, code,
-                                  ctypes.byref(ws_bytes)))
-        workspace = torch.empty(ws_bytes.value, dtype=torch.uint8,
-                                device=dev)
-        d_e, d_sg = torch.empty_like(e), torch.empty_like(e)
-        d_dproj = torch.empty((num_nodes, h), dtype=e.dtype, device=dev)
-        d_x, d_agg = torch.empty_like(x), torch.empty_like(x)
-        sizes = [(ne + 2) * h * h, (nn + 3) * h * h, (ne + 3) * h,
-                 (nn + 4) * h]
-        dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-        wb_e = _build.mma_b_operands([ep["w_e"], ep["ws"], ep["w_out"]])
-        wb_n = _build.mma_b_operands([npar["w1x"], npar["w1a"], npar["ws"],
-                                      npar["w_out"]])
-        tensors = [e, sg, d_proj, x, agg, mask, receivers, wb_e, ep["bs"],
-                   ep["b_out"], ep["ln_scale"], wb_n, npar["b1"], npar["bs"],
-                   npar["b_out"], npar["ln_scale"], ct_e, ct_x, d_e, d_sg,
-                   d_dproj, d_x, d_agg, dw, workspace]
-        fn = _build.c_function("fused_mgn_bwd", "aero_fused_mgn_bwd",
-                               _BWD_ARGTYPES)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], ws_bytes.value,
-                 e.shape[0], num_nodes, h, ne, nn, NB, ET, code, stream)
+        err = fn(*[t.data_ptr() for t in tensors], plan["ws_bytes"],
+                 e.shape[0], num_nodes, h, ne, nn, NB, ET, plan["edge_grid"],
+                 plan["node_grid"], int(plan["resident"]),
+                 HF._DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_mgn_bwd", err)
     fused_mgn_layer_bwd.launches += 1
-    em, nm, ev, nv = torch.split(dw, sizes)
+    # K2's [dW_e, dWs, dW_out], [db_out, dscale, dbias, dbs], then K4's
+    # [dW1x, dW1a, dWs, dW_out], [db_out, dscale, dbias, db1, dbs]
+    em, ev, nm, nv = torch.split(dw, sizes)
     em, nm = em.view(ne + 2, h, h), nm.view(nn + 3, h, h)
     ev, nv = ev.view(ne + 3, h), nv.view(nn + 4, h)
     d_ep = {"w_e": em[0], "ws": em[1:ne + 1], "bs": ev[3:],

@@ -18,15 +18,18 @@ three) and on a stream without long runs (4 rows a node, random
 ``rows``),
 profiles K2's, K4's and K5's kernels (device ms per call by kernel name,
 both dtypes), times and profiles K1, its save variant, K10 (micro_wec2's
-shapes), K3, K9-fwd and K1 -> K3 launched in turn in both dtypes (also
-the host's ms per call, without waiting for the card), and times 12 bf16
+shapes), K3, K9-fwd and K1 -> K3 launched in turn, K8 (on what K1's
+save variant saved), K9-bwd and K4 -> K2 launched in turn in both dtypes
+(also the host's ms per call, without waiting for the card), and times 12
+bf16
 train steps and 10 bf16 forwards of the flagship MeshGraphNet on mesh 0
 (host clock to a synchronize, both switches unset), with the card's name
 and power limit. It hashes K7's outputs, K2's activation gradients (d_e,
 d_sg), K4's (d_x, d_agg), K5's outputs on its streams, K1's (e', agg),
-its save variant's six outputs, K10's two, K3's x' and K9-fwd's (x', e',
-agg), both dtypes, on seeded inputs, and the last line says, per output,
-whether every tree gave the same bits; the line before it
+its save variant's six outputs, K10's two, K3's x', K9-fwd's (x', e',
+agg), K8's ten outputs and K9-bwd's (d_e, d_sg, d_dproj, d_x), both
+dtypes, on seeded inputs, and the last line says, per output, whether
+every tree gave the same bits; the line before it
 holds K4's weight gradients of each tree to the first tree's with
 chip_smoke.py's GRAD_TOL rule (the gradients are saved under
 build/chip_ab/, which git ignores). One line per tree starts with "AB "
@@ -280,6 +283,57 @@ def k3_k9(torch, C, graph) -> tuple:
     return ms, dev_ms, hashes
 
 
+def k8_k9bwd(torch, C, graph) -> tuple:
+    """K8 (on what K1's save variant saved), K9-bwd and K4 -> K2 launched
+    in turn (the two kernels K9-bwd fuses, ct_agg = K4's d_agg) at the
+    flagship shapes, both dtypes: ms per call (CUDA events) and the host's
+    ms per call, device ms per call by kernel name, and hashes of K8's ten
+    outputs and K9-bwd's activation gradients on phase_kernels' seeded
+    inputs."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_mega as HM
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+
+    ms, dev_ms, hashes = {}, {}, {}
+    n_pad = graph.num_nodes_pad
+    for dtype_name in ("bfloat16", "float32"):
+        gen = torch.Generator(device=graph.device).manual_seed(1234)
+        dt = getattr(torch, dtype_name)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=graph.device)
+                    * scale).to(dt)
+
+        edge_args, edge_bwd, node_args, _, _ = C.bwd_cases(
+            torch, graph, dt, randn, C.HIDDEN, C.N_HIDDEN)
+        ct_e, ct_agg = edge_bwd[12], edge_bwd[13]
+        ct_x = randn(n_pad, C.HIDDEN)
+        sv = HF.fused_edge_layer_save(*edge_args)
+        a8 = C.k8_args(edge_args, sv[2:], ct_e, ct_agg)
+        del sv
+        for key, t in zip(C.EDGE_GRADS, HF.fused_edge_layer_bwd_saved(*a8)):
+            hashes[f"k8_{key}[{dtype_name}]"] = digest(torch, t)
+        ma = C.mega_args(HM, edge_args, node_args)
+        x, agg = ma[3], HM.fused_mgn_layer(*ma)[2]
+        b9_args = (*ma[:4], agg, *ma[4:8], ct_e, ct_x, n_pad)
+        for key, t in zip(("d_e", "d_sg", "d_dproj", "d_x"),
+                          HM.fused_mgn_layer_bwd(*b9_args)):
+            hashes[f"k9bwd_{key}[{dtype_name}]"] = digest(torch, t)
+        for name, fn in (
+                ("fused_edge_bwd_saved",
+                 lambda: HF.fused_edge_layer_bwd_saved(*a8)),
+                ("fused_mgn_bwd", lambda: HM.fused_mgn_layer_bwd(*b9_args)),
+                ("k4_then_k2", lambda: HF.fused_edge_layer_bwd(
+                    *edge_args[:12], ct_e, HN.fused_node_layer_bwd(
+                        x, agg, *node_args[2:], ct_x)[1], n_pad))):
+            ms[f"{name}[{dtype_name}]"] = C.cuda_time_ms(torch, fn)
+            ms[f"{name}_host[{dtype_name}]"] = host_call_ms(torch, fn)
+            dev_ms[f"{name}[{dtype_name}]"] = kernels_ms(torch, fn)
+        del edge_args, edge_bwd, node_args, ma, a8, b9_args, x, agg
+        torch.cuda.empty_cache()
+    return ms, dev_ms, hashes
+
+
 def k5_streams(torch, C, sample, tight, dev) -> tuple:
     """K5 on the streams of its three call sites, both dtypes (seeded
     data): the sender backward's (the tight graph's sender stream,
@@ -393,6 +447,9 @@ def measure(tree: str, grads_path: str) -> dict:
     node_ms, out["k3_k9_kernels_ms"], node_hashes = k3_k9(torch, C, g)
     out["kernel_ms"].update(node_ms)
     hashes.update(node_hashes)
+    sw_ms, out["k8_k9bwd_kernels_ms"], sw_hashes = k8_k9bwd(torch, C, g)
+    out["kernel_ms"].update(sw_ms)
+    hashes.update(sw_hashes)
     out["k2_kernels_ms"], out["k4_kernels_ms"] = bwd_ms["k2"], bwd_ms["k4"]
     hashes.update(k5_hashes)
     hashes.update(bwd_hashes)

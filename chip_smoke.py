@@ -70,11 +70,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                saved against K2, K9-fwd against K1 -> K3 and K9-bwd against
                K4 -> K2 on the same inputs (max abs differences recorded),
                and the Loader / tight time of K2, K8, K9-fwd and K9-bwd,
-               at most 1.3, K9-fwd timed beside K1 -> K3 launched in turn;
-               K9-fwd's x', e' (real rows) and agg must be
-               bit-equal to K1 -> K3's (also with 0 and 10 hidden layers in
-               both chains) and to its own across 5 launches, K8's d_e,
-               d_sg, d_dproj to K2's; K9-fwd's plan and nvcc's report;
+               at most 1.3, K9-fwd timed beside K1 -> K3 and K9-bwd beside
+               K4 -> K2 launched in turn; K9-fwd's x', e' (real rows) and
+               agg must be bit-equal to K1 -> K3's, K9-bwd's d_e, d_sg,
+               d_dproj, d_x and weight matrices and bias gradients to
+               K4 -> K2's (its LayerNorm column sums within GRAD_TOL), both
+               also with 0 and 10 hidden layers in both chains, and each to
+               its own across 5 launches; all ten of K8's outputs to K2's;
+               K8's, K9-fwd's and K9-bwd's plans and nvcc's reports;
   4d. weighted2 — K10, the WEC pair probe of benchmarks/micro_wec2.py, at
                its shapes (the tight 65,536-node graph, h = 128, bf16
                messages, fp32 weights zero on pad edges): its timed run of
@@ -1993,6 +1996,8 @@ def phase_switched_kernels(torch, sample, tight):
             b9 = HM.fused_mgn_layer_bwd(*b9_args)
             k4 = HN.fused_node_layer_bwd(x, a9, *node_args[2:], ct_x)
             k2m = HF.fused_edge_layer_bwd(*edge_args[:12], ct_e, k4[1], n_pad)
+            k42 = (*k2m[:3], k4[0], dict(zip(HM.EDGE_KEYS, k2m[3:])),
+                   dict(zip(HM.NODE_KEYS, k4[2:])))
             torch.cuda.synchronize()
             if not same_bits(torch, sv[:2], k1):
                 raise AssertionError(f"K1 save variant {tag}: e' / agg "
@@ -2003,17 +2008,26 @@ def phase_switched_kernels(torch, sample, tight):
                              (x3, k1[0][real], k1[1])):
                 raise AssertionError(f"K9-fwd {tag}: x' / e' / agg differ "
                                      "from K1 -> K3's")
-            if not same_bits(torch, k8[:3], k2[:3]):
-                raise AssertionError(f"K8 {tag}: d_e / d_sg / d_dproj differ "
-                                     "from K2's")
+            # K8 runs K2's kernels on K2's grid from the activations K2
+            # recomputes (csrc/edge_bwd_rows.cuh): all ten outputs
+            for nm, a, b in zip(EDGE_GRADS, k8, k2):
+                if not same_bits(torch, a, b):
+                    raise AssertionError(f"K8 {tag}: {nm} differs from K2's")
+            check_mgn_bwd_bits(torch, f"K9-bwd {tag}", b9, k42, dtype_name)
             if name == "loader" and not (a9[n_pad - 1] == 0).all():
                 raise AssertionError(f"K9-fwd {tag}: the sink's agg is not 0")
-            # a missed ordering of e' before the block's sums would show as
+            # a missed ordering of e' before the block's sums (of d_agg
+            # before the edge chunks, of d_sg before d_dproj) would show as
             # bits that change from launch to launch
             for _ in range(5):
                 if not same_bits(torch, HM.fused_mgn_layer(*ma),
                                  (x9, e9, a9)):
                     raise AssertionError(f"K9-fwd {tag}: outputs differ "
+                                         "between launches on the same "
+                                         "inputs")
+                if not same_bits(torch, HM.fused_mgn_layer_bwd(*b9_args),
+                                 b9):
+                    raise AssertionError(f"K9-bwd {tag}: outputs differ "
                                          "between launches on the same "
                                          "inputs")
             r = {"K8_vs_K2": check_bwd(torch, f"K8 vs K2 {tag}", k8, k2,
@@ -2026,10 +2040,14 @@ def phase_switched_kernels(torch, sample, tight):
                      check_close(torch, f"K9-fwd vs K1 {tag} agg", a9, k1[1],
                                  dtype_name)),
                  "K9bwd_vs_K4K2": check_mgn_bwd(
-                     torch, f"K9-bwd vs K4 -> K2 {tag}", b9,
-                     (*k2m[:3], k4[0], dict(zip(HM.EDGE_KEYS, k2m[3:])),
-                      dict(zip(HM.NODE_KEYS, k4[2:]))), dtype_name)}
-            del k1, k8, k2, x3, k4, k2m
+                     torch, f"K9-bwd vs K4 -> K2 {tag}", b9, k42,
+                     dtype_name),
+                 "K9bwd_ln_bits": same_bits(
+                     torch, [b9[p][k] for p in (4, 5)
+                             for k in ("ln_scale", "ln_bias")],
+                     [k42[p][k] for p in (4, 5)
+                      for k in ("ln_scale", "ln_bias")])}
+            del k1, k8, k2, x3, k4, k2m, k42
             if name == "tight":
                 r.update(switched_against_plain(torch, tag, dtype_name, g,
                                                 edge_args, node_args, ma, sv,
@@ -2044,34 +2062,54 @@ def phase_switched_kernels(torch, sample, tight):
                 "K1K3": cuda_time_ms(torch, lambda: HN.fused_node_layer(
                     x, HF.fused_edge_layer(*edge_args)[1], *node_args[2:])),
                 "K9bwd": cuda_time_ms(
-                    torch, lambda: HM.fused_mgn_layer_bwd(*b9_args))}
-            r["K9fwd_vs_K1K3_depths"] = {
+                    torch, lambda: HM.fused_mgn_layer_bwd(*b9_args)),
+                "K4K2": cuda_time_ms(torch, lambda: HF.fused_edge_layer_bwd(
+                    *edge_args[:12], ct_e, HN.fused_node_layer_bwd(
+                        x, a9, *node_args[2:], ct_x)[1], n_pad))}
+            r["K9_vs_K1K3_K4K2_depths"] = {
                 nd: check_mega_depth(torch, g, tag, dtype_name, nd)
                 for nd in (0, 10)}
             if name == "tight":
                 props = torch.cuda.get_device_properties(dev)
-                plan = HM.mega_fwd_plan(
-                    g.num_edges_pad, n_pad, h, nh, nh, dt,
-                    props.multi_processor_count,
-                    props.shared_memory_per_block_optin)
-                r["K9fwd_plan"] = plan
-                log(f"[switched] fused_mgn_fwd {dtype_name} plan: grid "
-                    f"{plan['grid']} ({plan['waves']} waves), weights "
-                    f"{'resident' if plan['resident'] else 'in the ring'}, "
-                    f"dynamic shared memory {plan['smem_bytes']} B")
+                lim = (props.multi_processor_count,
+                       props.shared_memory_per_block_optin)
+                plans = {
+                    "fused_mgn_fwd": HM.mega_fwd_plan(
+                        g.num_edges_pad, n_pad, h, nh, nh, dt, *lim),
+                    "fused_mgn_bwd": HM.mega_bwd_plan(
+                        g.num_edges_pad, n_pad, h, nh, nh, dt, *lim),
+                    "fused_edge_bwd_saved": HF.edge_bwd_saved_plan(
+                        g.num_edges_pad, n_pad, h, nh, dt, *lim)}
+                r["plans"] = plans
+                for src, plan in plans.items():
+                    log(f"[switched] {src} {dtype_name} plan: grid "
+                        f"{plan['grid']}"
+                        + (f" ({plan['waves']} waves)" if "waves" in plan
+                           else "")
+                        + (f", weight gradients on {plan['edge_grid']} / "
+                           f"{plan['node_grid']} splits" if "edge_grid" in
+                           plan else "")
+                        + f", weights "
+                        f"{'resident' if plan['resident'] else 'in the ring'}"
+                        f", dynamic shared memory {plan['smem_bytes']} B"
+                        + (f", workspace {plan['ws_bytes']} B"
+                           if "ws_bytes" in plan else ""))
             rec[name][dtype_name] = r
             log(f"[switched] {tag}: E={g.num_edges_pad}, N={n_pad}; K2 "
                 f"{r['ms']['K2']:.3f} ms, K8 "
                 f"{r['ms']['K8']:.3f} ms, K9-fwd {r['ms']['K9fwd']:.3f} ms "
                 f"(K1 -> K3 in turn {r['ms']['K1K3']:.3f} ms), "
-                f"K9-bwd {r['ms']['K9bwd']:.3f} ms; max abs diff K8 vs K2 "
+                f"K9-bwd {r['ms']['K9bwd']:.3f} ms (K4 -> K2 in turn "
+                f"{r['ms']['K4K2']:.3f} ms); max abs diff K8 vs K2 "
                 f"{r['K8_vs_K2'][0]:.3e} (weight grads "
                 f"{r['K8_vs_K2'][1]:.3e} of max|p|), K9-fwd vs K1 -> K3 "
                 f"{r['K9fwd_vs_K1K3']:.3e}, K9-bwd vs K4 -> K2 "
                 f"{r['K9bwd_vs_K4K2'][0]:.3e} ({r['K9bwd_vs_K4K2'][1]:.3e}); "
                 f"the save variant's e', agg bit-equal to K1's, K9-fwd's to "
-                f"K1 -> K3's (also at 0 and 10 hidden layers) and across 5 "
-                f"launches, K8's activation gradients to K2's")
+                f"K1 -> K3's and K9-bwd's to K4 -> K2's (also at 0 and 10 "
+                f"hidden layers; its LayerNorm sums "
+                f"{'bit-equal' if r['K9bwd_ln_bits'] else 'within GRAD_TOL'}"
+                f") and across 5 launches, K8's ten outputs to K2's")
             del edge_args, edge_bwd, node_args, ma, sv, a8, x9, e9, a9, b9
             del b9_args
             torch.cuda.empty_cache()
@@ -2084,16 +2122,36 @@ def phase_switched_kernels(torch, sample, tight):
     over = {k: v for k, v in ratios.items() if v > 1.3}
     if over:
         raise AssertionError(f"Loader / tight time above 1.3: {over}")
-    for line in ptxas_lines("fused_mgn_fwd"):
-        log(f"[switched] fused_mgn_fwd ptxas: {line}")
+    for src in ("fused_edge_bwd_saved", "fused_mgn_fwd", "fused_mgn_bwd"):
+        for line in ptxas_lines(src):
+            log(f"[switched] {src} ptxas: {line}")
     return results, rec
 
 
+def check_mgn_bwd_bits(torch, name, got, ref, dtype_name):
+    """K9-bwd's outputs (d_e, d_sg, d_dproj, d_x, edge dict, node dict)
+    bit-equal to K4 -> K2's in ``ref``: the activation gradients, the
+    weight matrices and the bias gradients; the LayerNorm column sums
+    (ln_scale, ln_bias of both chains) within GRAD_TOL."""
+    for nm, a, b in zip(("d_e", "d_sg", "d_dproj", "d_x"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {nm} differs from K4 -> K2's")
+    for part, gd, rd in (("edge", got[4], ref[4]), ("node", got[5], ref[5])):
+        for k, r in rd.items():
+            if k in ("ln_scale", "ln_bias"):
+                check_grad(torch, f"{name} {part} {k}", gd[k], r,
+                           GRAD_TOL[dtype_name])
+            elif not torch.equal(gd[k], r):
+                raise AssertionError(f"{name}: {part} {k} differs from "
+                                     "K4 -> K2's")
+
+
 def check_mega_depth(torch, g, tag, dtype_name, nh):
-    """K9-fwd with ``nh`` hidden layers in both chains on graph ``g``: x',
-    e' (real rows) and agg bit-equal to K1 -> K3's on the same inputs (K1
-    and K3 are held to their plain versions at 10 hidden layers in phases
-    4 and 4b). Returns True."""
+    """K9 with ``nh`` hidden layers in both chains on graph ``g``: K9-fwd's
+    x', e' (real rows) and agg bit-equal to K1 -> K3's, and K9-bwd's
+    outputs to K4 -> K2's (check_mgn_bwd_bits), on the same inputs (K1-K4
+    are held to their plain versions at 10 hidden layers in phases 4 and
+    4b). Returns True."""
     from aero_gnn_tpu_torch.ops import hopper_fused as HF
     from aero_gnn_tpu_torch.ops import hopper_mega as HM
     from aero_gnn_tpu_torch.ops import hopper_node as HN
@@ -2118,6 +2176,16 @@ def check_mega_depth(torch, g, tag, dtype_name, nh):
     if not same_bits(torch, (x9, e9[real], a9), (x3, e1[real], a1)):
         raise AssertionError(f"K9-fwd {tag} n_hidden={nh}: x' / e' / agg "
                              "differ from K1 -> K3's")
+    ct_e, ct_x = randn(*e9.shape), randn(*x9.shape)
+    b9 = HM.fused_mgn_layer_bwd(*ma[:4], a9, *ma[4:8], ct_e, ct_x, ma[8])
+    k4 = HN.fused_node_layer_bwd(ma[3], a9, *node_args[2:], ct_x)
+    k2 = HF.fused_edge_layer_bwd(*edge_args[:12], ct_e, k4[1], ma[8])
+    torch.cuda.synchronize()
+    if not torch.isfinite(b9[3]).all():
+        raise AssertionError(f"K9-bwd {tag} n_hidden={nh}: non-finite d_x")
+    check_mgn_bwd_bits(torch, f"K9-bwd {tag} n_hidden={nh}", b9,
+                       (*k2[:3], k4[0], dict(zip(HM.EDGE_KEYS, k2[3:])),
+                        dict(zip(HM.NODE_KEYS, k4[2:]))), dtype_name)
     return True
 
 

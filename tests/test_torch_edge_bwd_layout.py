@@ -1,8 +1,8 @@
 """K2's launch layout, computed in Python and checked on the CPU: the
-weights' operand layout (one copy each, ``_build.edge_bwd_operands``, and
-the two-copy ``_build.mma_b_operands`` that K8 and K9 keep reading),
-the workspace plan (``hopper_fused.edge_bwd_plan``), and the widest row K7
-takes (``hopper_segment.weighted_max_width``). Weights from a numpy seed."""
+weights' operand layout (``_build.edge_bwd_operands``: bf16 one copy each,
+fp32 W and W^T), the workspace plan (``hopper_fused.edge_bwd_plan``), and
+the widest row K7 takes (``hopper_segment.weighted_max_width``). Weights
+from a numpy seed."""
 
 import numpy as np
 import pytest
@@ -43,20 +43,6 @@ def test_edge_bwd_operands_layout(dt, h, nh):
         assert got.shape == (nh + 2, 2, h, h)
         for m, w in enumerate(mats):
             assert torch.equal(got[m, 0], w) and torch.equal(got[m, 1], w.T)
-
-
-@pytest.mark.parametrize("dt,h,nh", CASES, ids=IDS)
-def test_mma_b_operands_unchanged(dt, h, nh):
-    """The two-copy layout K8 and K9 read ([m][0] forward, [m][1]
-    backward): K2's fp32 layout, and its forward half K2's bf16 one."""
-    w_e, ws, w_out = _weights(dt, h, nh)
-    pair = _build.mma_b_operands([w_e, ws, w_out])
-    assert pair.shape == (nh + 2, 2, h, h)
-    for m, w in enumerate([w_e, *ws, w_out]):
-        fwd, bwd = (w.T, w) if dt == torch.bfloat16 else (w, w.T)
-        assert torch.equal(pair[m, 0], fwd) and torch.equal(pair[m, 1], bwd)
-    k2 = _build.edge_bwd_operands([w_e, ws, w_out])
-    assert torch.equal(pair[:, 0] if dt == torch.bfloat16 else pair, k2)
 
 
 @pytest.mark.parametrize("dt,h,nh", CASES, ids=IDS)
