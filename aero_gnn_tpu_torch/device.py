@@ -26,4 +26,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev!r} (expected cuda or cpu)")
+    if dev.type == "cuda" and dev.index is None:
+        # the index tensors report, so device checks compare equal
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -5,14 +5,15 @@ Adam whose ``weight_decay`` adds ``wd * p`` to the gradient before the Adam
 update (what the JAX package builds as optax.chain(add_decayed_weights,
 adam)), the learning rate set on the optimizer from the host, masked MSE so
 pad nodes never reach the loss, ReduceLROnPlateau + early stopping stepped
-once per epoch. The entry points take a ``device``: the CUDA card unless the
-caller passes ``"cpu"``. Checkpoints (``training/checkpoint.py``) are not
-ported yet.
+once per epoch, periodic checkpoints with resume (``training/checkpoint.py``)
+and a JSONL metric log. The entry points take a ``device``: the CUDA card
+unless the caller passes ``"cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -21,10 +22,12 @@ import torch
 from aero_gnn_tpu_torch.data.batching import Loader
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
 from aero_gnn_tpu_torch.models.mgn import apply_model
+from aero_gnn_tpu_torch.training import checkpoint as C
 from aero_gnn_tpu_torch.training.schedulers import (
     EarlyStopping,
     ReduceLROnPlateau,
 )
+from aero_gnn_tpu_torch.utils.logging import MetricLogger
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -136,13 +139,15 @@ def fit(*, model_cfg, params, train_loader: Loader, val_loader: Loader,
         checkpoint_dir: Optional[str] = None,
         log_fn: Callable[[str], None] = print,
         device: DeviceLike = None) -> FitResult:
-    """The epoch loop: train, eval, plateau LR, early stop. ``params`` is
-    moved to ``device`` (CUDA unless ``"cpu"``) and trained in place; the
-    dropout masks of epoch k come from a generator seeded ``seed + k``."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoints (training/checkpoint.py) are not ported yet "
-            "(ROADMAP queue 1 item 5)")
+    """The epoch loop: train, eval, plateau LR, early stop, checkpoints.
+    ``params`` is moved to ``device`` (CUDA unless ``"cpu"``) and trained in
+    place; the dropout masks of epoch k come from a generator seeded
+    ``seed + k``. With ``checkpoint_dir``, every ``checkpoint_every``-th
+    epoch is saved there, the metrics go to ``checkpoint_dir/../
+    metrics.jsonl``, and ``resume`` restores the newest checkpoint's params
+    and optimizer state (its learning rate included) in place and continues
+    from its epoch with its loss history; the plateau and early-stop state
+    start fresh, as in the JAX package."""
     dev = resolve_device(device)
     params = params.to(dev)
     lr = training_config.get("learning_rate", 1e-3)
@@ -157,12 +162,25 @@ def fit(*, model_cfg, params, train_loader: Loader, val_loader: Loader,
     early = EarlyStopping(patience=training_config.get("patience", 200))
     use_early = bool(training_config.get("early_stopping", True))
     epochs = int(training_config.get("epochs", 0))
+    ckpt_every = int(training_config.get("checkpoint_every", 0) or 0)
 
     train_losses: List[float] = []
     val_losses: List[float] = []
     t0 = time.time()
     stopped = False
-    for epoch in range(epochs):
+    start_epoch = 0
+    metrics = MetricLogger(
+        os.path.join(checkpoint_dir, "..", "metrics.jsonl")
+        if checkpoint_dir else None)
+    if checkpoint_dir and training_config.get("resume"):
+        restored = C.restore_latest(checkpoint_dir, params, optimizer)
+        if restored is not None:
+            start_epoch, hist = restored
+            train_losses = list(hist.get("train_losses", []))
+            val_losses = list(hist.get("val_losses", []))
+            log_fn(f"resumed from checkpoint at epoch {start_epoch}")
+
+    for epoch in range(start_epoch, epochs):
         gen = torch.Generator(device=dev).manual_seed(seed + epoch)
         train_loss = run_epoch_train(fns, params, train_loader, gen)
         val_loss = run_epoch_eval(fns, params, val_loader)
@@ -173,10 +191,17 @@ def fit(*, model_cfg, params, train_loader: Loader, val_loader: Loader,
         if log_every and epoch % log_every == 0:
             log_fn(f"epoch {epoch:4d}  loss {train_loss:.6f}  "
                    f"val {val_loss:.6f}  lr {new_lr:.2e}")
+        metrics.log(epoch, train_loss=train_loss, val_loss=val_loss,
+                    lr=new_lr)
+        if checkpoint_dir and ckpt_every and (epoch + 1) % ckpt_every == 0:
+            C.save(checkpoint_dir, params, optimizer, epoch + 1,
+                   {"train_losses": train_losses, "val_losses": val_losses})
         if use_early and early.step(val_loss):
             log_fn(f"early stopping at epoch {epoch}")
             stopped = True
             break
+
+    metrics.close()
     return FitResult(params=params, optimizer=optimizer,
                      train_losses=train_losses, val_losses=val_losses,
                      epochs_run=len(train_losses), stopped_early=stopped,

@@ -101,6 +101,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                launch K1-K5 exactly 15 times each; the loss must be finite
                and fall over the bf16 steps; one warm bf16 step is
                profiled;
+  6b. cli    — the port's CLI (aero_gnn_tpu_torch.cli.main) on the card in
+               a temporary directory, from a YAML written from the port's
+               default.yaml: synthetic_mgn (the flagship MGN, 15 layers,
+               width 128, on the synthetic airfoil set of 24 cases x 256
+               points, batch 4) cut to 2 epochs with a checkpoint every
+               epoch, in fp32 and, on a model entry with compute_dtype
+               bfloat16, in bf16: train (the artifact files, the
+               checkpoints, the post-train inference's errors.txt), infer
+               3 times (the same TEST_MEAN line), resume to 3 epochs
+               (resumed at epoch 2, the first 2 losses kept); the counts
+               set to 0 before each run and held after it to K1-K5 15 per
+               train step, K1 and K3 15 per forward (validation and
+               inference), every other kernel 0; every test case served
+               from the run directory through the kernels against the
+               plain path (fp32 within 1e-3, bf16 within TOL); seconds
+               per epoch and ms per infer request printed beside the
+               card's name and power limit;
   7. bsms serve — the flagship BSMS (3 bistride scales, WeightedEdgeConv,
                fp32) served through AeroInference(needs_hierarchy=True) for
                the three meshes, each through its own Loader (num_scales=3):
@@ -136,8 +153,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                steps and 1 fp32 step, each launching K9-fwd, K9-bwd and K5
                15 times and K1-K4 0); one bf16 step profiled.
 
-With both switches unset (phases 3-9) every forward and step launches K8,
-K9 and K10 0 times.
+With both switches unset (phases 3-9, 6b included) every forward and step
+launches K8, K9 and K10 0 times.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or aero_gnn_tpu is imported.
@@ -1425,6 +1442,270 @@ def phase_train(torch, sample, graph):
     return launches, record
 
 
+# phase cli: the CLI's flagship experiment (default.yaml synthetic_mgn: the
+# synthetic airfoil set of 24 cases x 256 points, batch 4, test_split 0.2)
+# cut to 2 epochs, checkpointed every epoch, then resumed to 3
+CLI_EPOCHS = 2
+CLI_FILES = ("model_weights.pkl", "normalization_stats.npz",
+             "experiment_params.json", "training_losses.json",
+             "training_summary.txt", "metrics.jsonl")
+# predictions of a served run directory against the plain path
+CLI_TOL = {"float32": SERVE_TOL, "bfloat16": TOL["bfloat16"]}
+CLI_INFERS = 3
+
+
+def cli_config(path: str) -> dict:
+    """Write the port's default.yaml with the phase's experiments to
+    ``path``: synthetic_mgn uncut (15 x 128, 24 cases x 256 points) with
+    2 epochs, a checkpoint every epoch and no early stop, in fp32 and, on a
+    model entry named by MGN's other alias ``mgn`` with ``compute_dtype:
+    bfloat16`` (experiment keys only override keys of a base section), in
+    bf16; each with a resume variant to 3 epochs. Returns {dtype: (train
+    experiment, resume experiment)}."""
+    import yaml
+
+    from aero_gnn_tpu_torch import cli
+
+    with open(cli.DEFAULT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["mgn"] = dict(cfg["model"]["meshgraphnet"],
+                               compute_dtype="bfloat16")
+    base = dict(cfg["experiments"]["synthetic_mgn"], epochs=CLI_EPOCHS,
+                checkpoint_every=1, early_stopping=False)
+    names = {}
+    for dtype, model in (("float32", "meshgraphnet"), ("bfloat16", "mgn")):
+        exp = dict(base, model=model)
+        cfg["experiments"][f"cli_{dtype}"] = exp
+        cfg["experiments"][f"cli_{dtype}_resume"] = dict(
+            exp, epochs=CLI_EPOCHS + 1, resume=True)
+        names[dtype] = (f"cli_{dtype}", f"cli_{dtype}_resume")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return names
+
+
+def cli_run(torch, argv, want: dict, label: str):
+    """``aero_gnn_tpu_torch.cli.main(argv)`` with the counts set to 0 first
+    and held to ``want`` after; its output is captured. Returns (seconds,
+    output)."""
+    import io
+
+    from aero_gnn_tpu_torch import cli
+
+    zero_counters()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_counters()
+    if got != want:
+        raise AssertionError(f"cli {label}: launches {got}, expected {want}")
+    return secs, out.getvalue()
+
+
+def cli_launches(steps: int, forwards: int) -> dict:
+    """K1 and K3 once per layer per train step or forward, K2, K4, K5 once
+    per layer per train step, every other kernel 0."""
+    return expect(fused_edge_fwd=LAYERS * (steps + forwards),
+                  fused_node_fwd=LAYERS * (steps + forwards),
+                  fused_edge_bwd=LAYERS * steps,
+                  fused_node_bwd=LAYERS * steps, segment_sum=LAYERS * steps)
+
+
+def cli_report(out: str) -> str:
+    """errors.txt of the inference a CLI run reports in its output."""
+    tag = "Inference complete! Results saved to: "
+    dirs = [ln[len(tag):] for ln in out.splitlines() if ln.startswith(tag)]
+    if len(dirs) != 1:
+        raise AssertionError(f"cli: {len(dirs)} inference reports in the "
+                             f"output, expected one:\n{out[-2000:]}")
+    with open(os.path.join(dirs[0], "errors.txt")) as f:
+        return f.read()
+
+
+def cli_against_plain(torch, run_dir: str, dtype: str, dev):
+    """Serve ``run_dir`` as infer does (its experiment, statistics and
+    model_weights.pkl) through the kernels and through the plain path
+    (use_backend("torch")) on the card; every test case's normalised
+    predictions within CLI_TOL. Comparison launches: not counted on the
+    main path. Then one warm forward and one train step (a copy of the
+    weights, Adam, the first training batch) under the profiler. Returns
+    (max abs err, ms per forward, {"forward": profile, "step": profile}).
+    """
+    import json
+
+    import numpy as np
+
+    from aero_gnn_tpu_torch import cli, ops
+    from aero_gnn_tpu_torch.data.batching import Loader
+    from aero_gnn_tpu_torch.data.dataset import create_datasets
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+    from aero_gnn_tpu_torch.models.registry import build_model
+    from aero_gnn_tpu_torch.training import checkpoint as C
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    with open(os.path.join(run_dir, "experiment_params.json")) as f:
+        exp = json.load(f)
+    train, _, test, _ = create_datasets(cli.load_samples(exp),
+                                        dataset_type=exp["dataset"]["name"],
+                                        params=exp)
+    cfg = build_model(exp["model"], cli.infer_dims(test))
+    if cfg.compute_dtype != dtype:
+        raise AssertionError(f"cli: {run_dir} computes in "
+                             f"{cfg.compute_dtype}, expected {dtype}")
+    eng = AeroInference(
+        cfg, C.load_params(os.path.join(run_dir, "model_weights.pkl"), cfg,
+                           device=dev),
+        C.load_norm_stats(os.path.join(run_dir, "normalization_stats.npz")),
+        exp, device=dev)
+    atol, rtol = CLI_TOL[dtype]
+    worst, times = 0.0, []
+    for i, (g, aux) in enumerate(Loader(test, 1, device=dev)):
+        got = eng.predict_batch(g, aux)[0][2]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.predict(g)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        before = read_counters()
+        with ops.use_backend("torch"):
+            ref = eng.predict_batch(g, aux)[0][2]
+        if read_counters() != before:
+            raise AssertionError("the plain path launched a kernel")
+        err = np.abs(got - ref)
+        if not np.isfinite(got).all() or \
+                (err > atol + rtol * np.abs(ref)).any():
+            raise AssertionError(
+                f"cli {dtype} test case {i} vs plain path: max abs err "
+                f"{err.max():.3e} beyond atol={atol} rtol={rtol}")
+        worst = max(worst, float(err.max()))
+    profiles = {"forward": phase_profile(torch, f"cli {dtype} forward",
+                                         lambda: eng.predict(g), top=4)}
+    params = C.load_params(os.path.join(run_dir, "model_weights.pkl"), cfg,
+                           device=dev)
+    fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3), device=dev)
+    batch = next(iter(Loader(train, int(exp["training"]["batch_size"]),
+                             device=dev)))[0]
+    profiles["step"] = phase_profile(
+        torch, f"cli {dtype} train step",
+        lambda: fns.train_step(params, batch), top=4)
+    return worst, statistics.median(times) * 1e3, profiles
+
+
+def phase_cli(torch, smi: str):
+    """The port's CLI on the card (module docstring, phase 6b): train ->
+    infer -> resume of synthetic_mgn per dtype through
+    aero_gnn_tpu_torch.cli.main, the artifact contract, the launch gates of
+    every run, the served predictions against the plain path. Returns
+    ({dtype: {run: launches}}, the record)."""
+    import json
+    import tempfile
+
+    from aero_gnn_tpu_torch import cli
+    from aero_gnn_tpu_torch.config.config import resolve_experiment
+    from aero_gnn_tpu_torch.data.dataset import create_datasets
+    from aero_gnn_tpu_torch.device import resolve_device
+
+    dev = resolve_device(None)  # the card, as the CLI's default
+    launches, record = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        config = os.path.join(tmp, "cli.yaml")
+        for dtype, (exp, exp_resume) in cli_config(config).items():
+            params = resolve_experiment(config, exp)
+            train, val, test, _ = create_datasets(
+                cli.load_samples(params),
+                dataset_type=params["dataset"]["name"], params=params)
+            bs = int(params["training"]["batch_size"])
+            steps = -(-len(train) // bs)
+            val_fwd = -(-len(val) // max(1, min(bs, len(val))))
+            run = os.path.join(tmp, f"run_{dtype}")
+            args = ["--config", config, "--output_dir", run]
+            # train: CLI_EPOCHS epochs and the post-train inference; infer:
+            # the test forwards; resume: one epoch and the inference
+            want = launches[dtype] = {
+                "train": cli_launches(CLI_EPOCHS * steps,
+                                      CLI_EPOCHS * val_fwd + len(test)),
+                "infer": cli_launches(0, len(test)),
+                "resume": cli_launches(steps, val_fwd + len(test))}
+            train_s, out = cli_run(torch, ["train", "--exp", exp] + args,
+                                   want["train"], f"{dtype} train")
+            missing = [f for f in CLI_FILES
+                       if not os.path.exists(os.path.join(run, f))]
+            if missing or "Error during inference" in out:
+                raise AssertionError(f"cli {dtype} train: missing {missing}"
+                                     f"\n{out[-2000:]}")
+            ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+            if ckpts != [f"ckpt_{e:08d}.pt"
+                         for e in range(1, CLI_EPOCHS + 1)]:
+                raise AssertionError(f"cli {dtype}: checkpoints {ckpts}")
+            with open(os.path.join(run, "training_losses.json")) as f:
+                first = json.load(f)
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                epoch_t = [json.loads(line)["time"] for line in f]
+            post = cli_report(out)
+            # infer from the run directory, CLI_INFERS times
+            infer_s = []
+            for _ in range(CLI_INFERS):
+                secs, out = cli_run(torch,
+                                    ["infer", "--training_dir", run],
+                                    want["infer"], f"{dtype} infer")
+                infer_s.append(secs)
+                report = cli_report(out)
+                if report.splitlines()[0] != post.splitlines()[0]:
+                    raise AssertionError(
+                        f"cli {dtype}: infer's TEST_MEAN line differs from "
+                        f"the post-train inference's:\n{report}\n{post}")
+            worst, fwd_ms, profiles = cli_against_plain(torch, run, dtype,
+                                                        dev)
+            # resume: one more epoch from the last checkpoint
+            resume_s, out = cli_run(
+                torch, ["train", "--exp", exp_resume] + args,
+                want["resume"], f"{dtype} resume")
+            with open(os.path.join(run, "training_losses.json")) as f:
+                resumed = json.load(f)
+            if f"resumed from checkpoint at epoch {CLI_EPOCHS}" not in out \
+                    or resumed["total_epochs"] != CLI_EPOCHS + 1 \
+                    or resumed["train_losses"][:CLI_EPOCHS] != \
+                    first["train_losses"]:
+                raise AssertionError(f"cli {dtype} resume: {resumed}\n"
+                                     f"{out[-2000:]}")
+            losses = resumed["train_losses"]
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"cli {dtype}: losses {losses}")
+            epoch_s = [b - a for a, b in zip([0.0] + epoch_t, epoch_t)]
+            infer_ms = statistics.median(infer_s) * 1e3
+            rec = record[dtype] = {
+                "split": [len(train), len(val), len(test)],
+                "steps_per_epoch": steps, "epoch_s": epoch_s,
+                "train_s": train_s, "infer_ms": [s * 1e3 for s in infer_s],
+                "infer_ms_median": infer_ms, "forward_ms": fwd_ms,
+                "resume_s": resume_s, "losses": losses,
+                "test_mean": post.splitlines()[0],
+                "max_abs_err_vs_plain": worst, "profiles": profiles}
+            log(f"[cli] {dtype}: split {rec['split']}, {steps} steps of "
+                f"{bs} x 256-node graphs an epoch; train {train_s:.2f} s "
+                f"({CLI_EPOCHS} epochs: {epoch_s[0]:.3f} s, then "
+                f"{epoch_s[-1]:.3f} s with the previous epoch's checkpoint "
+                f"write, + post-train inference); "
+                f"infer {infer_ms:.1f} ms per request (median of "
+                f"{CLI_INFERS}; {fwd_ms:.2f} ms per forward); resume "
+                f"{resume_s:.2f} s; losses "
+                f"{', '.join(f'{v:.5f}' for v in losses)}; {smi}")
+            log(f"[cli] {dtype}: launches per run (K1-K5 {LAYERS} per step, "
+                f"K1 and K3 {LAYERS} per forward, others 0): "
+                + ", ".join(f"{name} {({k: v for k, v in w.items() if v})}"
+                            for name, w in want.items()))
+            log(f"[cli] {dtype}: {len(test)} test cases served from the run "
+                f"directory vs the plain path: max abs err {worst:.3e} "
+                f"(atol={CLI_TOL[dtype][0]}, rtol={CLI_TOL[dtype][1]}); "
+                f"{rec['test_mean']}")
+    return launches, record
+
+
 def bsms_requests(torch, samples, dev):
     """Each sample through its own BSMS Loader (3 scales, bistride): the
     (sample, GraphBatch, aux) of the request and the host seconds that the
@@ -2589,6 +2870,7 @@ def main() -> int:
     kernels.append(k10)
     launches, serve_ms = phase_serve(torch, graphs)
     train_launches, train_record = phase_train(torch, *graphs[0])
+    cli_counts, cli_record = phase_cli(torch, smi)
     bsms_serve, bsms_serve_record = phase_bsms_serve(torch, requests)
     bsms_train, bsms_train_record = phase_bsms_train(torch, *requests[0])
     del requests
@@ -2650,6 +2932,9 @@ def main() -> int:
                 k["launches"] = trained
             k["launches_train"] = trained
             k["launches_per_train_step"] = trained / TRAIN_STEPS[dtype]
+            # the CLI's train (2 epochs + inference), infer and resume runs
+            k["launches_cli"] = {run: counts[base]
+                                 for run, counts in cli_counts[dtype].items()}
             if dtype == "float32":  # the BSMS path computes in fp32
                 k["launches_bsms_serve"] = bsms_serve[base]
                 k["launches_bsms_train"] = bsms_train[base]
@@ -2664,6 +2949,7 @@ def main() -> int:
                        "serve_ms": serve_ms,
                        "train": train_record,
                        "train_launches": train_launches, "tail": tail,
+                       "cli": cli_record, "cli_launches": cli_counts,
                        "k7": k7_record, "bsms_host": bsms_host,
                        "bsms_serve": bsms_serve_record,
                        "bsms_serve_launches": bsms_serve,

@@ -22,10 +22,18 @@ for m in pkgutil.walk_packages(aero_gnn_tpu_torch.__path__,
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "aero_gnn_tpu"))
-print("imported", len([n for n in sys.modules
-                       if n.startswith("aero_gnn_tpu_torch")]))
+print(" ".join(sorted(n for n in sys.modules
+                      if n.startswith("aero_gnn_tpu_torch"))))
 assert not bad, bad
 """
+
+# modules the walk must reach: the CLI path's (config, data I/O, reports,
+# persistence) besides the model and kernel modules
+_MUST_IMPORT = ("cli", "config.config", "data.vtk_core", "data.vtk_geometry",
+                "data.vtk_reader", "data.vtk_writer", "data.mesh_io",
+                "inference.aero_coeffs", "inference.rollout",
+                "training.checkpoint", "training.artifacts",
+                "utils.logging")
 
 
 def test_import_pulls_in_no_jax():
@@ -35,7 +43,11 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    imported = set(out.stdout.split())
+    assert len(imported) >= 15
+    missing = [m for m in _MUST_IMPORT
+               if f"aero_gnn_tpu_torch.{m}" not in imported]
+    assert not missing, missing
 
 
 def _imported_roots(path: Path):
@@ -209,3 +221,17 @@ def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
                    val_loader=loader, training_config={"epochs": 1},
                    needs_hierarchy=True, log_fn=lambda _: None, device="cpu")
     assert res.epochs_run == 1
+
+
+def test_default_device_is_the_indexed_current_card(monkeypatch):
+    """None / "cuda" resolve to the current card with its index, the device
+    tensors report, so the entry points' device checks (make_step_fns,
+    apply_model) compare equal on the card."""
+    from aero_gnn_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -227,10 +227,6 @@ def test_fit_on_cpu_and_dropout():
                  log_fn=logs.append, device="cpu")
     assert res.epochs_run == 4 and len(logs) == 4
     assert res.train_losses[-1] < res.train_losses[0]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TL.fit(model_cfg=cfg, params=res.params, train_loader=loader,
-               val_loader=loader, training_config={}, checkpoint_dir="ck",
-               device="cpu")
     # dropout acts only with a generator; the same seed, the same masks
     g = next(iter(loader))[0]
     with torch.no_grad():
@@ -242,6 +238,60 @@ def test_fit_on_cpu_and_dropout():
             res.params, g, generator=torch.Generator().manual_seed(5))
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], plain)
     assert torch.equal(no_drop, plain)
+
+
+def test_checkpoint_resume(tmp_path):
+    """fit(checkpoint_dir=, resume) as the JAX package's
+    (tests/test_training.py::test_checkpoint_resume): 4 epochs saved every
+    2, then a resumed run to 6 continues from epoch 4 with the saved
+    history, params and Adam state restored in place; metrics.jsonl beside
+    the checkpoint directory."""
+    import json
+    import os
+
+    from aero_gnn_tpu_torch.training import checkpoint as C
+
+    tsam = [TS.make_random_mesh_sample(n_nodes=200, seed=i) for i in range(4)]
+    TD.compute_features(tsam, ["mach", "alpha"])
+    cfg = MGNConfig(**{**_SMALL, "processor_size": 2})
+    ckpt = str(tmp_path / "ckpt")
+    common = dict(model_cfg=cfg,
+                  train_loader=TB.Loader(tsam, 2, shuffle=True,
+                                         device="cpu"),
+                  val_loader=TB.Loader(tsam[:2], 2, device="cpu"),
+                  log_every=0, log_fn=lambda _: None, checkpoint_dir=ckpt,
+                  device="cpu")
+    base = {"learning_rate": 1e-3, "checkpoint_every": 2,
+            "early_stopping": False}
+    r1 = TL.fit(params=cfg.init(0, device="cpu"),
+                training_config=dict(base, epochs=4), **common)
+    assert sorted(os.listdir(ckpt)) == ["ckpt_00000002.pt",
+                                        "ckpt_00000004.pt"]
+    saved = {n: p.detach().clone() for n, p in r1.params.named_parameters()}
+    logs = []
+    fresh = cfg.init(1, device="cpu")
+    r2 = TL.fit(params=fresh, training_config=dict(base, epochs=6,
+                                                   resume=True),
+                **dict(common, log_fn=logs.append))
+    assert logs[0] == "resumed from checkpoint at epoch 4"
+    assert r2.epochs_run == 6  # 4 restored + 2 new
+    assert r2.train_losses[:4] == r1.train_losses
+    assert len(r2.val_losses) == 6
+    # the newest checkpoint is epoch 6's; epoch 4's holds r1's params, and
+    # the resumed Adam carried its step count on (6 epochs of 2 steps)
+    probe = cfg.init(2, device="cpu")
+    assert C.restore_latest(ckpt, probe,
+                            TL.make_optimizer(probe, 1e-3))[0] == 6
+    payload = torch.load(os.path.join(ckpt, "ckpt_00000004.pt"),
+                         weights_only=True)
+    probe.load_state_dict(payload["params"])
+    for n, p in probe.named_parameters():
+        assert torch.equal(p, saved[n]), n
+    assert {int(st["step"]) for st in r2.optimizer.state.values()} == {12}
+    lines = [json.loads(ln) for ln in open(tmp_path / "metrics.jsonl")]
+    assert [ln["step"] for ln in lines] == [0, 1, 2, 3, 4, 5]
+    assert all({"train_loss", "val_loss", "lr", "time"} <= set(ln)
+               for ln in lines)
 
 
 def test_engine_casts_once_and_serves_without_grad():
