@@ -80,6 +80,11 @@ class HierarchyLevel:
     node_pool_sorted: Optional[torch.Tensor] = None  # i32[Nf]
     edge_pool_perm: Optional[torch.Tensor] = None  # i32[Ef]
     edge_pool_sorted: Optional[torch.Tensor] = None  # i32[Ef]
+    # rows of each sorted pool stream before the run of pad rows keyed by
+    # a pad last coarse id (with_pool_perms); the whole stream where the
+    # last coarse id is real
+    node_pool_live: Optional[int] = None
+    edge_pool_live: Optional[int] = None
 
     @property
     def edges_aligned(self) -> bool:
@@ -136,17 +141,30 @@ def _replace(level: HierarchyLevel, **fields) -> HierarchyLevel:
 # host-side builders (numpy)
 # ---------------------------------------------------------------------------
 
+def _pool_live(ids_sorted: np.ndarray, coarse_mask: np.ndarray) -> int:
+    """Rows of a sorted pool stream before its pad rows: every pad fine row
+    routes to the last coarse slot, so where that slot is itself a pad (no
+    real fine row maps there) its run ends the stream and adds nothing to
+    a masked operand; else the whole stream."""
+    n = coarse_mask.shape[0]
+    if coarse_mask[-1] != 0:
+        return len(ids_sorted)
+    return int(np.searchsorted(ids_sorted, n - 1))
+
+
 def with_pool_perms(level: HierarchyLevel) -> HierarchyLevel:
     """Attach the sorted-pooling permutations (stable argsort of the final
-    fine_to_coarse / edge_to_coarse)."""
+    fine_to_coarse / edge_to_coarse) and the rows of each before its pad
+    tail."""
     f2c = _np(level.fine_to_coarse)
     e2c = _np(level.edge_to_coarse)
     npp = np.argsort(f2c, kind="stable").astype(np.int32)
     epp = np.argsort(e2c, kind="stable").astype(np.int32)
-    return _replace(level, node_pool_perm=npp,
-                    node_pool_sorted=f2c[npp].astype(np.int32),
-                    edge_pool_perm=epp,
-                    edge_pool_sorted=e2c[epp].astype(np.int32))
+    nps, eps = f2c[npp].astype(np.int32), e2c[epp].astype(np.int32)
+    return _replace(level, node_pool_perm=npp, node_pool_sorted=nps,
+                    edge_pool_perm=epp, edge_pool_sorted=eps,
+                    node_pool_live=_pool_live(nps, _np(level.node_mask)),
+                    edge_pool_live=_pool_live(eps, _np(level.edge_mask)))
 
 
 def _geometric_weights(senders: np.ndarray, receivers: np.ndarray,

@@ -27,15 +27,31 @@ Dtypes: the JAX package's BSMS never casts its parameters or inputs to
 a float32 input times bfloat16 weights to float32, so its BSMS computes in
 float32 whatever ``compute_dtype`` says. The port does the same: the
 parameters are cast up to float32 (a cast autograd sees) and the inputs
-taken as float32. The JAX env knobs AERO_GNN_WEC_FUSED, AERO_GNN_WEC_DTYPE
-and AERO_GNN_SORTED_POOL are not ported; the port implements their
-defaults (weight folded into the aggregation, fp32 weights, unsorted
-pools).
+taken as float32.
+
+Two switches, read at call time from the JAX package's environment names
+and off by default, as there:
+
+  * ``AERO_GNN_SORTED_POOL=1``: the down path's node and edge pools run as
+    ``ops.segment_pool_sum`` over the level's pool permutations (kernel K5
+    on the cuda backend, in place of ``index_add_``), each stream cut
+    before its pad tail (``HierarchyLevel.node_pool_live`` /
+    ``edge_pool_live``: every pool operand is masked to zero there), and
+    the up path's unpool as ``ops.gather_senders`` over them (a sorted
+    segment sum for its backward);
+  * ``AERO_GNN_WEC_FUSED=0``: the WEC multiplies ``ce * x[senders]`` in its
+    own pass and aggregates it with ``ops.aggregate_edges`` (K5 on an
+    aligned stream) in place of K7.
+
+The JAX package's third, ``AERO_GNN_WEC_DTYPE=compute``, casts the WEC's
+weights to the data's dtype: the identity while BSMS computes in float32,
+in both packages, so the port does not read it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -55,7 +71,12 @@ from aero_gnn_tpu_torch.models.mgn import (
 )
 from aero_gnn_tpu_torch.nn import blocks as B
 from aero_gnn_tpu_torch.nn import mlp as M
-from aero_gnn_tpu_torch.ops.scatter import gather, segment_mean, segment_sum
+from aero_gnn_tpu_torch.ops.scatter import (
+    gather,
+    segment_mean,
+    segment_pool_sum,
+    segment_sum,
+)
 
 
 class Stream(NamedTuple):
@@ -76,10 +97,34 @@ class Stream(NamedTuple):
                    g.sender_perm, g.senders_sorted, g.edges_aligned)
 
 
+def _wec_fused_enabled() -> bool:
+    """AERO_GNN_WEC_FUSED (default on): the weight folded into K7's
+    aggregation; 0 multiplies the [E, h] stream in its own pass."""
+    return os.environ.get("AERO_GNN_WEC_FUSED", "1") == "1"
+
+
+def _sorted_pool_enabled() -> bool:
+    """AERO_GNN_SORTED_POOL=1 (default off): the hierarchy transfers in
+    sorted order (ops.segment_pool_sum, the sorted unpool)."""
+    return os.environ.get("AERO_GNN_SORTED_POOL", "0") == "1"
+
+
+def _wec_sum(st: Stream, x, ce, ids, rows):
+    """sum over the rows of ``ids`` of ce * x[rows]: K7 with the weight
+    folded in, or (AERO_GNN_WEC_FUSED=0) the weighted rows in their own
+    pass summed by ops.aggregate_edges. The weights are zero on pad rows,
+    so the pad sink's rows add nothing."""
+    if _wec_fused_enabled():
+        return ops.aggregate_edges_weighted(x, ce, ids, x.shape[0],
+                                            aligned=st.aligned, rows=rows)
+    return ops.aggregate_edges(ce[:, None] * gather(x, rows), ids,
+                               x.shape[0], aggregation="add",
+                               aligned=st.aligned, pad_sink=True)
+
+
 def _wec_A_raw(st: Stream, x, cs, ce):
     """A x: the receiver-sorted WeightedEdgeConv aggregation."""
-    return cs[:, None] * x + ops.aggregate_edges_weighted(
-        x, ce, st.receivers, x.shape[0], aligned=st.aligned, rows=st.senders)
+    return cs[:, None] * x + _wec_sum(st, x, ce, st.receivers, st.senders)
 
 
 def _wec_At_raw(st: Stream, y, cs, ce, ce_t):
@@ -94,9 +139,7 @@ def _wec_At_raw(st: Stream, y, cs, ce, ce_t):
                                              y.shape[0])
     recv_s = gather(st.receivers, st.sender_perm)
     ce_s = gather(ce, st.sender_perm)
-    return cs[:, None] * y + ops.aggregate_edges_weighted(
-        y, ce_s, st.senders_sorted, y.shape[0], aligned=st.aligned,
-        rows=recv_s)
+    return cs[:, None] * y + _wec_sum(st, y, ce_s, st.senders_sorted, recv_s)
 
 
 class _WecA(torch.autograd.Function):
@@ -143,11 +186,16 @@ def wec_aggregate(level: HierarchyLevel, x: torch.Tensor, senders, receivers,
 
 
 def wec_down(level: HierarchyLevel, x: torch.Tensor, senders, receivers,
-             sperm=None, ssort=None, aligned: bool = False) -> torch.Tensor:
+             sperm=None, ssort=None, aligned: bool = False,
+             pool=None) -> torch.Tensor:
     """Weighted fine -> coarse node transfer: the conv, then each coarse
-    node's representative fine node (rep_mask) pooled by fine_to_coarse."""
+    node's representative fine node (rep_mask) pooled by fine_to_coarse
+    (``pool``, the model's pool of the node rows, in place of the plain
+    segment sum)."""
     agg = wec_aggregate(level, x, senders, receivers, sperm, ssort, aligned)
     sel = agg * level.rep_mask.to(agg.dtype)[:, None]
+    if pool is not None:
+        return pool(sel)
     return segment_sum(sel, level.fine_to_coarse,
                        level.num_coarse_nodes_pad)
 
@@ -236,21 +284,27 @@ class BSMSConfig(MGNConfig):
         for s, level in enumerate(hierarchy):
             x, e = self._process(params.down[s], x, e, st)
             skips.append((x, e, st))
-            nc, ec = level.num_coarse_nodes_pad, level.num_coarse_edges_pad
+            pool_nodes, pool_edges = _pools(level)
             if weighted:
                 x = wec_down(level, x, st.senders, st.receivers,
-                             st.sender_perm, st.senders_sorted, st.aligned)
+                             st.sender_perm, st.senders_sorted, st.aligned,
+                             pool=pool_nodes)
                 w_e = level.edge_weights * st.edge_mask
-                es = segment_sum(e * w_e[:, None], level.edge_to_coarse, ec)
-                wsum = segment_sum(w_e, level.edge_to_coarse, ec)
+                es = pool_edges(e * w_e[:, None])
+                wsum = pool_edges(w_e)
                 e = es / torch.clamp(wsum, min=1e-12)[:, None]
             else:
-                xs = segment_sum(x * st.node_mask[:, None],
-                                 level.fine_to_coarse, nc)
-                cnt = segment_sum(st.node_mask, level.fine_to_coarse, nc)
+                xs = pool_nodes(x * st.node_mask[:, None])
+                cnt = pool_nodes(st.node_mask)
                 x = xs / torch.clamp(cnt, min=1.0)[:, None]
-                e = segment_mean(e, level.edge_to_coarse, ec,
-                                 mask=st.edge_mask)
+                if _sorted(level):
+                    es = pool_edges(e * st.edge_mask[:, None])
+                    ecnt = pool_edges(st.edge_mask)
+                    e = es / torch.clamp(ecnt, min=1.0)[:, None]
+                else:
+                    e = segment_mean(e, level.edge_to_coarse,
+                                     level.num_coarse_edges_pad,
+                                     mask=st.edge_mask)
             st = Stream.of(level)
 
         x, e = self._process(params.bottleneck, x, e, st)
@@ -258,13 +312,46 @@ class BSMSConfig(MGNConfig):
         for i in range(len(hierarchy)):
             level = hierarchy[-(i + 1)]
             skip_x, skip_e, st = skips[-(i + 1)]
-            xc = gather(x, level.fine_to_coarse)
+            if _sorted(level):
+                # the unpool with a sorted segment sum for its backward
+                xc = ops.gather_senders(x, level.fine_to_coarse,
+                                        level.node_pool_perm,
+                                        level.node_pool_sorted,
+                                        aligned=False)
+            else:
+                xc = gather(x, level.fine_to_coarse)
             if weighted:
                 xc = wec_up(level, xc, st.senders, st.receivers,
                             st.sender_perm, st.senders_sorted, st.aligned)
             x, e = self._process(params.up[i], xc + skip_x, skip_e, st)
         return M.mlp_apply(params.decoder, x,
                            activation=self.activation).float()
+
+
+def _sorted(level: HierarchyLevel) -> bool:
+    """Whether the level's transfers run in sorted order."""
+    return _sorted_pool_enabled() and level.node_pool_perm is not None
+
+
+def _pools(level: HierarchyLevel):
+    """(pool of fine node rows, pool of fine edge rows) onto the level's
+    coarse graph: sorted (ops.segment_pool_sum) under
+    AERO_GNN_SORTED_POOL=1, else the plain segment sum. The sorted pools
+    stop before each stream's pad tail, whose rows every pool operand
+    masks to zero (so K5 does not walk that one long run)."""
+    nc, ec = level.num_coarse_nodes_pad, level.num_coarse_edges_pad
+    if _sorted(level):
+        n_live, e_live = level.node_pool_live, level.edge_pool_live
+        return (lambda v: segment_pool_sum(
+                    v, level.fine_to_coarse, nc,
+                    perm=level.node_pool_perm[:n_live],
+                    seg_sorted=level.node_pool_sorted[:n_live]),
+                lambda v: segment_pool_sum(
+                    v, level.edge_to_coarse, ec,
+                    perm=level.edge_pool_perm[:e_live],
+                    seg_sorted=level.edge_pool_sorted[:e_live]))
+    return (lambda v: segment_sum(v, level.fine_to_coarse, nc),
+            lambda v: segment_sum(v, level.edge_to_coarse, ec))
 
 
 class BSMS(ModelParams):

@@ -14,25 +14,33 @@ too, LayerNorm statistics stay fp32 and the output is fp32. Parameters that
 are already in the compute dtype (``AeroInference`` casts once, at
 construction) are used as they are.
 
-Rematerialisation (``remat``): the fused layer's autograd Functions already
-save only the layer inputs plus sg / d_proj / agg, the set the JAX
-"save_fused" policy keeps, so "save_fused" on the fused path checkpoints
-nothing; "full", and any policy on the unfused path, recompute each layer
-in the backward (``torch.utils.checkpoint``). The same holds on the
-switched paths (``AERO_GNN_SAVE_ACTS``: the save variant's activations
-zs / d / mu / inv in place of sg / d_proj; ``AERO_GNN_MEGA``: the inputs
-and agg of the single-kernel layer): under "save_fused" their Functions
-keep those residuals, where JAX, whose policy names only sg / d_proj /
-agg, re-runs the forward kernel under ``jax.checkpoint``. The gradients
-are the same; only memory and time differ. ``remat_group`` > 1 and
-``remat_offload`` are not ported (ROADMAP queue 1); ``unroll`` has no
-meaning in an eager loop.
+Rematerialisation (``remat``, ``checkpointed_layer_stack``): the fused
+layer's autograd Functions already save only the layer inputs plus sg /
+d_proj / agg, the set the JAX "save_fused" policy keeps, so "save_fused" on
+the fused path checkpoints nothing; "full", and any policy on the unfused
+path, recompute each layer in the backward (``torch.utils.checkpoint``,
+non-reentrant). The same holds on the switched paths
+(``AERO_GNN_SAVE_ACTS``: the save variant's activations zs / d / mu / inv
+in place of sg / d_proj; ``AERO_GNN_MEGA``: the inputs and agg of the
+single-kernel layer): under "save_fused" their Functions keep those
+residuals, where JAX, whose policy names only sg / d_proj / agg, re-runs the
+forward kernel under ``jax.checkpoint``. The gradients are the same; only
+memory and time differ.
+
+Grouped remat (``remat_group`` > 1, the large-mesh path): an outer
+checkpoint per group of ``remat_group`` layers keeps only the group's input
+(x, e); inside it the per-layer policy ``remat_group_policy`` ("full",
+"save_fused", or "save_fused:N": save_fused in the first N groups, full in
+the rest), and the node and edge encoders are checkpointed too, their
+dropout replayed from the generator's state. ``remat_offload`` keeps each
+group's input in pinned host memory from the forward until that group's
+backward. ``unroll`` has no meaning in an eager loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -66,15 +74,22 @@ class MGNConfig:
     # encoder dropout, applied only when apply() is given a generator
     dropout: float = 0.0
     do_concat_trick: bool = False
-    # memory knobs of the backward pass (module docstring); remat_group > 1
-    # and remat_offload raise NotImplementedError, unroll and
-    # remat_group_policy have no effect
+    # memory knobs of the backward pass (module docstring,
+    # checkpointed_layer_stack). remat: recompute in the backward;
+    # remat_policy: per layer, "save_fused" (the fused Functions' own
+    # residuals, no checkpoint) or "full" (a checkpoint per layer)
     remat: bool = True
     remat_policy: str = "save_fused"
+    # > 1: checkpoint groups of this many layers (it must divide
+    # processor_size), keeping only each group's input (x, e); 0 = off
     remat_group: int = 0
+    # keep the group inputs in pinned host memory (needs remat_group > 1)
     remat_offload: bool = False
+    # the per-layer policy inside a group: "full", "save_fused" or
+    # "save_fused:N" (save_fused in the first N groups, full in the rest)
     remat_group_policy: str = "full"
     compute_dtype: str = "float32"
+    # no effect: an eager loop has nothing to unroll
     unroll: bool = False
     # one decoder MLP per output field, outputs concatenated field-wise
     separate_decoders: bool = False
@@ -123,19 +138,24 @@ class MGNConfig:
     def _forward(self, params: "MeshGraphNet", graph: GraphBatch,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
         cd = self.compute_dtype
-        x = M.mlp_apply(params.node_encoder, _cast(graph.x, cd),
-                        activation=self.activation, dropout=self.dropout,
-                        generator=generator)
-        e = M.mlp_apply(params.edge_encoder, _cast(graph.edge_attr, cd),
-                        activation=self.activation, dropout=self.dropout,
-                        generator=generator)
+        # near the memory limit the encoders' [E, h] activations are GBs
+        # too: grouped remat recomputes them (JAX mgn.py:160-165)
+        grouped = (self.remat and self.remat_group > 1
+                   and torch.is_grad_enabled())
+        x = _encode(params, "node_encoder", _cast(graph.x, cd), self,
+                    generator, grouped)
+        e = _encode(params, "edge_encoder", _cast(graph.edge_attr, cd),
+                    self, generator, grouped)
         x, e = run_processor(params.layers, self.layer_cfg, x, e,
                              graph.senders, graph.receivers,
                              _cast(graph.edge_mask, cd),
                              sender_perm=graph.sender_perm,
                              senders_sorted=graph.senders_sorted,
                              aligned=graph.edges_aligned, remat=self.remat,
-                             remat_policy=self.remat_policy)
+                             remat_policy=self.remat_policy,
+                             remat_group=self.remat_group,
+                             remat_offload=self.remat_offload,
+                             remat_group_policy=self.remat_group_policy)
         if self.separate_decoders:
             out = torch.cat([M.mlp_apply(d, x, activation=self.activation)
                              for d in params.decoder], dim=-1)
@@ -180,17 +200,11 @@ def mgn_base(cfg: MGNConfig, input_node_dim: int) -> MGNConfig:
 
 
 def check_apply(cfg, params: nn.Module, graph: GraphBatch) -> None:
-    """The checks every model's apply makes: parameters on the graph's
-    device and, for the configs with remat (the MGN family), no remat
-    variant that is not ported."""
+    """The check every model's apply makes: parameters on the graph's
+    device."""
     if params.device != graph.device:
         raise ValueError(f"params are on {params.device}, the graph on "
                          f"{graph.device}")
-    if getattr(cfg, "remat", False) and (cfg.remat_group > 1
-                                         or cfg.remat_offload):
-        raise NotImplementedError(
-            "remat_group > 1 and remat_offload (grouped / host-offloaded "
-            "remat) are not ported yet (ROADMAP queue 1)")
 
 
 class MeshGraphNet(ModelParams):
@@ -248,34 +262,218 @@ def run_processor(layers: nn.ModuleList, layer_cfg: B.MGNLayerConfig,
                   sender_perm: Optional[torch.Tensor] = None,
                   senders_sorted: Optional[torch.Tensor] = None,
                   aligned: bool = False, remat: bool = False,
-                  remat_policy: str = "save_fused"):
-    """The residual MP layers in order; returns (x, e). With ``remat`` (and
-    grad mode on) each layer is recomputed in the backward unless the
-    policy is "save_fused" on the fused path (module docstring)."""
-    fused = B.uses_fused_layer(layer_cfg, x, receivers, edge_mask, aligned)
-    recompute = (remat and torch.is_grad_enabled()
-                 and (remat_policy != "save_fused" or not fused))
+                  remat_policy: str = "save_fused", remat_group: int = 0,
+                  remat_offload: bool = False,
+                  remat_group_policy: str = "full"):
+    """The residual MP layers in order; returns (x, e). The remat knobs as
+    in checkpointed_layer_stack."""
     graph_args = (senders, receivers, edge_mask, sender_perm, senders_sorted,
                   aligned)
-    for layer in layers:
-        if not recompute:
-            x, e = B.mgn_layer_apply(layer, layer_cfg, x, e, *graph_args)
-            continue
-        # the layer's (possibly cast) parameters enter the checkpoint as
-        # inputs, so the recompute sees the same tensors as the forward
-        names, tensors = zip(*layer.named_parameters())
-        x, e = torch.utils.checkpoint.checkpoint(
-            _layer_with, layer, layer_cfg, names, graph_args, x, e, *tensors,
-            use_reentrant=False)
-    return x, e
+
+    def body(carry, layer):
+        return B.mgn_layer_apply(layer, layer_cfg, *carry, *graph_args)
+
+    return checkpointed_layer_stack(
+        body, (x, e), layers, remat=remat, remat_policy=remat_policy,
+        remat_group=remat_group, remat_offload=remat_offload,
+        remat_group_policy=remat_group_policy,
+        fused=B.uses_fused_layer(layer_cfg, x, receivers, edge_mask,
+                                 aligned))
 
 
-def _layer_with(layer: B.MGNLayer, layer_cfg: B.MGNLayerConfig, names,
-                graph_args, x, e, *tensors):
-    """mgn_layer_apply of ``layer`` with its parameters set to ``tensors``."""
-    return torch.func.functional_call(
-        layer, dict(zip(names, tensors)),
-        (B.mgn_layer_apply, layer_cfg, x, e, *graph_args))
+def checkpointed_layer_stack(body, carry: Tuple[torch.Tensor, ...], layers,
+                             *, remat: bool = True,
+                             remat_policy: str = "save_fused",
+                             remat_group: int = 0,
+                             remat_offload: bool = False,
+                             remat_group_policy: str = "full",
+                             fused: bool = False):
+    """``carry = body(carry, layer)`` for each layer of ``layers`` (modules
+    whose ``forward(fn, *args)`` is ``fn(self, *args)``, as MGNLayer's),
+    under the checkpoint scheme of the remat knobs (JAX mgn.py:194-364);
+    ``carry`` is a tuple of tensors. ``fused`` says that body's autograd
+    Functions keep just the residuals JAX's "save_fused" policy names (sg /
+    d_proj / agg), so that policy needs no checkpoint of its own.
+
+    * per layer (``remat_group`` <= 1): a checkpoint per layer, unless the
+      policy is "save_fused" and ``fused``;
+    * grouped (``remat_group`` > 1): an outer checkpoint per group of
+      ``remat_group`` layers keeps only the group's input carry; inside it
+      each layer is checkpointed under ``remat_group_policy`` "full", and
+      as per-layer "save_fused" under "save_fused"; "save_fused:N" applies
+      save_fused to the first N groups and full to the rest;
+    * ``remat_offload`` (grouped only): each group's input carry is kept in
+      pinned host memory from the forward until that group's backward,
+      whose recompute copies it back to the card. As in JAX's offload
+      branch (mgn.py:236-242), the inner policy is then save_fused under
+      "save_fused" only; "save_fused:N" runs full in every group.
+
+    Every checkpoint takes the layers' parameters as inputs, so the
+    recompute sees the tensors of the forward (the compute-dtype casts).
+    Nothing is checkpointed with grad mode off. ValueError when
+    ``remat_offload`` is set without ``remat_group`` > 1 or when
+    ``remat_group`` does not divide the layer count."""
+    layers = list(layers)
+    if remat and remat_offload and remat_group <= 1:
+        raise ValueError("remat_offload requires remat_group > 1 (the "
+                         "offload streams GROUP boundaries to host)")
+    if remat and remat_group > 1 and len(layers) % remat_group:
+        raise ValueError(f"remat_group={remat_group} must divide the layer "
+                         f"count {len(layers)}")
+    if not (remat and torch.is_grad_enabled()):
+        for layer in layers:
+            carry = body(carry, layer)
+        return carry
+    if remat_group <= 1:
+        recompute = remat_policy != "save_fused" or not fused
+        for layer in layers:
+            carry = (_checkpointed_layer(body, carry, layer,
+                                         *_params_of(layer))
+                     if recompute else body(carry, layer))
+        return carry
+    n_sf = _save_fused_groups(remat_group_policy, len(layers) // remat_group,
+                              remat_offload)
+    for g, start in enumerate(range(0, len(layers), remat_group)):
+        carry = _checkpointed_group(body, carry,
+                                    layers[start:start + remat_group],
+                                    recompute=g >= n_sf or not fused,
+                                    offload=remat_offload)
+    return carry
+
+
+def _save_fused_groups(policy: str, groups: int, offload: bool) -> int:
+    """How many leading groups take the save_fused inner policy."""
+    if policy == "save_fused":
+        return groups
+    if policy.startswith("save_fused:") and not offload:
+        return int(policy.split(":", 1)[1])
+    return 0
+
+
+def _params_of(module: nn.Module):
+    """(names, tensors) of ``module``'s parameters as it holds them now."""
+    pairs = tuple(module.named_parameters())
+    return tuple(n for n, _ in pairs), tuple(t for _, t in pairs)
+
+
+def _call_with(module: nn.Module, names, tensors, fn, *args):
+    """``fn(module, *args)`` with ``module``'s parameters ``names`` set to
+    ``tensors`` (its forward must be ``fn(self, *args)``)."""
+    return torch.func.functional_call(module, dict(zip(names, tensors)),
+                                      (fn, *args))
+
+
+def _layer_body(layer: nn.Module, body, carry):
+    return body(carry, layer)
+
+
+def _checkpointed_layer(body, carry, layer, names, tensors):
+    n = len(carry)
+
+    def run(*flat):
+        return _call_with(layer, names, flat[n:], _layer_body, body,
+                          tuple(flat[:n]))
+
+    return torch.utils.checkpoint.checkpoint(run, *carry, *tensors,
+                                             use_reentrant=False)
+
+
+def _checkpointed_group(body, carry, group, *, recompute: bool,
+                        offload: bool):
+    """One group under its outer checkpoint, each layer under the inner
+    policy (``recompute``: a checkpoint per layer). With ``offload`` the
+    checkpoint's saved input is a pinned host copy of the carry: the
+    forward runs on the device carry it was copied from (so the gradient
+    stays on the card), the recompute on the host copy moved back."""
+    params = [_params_of(layer) for layer in group]
+    flat_params = [t for _, ts in params for t in ts]
+    n = len(carry)
+
+    def run(*flat):
+        c, rest = tuple(flat[:n]), flat[n:]
+        for layer, (names, ts) in zip(group, params):
+            ts, rest = rest[:len(ts)], rest[len(ts):]
+            c = (_checkpointed_layer(body, c, layer, names, ts) if recompute
+                 else _call_with(layer, names, ts, _layer_body, body, c))
+        return c
+
+    if not offload:
+        return torch.utils.checkpoint.checkpoint(run, *carry, *flat_params,
+                                                 use_reentrant=False)
+    device = carry[0].device
+    needs_grad = [t.requires_grad for t in carry]
+    forward_carry = [carry]  # handed to the first call only
+
+    def run_from_host(*flat):
+        if forward_carry:
+            c = forward_carry.pop()
+        else:
+            c = tuple(t.to(device, non_blocking=True).detach()
+                      .requires_grad_(r)
+                      for t, r in zip(flat[:n], needs_grad))
+        return run(*c, *flat[n:])
+
+    host = tuple(_to_host(t.detach()) for t in carry)
+    return torch.utils.checkpoint.checkpoint(run_from_host, *host,
+                                             *flat_params,
+                                             use_reentrant=False)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of a CUDA tensor, copied on the current stream
+    (a CPU tensor is already in host memory)."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _encode(params: nn.Module, name: str, a: torch.Tensor, cfg,
+            generator: Optional[torch.Generator],
+            checkpointed: bool) -> torch.Tensor:
+    """The encoder MLP ``params.<name>`` on ``a``; ``checkpointed``
+    recomputes it in the backward, its dropout masks drawn again from the
+    generator's state before the forward (torch.utils.checkpoint restores
+    only the global RNG)."""
+
+    def run(root, a):
+        return M.mlp_apply(getattr(root, name), a, activation=cfg.activation,
+                           dropout=cfg.dropout, generator=generator)
+
+    if not checkpointed:
+        return run(params, a)
+    names, tensors = _params_of(getattr(params, name))
+    names = tuple(f"{name}.{n}" for n in names)
+    replay = _replaying(run, generator)
+
+    def fn(a, *ts):
+        return _call_with(params, names, ts, replay, a)
+
+    return torch.utils.checkpoint.checkpoint(fn, a, *tensors,
+                                             use_reentrant=False)
+
+
+def _replaying(fn, generator: Optional[torch.Generator]):
+    """``fn`` whose calls after the first draw from ``generator`` what the
+    first drew, and leave it where they found it."""
+    if generator is None:
+        return fn
+    start = generator.get_state()
+    calls = []
+
+    def run(*args):
+        if not calls:
+            calls.append(1)
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return run
 
 
 def _cast(a: Optional[torch.Tensor], dtype: str) -> Optional[torch.Tensor]:

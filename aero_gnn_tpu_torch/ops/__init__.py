@@ -35,6 +35,7 @@ from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     graph_pool,
     segment_max,
     segment_mean,
+    segment_pool_sum,
     segment_sum,
     segment_sum_masked,
     segment_sum_sorted,

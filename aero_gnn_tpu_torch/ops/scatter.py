@@ -32,7 +32,10 @@ declares it.
 ``segment_sum`` / ``segment_mean`` / ``segment_max`` over ids in any order
 (the BSMS pools, the per-graph pools ``graph_pool`` / ``graph_broadcast``
 of poolMGN and MGNv2) stay plain ops with PyTorch's autograd: the JAX
-package leaves them to XLA.
+package leaves them to XLA. ``segment_pool_sum`` is the same sum taken in
+sorted order through a host-built permutation (the BSMS sorted pools):
+forward on kernel K5 with the permutation as its ``rows`` (its plain
+version on CPU tensors or the torch backend), backward a plain gather.
 """
 
 from __future__ import annotations
@@ -279,6 +282,44 @@ def segment_sum_weighted(data: torch.Tensor, weights: torch.Tensor,
         data.contiguous(), weights.float().contiguous(), segment_ids,
         None if mask is None else mask.to(data.dtype).contiguous(),
         None if rows is None else rows.contiguous(), num_segments)
+
+
+class _SegmentPoolSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, seg_ids, perm, seg_sorted, num_segments,
+                use_kernel):
+        ctx.save_for_backward(seg_ids)
+        if not use_kernel:
+            return HS.segment_sum_ref(data, seg_sorted, num_segments,
+                                      rows=perm)
+        # K5 reads data[perm[i]] itself; a 1-D operand is one column
+        out = HS.segment_sum(data.reshape(data.shape[0], -1).contiguous(),
+                             seg_sorted, num_segments, rows=perm)
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, ct):
+        # the transpose of sum-pooling is the unpool broadcast
+        (seg_ids,) = ctx.saved_tensors
+        return gather(ct, seg_ids), None, None, None, None, None
+
+
+def segment_pool_sum(data: torch.Tensor, seg_ids: torch.Tensor,
+                     num_segments: int, *, perm: torch.Tensor,
+                     seg_sorted: torch.Tensor) -> torch.Tensor:
+    """Segment sum over ``seg_ids`` in any order through the host-built
+    stable sort ``perm`` (``seg_sorted = seg_ids[perm]``; HierarchyLevel
+    carries both, ``graph.hierarchy.with_pool_perms``): the sorted sum of
+    ``data[perm]`` by ``seg_sorted``, [R, *] -> [num_segments, *], with the
+    plain gather ``ct[seg_ids]`` as its backward. ``perm`` / ``seg_sorted``
+    may be a prefix of the sort: the caller declares the rows past it zero
+    (the BSMS pools' pad tails). On the cuda backend a
+    CUDA tensor takes kernel K5 (``rows = perm``: no permuted copy of the
+    data; deterministic, where ``segment_sum``'s ``index_add_`` is not),
+    else the plain version. No pad sink: a pool's ids are not the aligned
+    layout's."""
+    return _SegmentPoolSum.apply(data, seg_ids, perm, seg_sorted,
+                                 num_segments, _backend() == "cuda")
 
 
 def degree(segment_ids: torch.Tensor, num_segments: int, *,

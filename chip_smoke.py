@@ -153,6 +153,49 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                steps and 1 fp32 step, each launching K9-fwd, K9-bwd and K5
                15 times and K1-K4 0); one bf16 step profiled.
 
+  8b. bsms_switches — the flagship BSMS under each of the JAX package's
+               transfer switches that the port reads
+               (AERO_GNN_SORTED_POOL=1, AERO_GNN_WEC_FUSED=0): first K5
+               in its pool use (ops.segment_pool_sum over the pool stream
+               cut before its pad tail, as the model calls it) at the fine
+               level's shapes (node rows x 128, edge rows x 128, the edge
+               weight sums x 1, fp32) against its plain version over the
+               whole stream, bit-equal across launches, timed beside its
+               bound, index_add_ (the default pool's call, which K5 must
+               not be slower than) and torch.sparse.mm of the pool's CSR
+               matrix; then per switch 2
+               requests served (within 1e-3 of the plain path with every
+               switch off; K1, K3 15 a forward, K5 6 more under the sorted
+               pools, K5 4 in place of K7's 4 under WEC_FUSED=0), one fp32
+               step's gradients against the plain path and 2 steps (K1-K4
+               15, K5 15 + 6 or 15 + 8, K7 8 or 0);
+  12. remat  — on the tight 65,536-node graph, bf16 and fp32: one step's
+               parameter gradients under grouped remat (remat_group 3
+               "save_fused:2", 3 "full", 3 "save_fused:2" with
+               remat_offload, 5 "save_fused") against per-layer remat's
+               (bit-equal, else within GRAD_TOL and listed), the loss equal,
+               K1 and K3 launched remat_forwards() times a step, K2, K4, K5
+               15; a forward without grad under remat_group 3 launches K1
+               and K3 15 times;
+  13. large  — first K1 and K3 (forward) and K2, K4 and K5 (backward)
+               against their plain versions on the 1,048,576-node mesh's
+               tight aligned layout, bf16 and fp32 (an fp32 [E, 128]
+               operand there is past 2^31 bytes), K2, K4, K5 bit-equal
+               across launches; then the flagship MGN trained on that
+               graph through make_step_fns, one warm step and
+               timed steps (CUDA events, utils.profiling.Throughput, the
+               peak of utils.profiling.device_memory_stats): (a) bf16
+               remat_group 3 "save_fused:2" (bench.py's choice at this
+               size), (c) (a)'s knobs with remat_offload (its inner
+               policy then full in every group, as JAX's), (b) bf16
+               remat_group 3
+               "full", (d) fp32 as (a), and per-layer bf16 "save_fused" as
+               the memory reference; launches gated per step, the bf16
+               first losses equal; (c)'s peak below (b)'s (the same inner
+               policy without the offload) by at least 2 bf16 group
+               boundaries; utils.profiling.trace of one (a) step
+               writes a trace file.
+
 With both switches unset (phases 3-9, 6b included) every forward and step
 launches K8, K9 and K10 0 times.
 
@@ -252,6 +295,27 @@ SAVE_ACTS_STEPS = {"bfloat16": 5, "float32": 2}
 MEGA_STEPS = {"bfloat16": 3, "float32": 1}
 # micro_wec2.py's K: dual launches in the probe's timed run
 WEC2_PAIRS = 30
+# phase large: the flagship MGN at 1,048,576 nodes, where bench.py:164-196
+# turns on grouped remat (remat_group 3; "save_fused:2" above 786,432
+# nodes); (label, compute dtype, remat knobs, timed steps after one warm
+# step). "per_layer" (per-layer "save_fused", no groups) is the memory
+# reference.
+LARGE_NODES = 1048576
+GROUPED = dict(remat_group=3, remat_group_policy="save_fused:2")
+LARGE_RUNS = (("a", "bfloat16", GROUPED, 2),
+              ("c", "bfloat16", dict(GROUPED, remat_offload=True), 2),
+              ("b", "bfloat16", dict(remat_group=3, remat_group_policy="full"),
+               2),
+              ("d", "float32", GROUPED, 1),
+              ("per_layer", "bfloat16", {}, 2))
+# phase remat: the same schemes on the 65,536-node graph, and 3 groups of 5
+REMAT_RUNS = (("a", GROUPED), ("b", dict(remat_group=3,
+                                         remat_group_policy="full")),
+              ("c", dict(GROUPED, remat_offload=True)),
+              ("g5", dict(remat_group=5, remat_group_policy="save_fused")))
+# phase bsms_switches: each BSMS transfer switch of the JAX package
+BSMS_SWITCHES = (("sorted_pool", "AERO_GNN_SORTED_POOL", "1"),
+                 ("wec_unfused", "AERO_GNN_WEC_FUSED", "0"))
 
 
 def log(msg: str) -> None:
@@ -2177,11 +2241,12 @@ def phase_zoo(torch, requests):
 
 
 @contextlib.contextmanager
-def knob(name: str):
+def knob(name: str, value: str = "1"):
     """The JAX package's switch ``name`` (an environment variable the port
-    reads at call time) set to 1 inside the block, restored after."""
+    reads at call time) set to ``value`` inside the block, restored
+    after."""
     old = os.environ.get(name)
-    os.environ[name] = "1"
+    os.environ[name] = value
     try:
         yield
     finally:
@@ -2821,6 +2886,469 @@ def phase_weighted2(torch, graph):
     return entry, rec
 
 
+def remat_forwards(kw: dict) -> int:
+    """K1 (and K3) launches in one training step of the flagship MGN on the
+    fused path under the remat knobs ``kw`` (remat on): each layer's
+    forward once; under per-layer "full" each layer once more; a
+    save_fused group replays its layers once; a full group replays all but
+    its last layer (the replay stops at the last layer's inner checkpoint,
+    whose saved inputs are the last tensors the group saved), then each
+    inner checkpoint replays its layer; the offload runs "save_fused:N" as
+    full, as the JAX package's does (tests/test_torch_remat.py counts the
+    same on the CPU)."""
+    g = kw.get("remat_group", 0)
+    if g <= 1:
+        full = kw.get("remat_policy", "save_fused") != "save_fused"
+        return 2 * LAYERS if full else LAYERS
+    policy = kw.get("remat_group_policy", "full")
+    groups = LAYERS // g
+    n_sf = (groups if policy == "save_fused" else
+            int(policy.split(":")[1]) if policy.startswith("save_fused:")
+            and not kw.get("remat_offload") else 0)
+    return n_sf * 2 * g + (groups - n_sf) * (3 * g - 1)
+
+
+def remat_step_want(kw: dict) -> dict:
+    n = remat_forwards(kw)
+    return expect(fused_edge_fwd=n, fused_node_fwd=n, fused_edge_bwd=LAYERS,
+                  fused_node_bwd=LAYERS, segment_sum=LAYERS)
+
+
+def large_config(dtype: str, **kw):
+    """The flagship MGN with remat on (``kw``: the grouped knobs)."""
+    from aero_gnn_tpu_torch.models.mgn import MGNConfig
+
+    return MGNConfig(**dict(FLAGSHIP, remat=True, compute_dtype=dtype, **kw))
+
+
+def step_grads(torch, cfg, params, graph):
+    """(loss, {name: gradient}, launches) of one step's forward and
+    backward (no optimizer), the counts set to 0 first."""
+    from aero_gnn_tpu_torch.training.loop import masked_mse
+
+    params.zero_grad(set_to_none=True)
+    zero_counters()
+    loss = masked_mse(cfg.apply(params, graph), graph.y, graph.node_mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    grads = {n: p.grad.clone() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, launches
+
+
+def phase_remat(torch, graph):
+    """Grouped and offloaded remat against per-layer remat on the 65,536-node
+    tight graph (module docstring, phase 12). Returns the record."""
+    record = {}
+    for dtype in ("bfloat16", "float32"):
+        ref_cfg = large_config(dtype)
+        params = ref_cfg.init(torch.Generator().manual_seed(0),
+                              device=graph.device)
+        loss0, ref, launches = step_grads(torch, ref_cfg, params, graph)
+        if launches != remat_step_want({}):
+            raise AssertionError(f"remat per-layer {dtype}: launches "
+                                 f"{launches}")
+        rec = {"per_layer": {"loss": loss0}}
+        for label, kw in REMAT_RUNS:
+            cfg = large_config(dtype, **kw)
+            loss, grads, launches = step_grads(torch, cfg, params, graph)
+            want = remat_step_want(kw)
+            if launches != want:
+                raise AssertionError(f"remat {label} {dtype}: launches "
+                                     f"{launches}, expected {want}")
+            if loss != loss0:
+                raise AssertionError(f"remat {label} {dtype}: loss {loss} "
+                                     f"!= per-layer remat's {loss0}")
+            differ = [n for n, g in grads.items()
+                      if not torch.equal(g, ref[n])]
+            for n in differ:
+                check_grad(torch, f"remat {label} {dtype} grad {n}",
+                           grads[n], ref[n], GRAD_TOL[dtype])
+            rec[label] = {"knobs": kw, "launches_k1": want["fused_edge_fwd"],
+                          "grads_not_bit_equal": differ}
+            log(f"[remat] {dtype} {label} {kw}: K1 and K3 "
+                f"{want['fused_edge_fwd']}, K2, K4, K5 {LAYERS} launches a "
+                f"step; loss equal; {len(grads) - len(differ)} of "
+                f"{len(grads)} parameter gradients bit-equal to per-layer "
+                f"remat's" + (f", the others within GRAD_TOL: {differ}"
+                              if differ else ""))
+        cfg = large_config(dtype, **GROUPED)
+        zero_counters()
+        with torch.no_grad():
+            out = cfg.apply(params, graph)
+            plain = ref_cfg.apply(params, graph)
+        torch.cuda.synchronize()
+        fwd = expect(fused_edge_fwd=2 * LAYERS, fused_node_fwd=2 * LAYERS)
+        if read_counters() != fwd or not torch.equal(out, plain):
+            raise AssertionError(f"remat {dtype}: a forward without grad "
+                                 f"under remat_group=3 launched "
+                                 f"{read_counters()} in two forwards or "
+                                 "differs from per-layer remat's")
+        log(f"[remat] {dtype}: a forward without grad under remat_group=3 "
+            f"launches K1 and K3 {LAYERS} times (no checkpoint), "
+            "bit-equal to per-layer remat's")
+        record[dtype] = rec
+        del params
+        torch.cuda.empty_cache()
+    return record
+
+
+def check_large_kernels(torch, g):
+    """K1 and K3 forward, K2, K4 and K5 backward against their plain
+    versions on the 1,048,576-node graph ``g``, both dtypes, on bwd_cases'
+    random inputs: an fp32 [E, 128] operand there is 2.15 GB, past 2^31
+    bytes, where a 32-bit byte offset would wrap. Returns {dtype: max abs
+    errors}."""
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops.scatter import degree
+
+    dev, N = g.device, g.num_nodes_pad
+    real = g.edge_mask > 0
+    empty = degree(g.receivers, N, mask=g.edge_mask) == 0
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(4321)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dt)
+
+        edge_args, edge_bwd, node_args, node_bwd, seg = bwd_cases(
+            torch, g, dt, randn, HIDDEN, N_HIDDEN)
+        ek, ak = HF.fused_edge_layer(*edge_args)
+        ep, ap = HF.fused_edge_layer_ref(*edge_args)
+        torch.cuda.synchronize()
+        err_e = check_close(torch, f"K1 large {dtype_name} e'", ek, ep,
+                            dtype_name, rows=real)
+        err_a = check_close(torch, f"K1 large {dtype_name} agg", ak, ap,
+                            dtype_name)
+        if not (ak[empty] == 0).all():
+            raise AssertionError(f"K1 large {dtype_name}: agg rows of nodes "
+                                 "without a real edge are not exactly 0")
+        del ek, ak, ep, ap
+        xk = HN.fused_node_layer(*node_args)
+        xp = HN.fused_node_layer_ref(*node_args)
+        torch.cuda.synchronize()
+        err_x = check_close(torch, f"K3 large {dtype_name} x'", xk, xp,
+                            dtype_name)
+        del xk, xp, edge_args, node_args
+        e2, e4, e5 = check_backward_kernels(
+            torch, f"large {dtype_name}", dtype_name, g, edge_bwd, node_bwd,
+            seg)
+        out[dtype_name] = {"K1": max(err_e, err_a), "K3": err_x,
+                           "K2": e2, "K4": e4, "K5": e5}
+        log(f"[large] kernels {dtype_name} on {g.num_edges_pad} edge rows / "
+            f"{N} nodes against their plain versions: K1 max abs err "
+            f"{max(err_e, err_a):.3e}, K3 {err_x:.3e}, K2 {e2[0]:.3e} "
+            f"(weight grads {e2[1]:.3e} of max|p|), K4 {e4[0]:.3e} "
+            f"({e4[1]:.3e}), K5 {e5:.3e}; K2, K4, K5 bit-equal across "
+            "launches")
+        del edge_bwd, node_bwd, seg
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_large(torch, dev, smi):
+    """The flagship MGN trained at 1,048,576 nodes (module docstring, phase
+    13). Returns {label: launches} and the record."""
+    import tempfile
+
+    from aero_gnn_tpu_torch.training import loop as TL
+    from aero_gnn_tpu_torch.utils import profiling as PR
+
+    t0 = time.perf_counter()
+    sample, g = flagship_graph(0, dev, n_nodes=LARGE_NODES)
+    host_s = time.perf_counter() - t0
+    live = int(g.edge_mask.sum())
+    # one group boundary (x, e) in bf16
+    boundary = (g.num_nodes_pad + g.num_edges_pad) * HIDDEN * 2
+    log(f"[large] {smi}: a mesh of {sample.num_nodes} nodes, "
+        f"{sample.num_edges} edges: {g.num_nodes_pad} padded nodes, "
+        f"{g.num_edges_pad} edge rows ({live} live), built in {host_s:.1f} "
+        f"s on the host; a bf16 group boundary (x, e) is "
+        f"{boundary / 1e9:.3f} GB")
+    record = {"nodes_pad": g.num_nodes_pad, "edge_rows": g.num_edges_pad,
+              "live_edges": live, "host_s": host_s,
+              "boundary_bytes": boundary,
+              "kernels": check_large_kernels(torch, g)}
+    launches, first_loss = {}, None
+    for label, dtype, kw, n_timed in LARGE_RUNS:
+        cfg = large_config(dtype, **kw)
+        params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+        fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                               device=dev)
+        want = remat_step_want(kw)
+        meter = PR.Throughput(edges_per_step=sample.num_edges,
+                              nodes_per_step=sample.num_nodes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counters()
+        losses, ms = [], []
+        for i in range(1 + n_timed):
+            before = read_counters()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = fns.train_step(params, g)
+            b.record()
+            b.synchronize()
+            meter.tick()
+            ms.append(a.elapsed_time(b))
+            losses.append(float(loss))
+            delta = {k: v - before[k] for k, v in read_counters().items()}
+            if delta != want:
+                raise AssertionError(f"large {label} step {i}: launches "
+                                     f"{delta}, expected {want}")
+        launches[label] = read_counters()
+        mem = PR.device_memory_stats(dev)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"large {label}: non-finite loss {losses}")
+        if dtype == "bfloat16":
+            # the same weights and forward kernels: the same first loss
+            first_loss = losses[0] if first_loss is None else first_loss
+            if losses[0] != first_loss:
+                raise AssertionError(f"large {label}: first loss "
+                                     f"{losses[0]} != {first_loss}")
+        rate = meter.summary()["edges_per_s"]
+        rec = {"dtype": dtype, "knobs": kw, "losses": losses, "step_ms": ms,
+               "median_ms": statistics.median(ms[1:]), "edges_per_s": rate,
+               "peak_bytes": mem["peak_bytes_in_use"],
+               "peak_bytes_reserved": mem["peak_bytes_reserved"],
+               "bytes_limit": mem["bytes_limit"],
+               "launches_per_step": want}
+        log(f"[large] {label} {dtype} {kw or 'per-layer save_fused'}: "
+            f"{1 + n_timed} steps, {', '.join(f'{v:.1f}' for v in ms)} ms "
+            f"(CUDA events; the first warm), {rate:.4g} edges/s; peak "
+            f"device memory {rec['peak_bytes'] / 1e9:.2f} GB allocated, "
+            f"{rec['peak_bytes_reserved'] / 1e9:.2f} GB reserved of "
+            f"{rec['bytes_limit'] / 1e9:.1f}; losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}; launches a step: K1 "
+            f"and K3 {want['fused_edge_fwd']}, K2, K4, K5 {LAYERS}")
+        # where the peak falls: one more forward, then its backward
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss = TL.masked_mse(cfg.apply(params, g), g.y, g.node_mask)
+        torch.cuda.synchronize()
+        rec["peak_bytes_forward"] = torch.cuda.max_memory_allocated(dev)
+        loss.backward()
+        del loss
+        params.zero_grad(set_to_none=True)
+        log(f"[large] {label}: the peak of a forward alone "
+            f"{rec['peak_bytes_forward'] / 1e9:.2f} GB")
+        if label == "a":
+            rec["profile"] = phase_profile(
+                torch, "large (a) bf16 train step",
+                lambda: fns.train_step(params, g), top=12)
+            with tempfile.TemporaryDirectory() as logdir:
+                with PR.trace(logdir):
+                    fns.train_step(params, g)
+                    torch.cuda.synchronize()
+                files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+                sizes = [os.path.getsize(f) for f in files]
+            if len(files) != 1 or not sizes[0]:
+                raise AssertionError(f"large: utils.profiling.trace wrote "
+                                     f"{files} ({sizes} bytes)")
+            rec["trace_bytes"] = sizes[0]
+            log(f"[large] utils.profiling.trace of one {label} step: "
+                f"{os.path.basename(files[0])}, {sizes[0]} bytes")
+        record[label] = rec
+        del params, fns
+        torch.cuda.empty_cache()
+    # the offload keeps the boundaries on the host: at group 4's backward
+    # four more of them than without it are off the card. (c) runs full
+    # remat in every group, so (b) is its control; (a) is logged beside it
+    saved = record["b"]["peak_bytes"] - record["c"]["peak_bytes"]
+    if saved < 0.5 * 4 * boundary:
+        raise AssertionError(f"large: the offload saved {saved / 1e9:.2f} GB"
+                             f" of peak memory against (b), less than half "
+                             f"of 4 boundaries ({2 * boundary / 1e9:.2f} GB)")
+    record["offload_saved_bytes"] = saved
+    log(f"[large] the offload lowered the peak by {saved / 1e9:.2f} GB "
+        f"against (b) ({saved / boundary:.2f} bf16 boundaries; against (a) "
+        f"{(record['a']['peak_bytes'] - record['c']['peak_bytes']) / 1e9:.2f}"
+        f" GB)")
+    return launches, record
+
+
+def phase_pool(torch, g, hierarchy):
+    """K5 in its pool use (ops.segment_pool_sum, AERO_GNN_SORTED_POOL=1) at
+    the BSMS fine level's shapes, fp32: node rows x 128, edge rows x 128
+    and the edge weight sums x 1, each read through the level's pool
+    permutation cut before its pad tail (``*_pool_live``), as the model
+    calls it. The rows are random and, as every pool operand of the model
+    is (masked or zero-weighted), zero on the fine level's pad rows, so
+    the cut call must equal the plain version over the whole stream;
+    bit-equal across two launches; timed beside its bound, index_add_
+    over the unsorted ids (the default pool's call, which it must not be
+    slower than) and torch.sparse.mm of the cut stream's CSR matrix."""
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    lv = hierarchy[0]
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for label, ids, perm, srt, live, n, width, mask in (
+            ("node", lv.fine_to_coarse, lv.node_pool_perm,
+             lv.node_pool_sorted, lv.node_pool_live,
+             lv.num_coarse_nodes_pad, HIDDEN, g.node_mask),
+            ("edge", lv.edge_to_coarse, lv.edge_pool_perm,
+             lv.edge_pool_sorted, lv.edge_pool_live,
+             lv.num_coarse_edges_pad, HIDDEN, g.edge_mask),
+            ("wsum", lv.edge_to_coarse, lv.edge_pool_perm,
+             lv.edge_pool_sorted, lv.edge_pool_live,
+             lv.num_coarse_edges_pad, 1, g.edge_mask)):
+        rows = ids.shape[0]
+        data = torch.randn(rows, width, generator=gen,
+                           device=dev) * mask[:, None]
+        cperm, csrt = perm[:live], srt[:live]
+        # the longest run of rows one coarse id keys in the cut stream
+        longest = int(torch.bincount(csrt, minlength=n).max())
+        k = HS.segment_sum(data, csrt, n, rows=cperm)
+        k2 = HS.segment_sum(data, csrt, n, rows=cperm)
+        p = HS.segment_sum_ref(data, srt, n, rows=perm)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"K5 pool {label}", k, p, "float32")
+        if not torch.equal(k, k2):
+            raise AssertionError(f"K5 pool {label}: differs between two "
+                                 "launches on the same inputs")
+        acc = torch.zeros(n, width, device=dev)
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(csrt, minlength=n), 0)
+        csr = torch.sparse_csr_tensor(crow, cperm.long(),
+                                      torch.ones(live, device=dev),
+                                      size=(n, rows))
+        # the live rows read once through the permutation, their ids and
+        # permutation read, the output written
+        nbytes = 4 * (live * width + 2 * live + n * width)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = live * width / PEAK_FLOPS["float32"] * 1e3
+        rec = {"rows": rows, "live_rows": live, "segments": n,
+               "width": width, "longest_run": longest, "max_abs_err": err,
+               "ms": cuda_time_ms(torch, lambda: HS.segment_sum(
+                   data, csrt, n, rows=cperm)),
+               "plain_ms": cuda_time_ms(torch, lambda: HS.segment_sum_ref(
+                   data, csrt, n, rows=cperm)),
+               "index_add_ms": cuda_time_ms(
+                   torch, lambda: acc.index_add_(0, ids, data)),
+               "library_ms": sparse_mm_ms(torch, csr, data,
+                                          f"K5 pool {label}"),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes}
+        out[label] = rec
+        log(f"[bsms_switches] K5 pool {label}: {live} of {rows} rows (the "
+            f"pad tail cut) x {width} -> {n} segments (the longest "
+            f"{longest} rows), {rec['ms']:.4f} ms (plain "
+            f"{rec['plain_ms']:.4f} ms, index_add_ over all rows "
+            f"{rec['index_add_ms']:.4f} ms, sparse.mm "
+            f"{fmt_ms(rec['library_ms'])}), bound {rec['bound_ms']:.4f} ms "
+            f"by {rec['bound_by']}, max abs err {err:.3e} against the plain "
+            "version over the whole stream; bit-equal across launches")
+        if rec["ms"] > rec["index_add_ms"]:
+            raise AssertionError(
+                f"K5 pool {label}: {rec['ms']:.4f} ms, slower than the "
+                f"default pool's index_add_ ({rec['index_add_ms']:.4f} ms)")
+        del data, acc, csr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bsms_switches(torch, requests):
+    """The flagship BSMS under each transfer switch (module docstring,
+    phase 8b). Returns {switch: launches} and the record."""
+    import numpy as np
+
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.inference.engine import AeroInference
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    cfg = bsms_config()
+    served = requests[:2]
+    g0, aux0 = served[0][1:]
+    hier0, dev = aux0["hierarchy"], g0.device
+    stats = {"target_mean": np.zeros(4, np.float32),
+             "target_std": np.ones(4, np.float32)}
+    record = {"pool": phase_pool(torch, g0, hier0)}
+
+    def engine():
+        params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+        return params, AeroInference(cfg, params, stats, device=dev,
+                                     needs_hierarchy=True)
+
+    # every switch computes the same function: the plain path with every
+    # switch off is each one's reference
+    before = read_counters()
+    with ops.use_backend("torch"):
+        plain = engine()[1]
+        refs = [plain.predict_single(g, aux)[2] for _, g, aux in served]
+    del plain
+    if read_counters() != before:
+        raise AssertionError("the plain path launched a kernel")
+    launches = {}
+    for label, name, value in BSMS_SWITCHES:
+        # K5 a forward: the sorted pools (nodes, edges, weight sums at each
+        # level), or the WEC's aggregations in place of K7's; a step adds
+        # the WEC adjoints
+        k5_fwd = {"sorted_pool": 3 * (BSMS_SCALES - 1),
+                  "wec_unfused": K7_PER_FORWARD}.get(label, 0)
+        k7_fwd = 0 if label == "wec_unfused" else K7_PER_FORWARD
+        k5_adj = K7_PER_FORWARD if label == "wec_unfused" else 0
+        fwd_want = expect(fused_edge_fwd=LAYERS, fused_node_fwd=LAYERS,
+                          segment_sum=k5_fwd, segment_sum_weighted=k7_fwd)
+        step_want = expect(**dict(FUSED_STEP,
+                                  segment_sum=LAYERS + k5_fwd + k5_adj),
+                           segment_sum_weighted=2 * k7_fwd)
+        with knob(name, value):
+            params, eng = engine()
+            zero_counters()
+            errs, ms = [], []
+            for i, (sample, g, aux) in enumerate(served):
+                before = read_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred = eng.predict_single(g, aux)[2]
+                ms.append((time.perf_counter() - t0) * 1e3)
+                delta = {k: v - before[k] for k, v in read_counters().items()}
+                if delta != fwd_want:
+                    raise AssertionError(f"bsms {label} request {i}: "
+                                         f"launches {delta}, expected "
+                                         f"{fwd_want}")
+                err = np.abs(pred - refs[i])
+                atol, rtol = SERVE_TOL
+                if (err > atol + rtol * np.abs(refs[i])).any():
+                    raise AssertionError(
+                        f"bsms {label} request {i} vs plain path: max abs "
+                        f"err {err.max():.3e} beyond atol={atol} "
+                        f"rtol={rtol}")
+                errs.append(float(err.max()))
+            serve = read_counters()
+            worst = check_train_grads(torch, cfg, params, g0,
+                                      label=f"bsms {label}", hierarchy=hier0)
+            fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                                   device=dev, needs_hierarchy=True)
+            losses, times, train = train_steps(
+                torch, lambda: fns.train_step(params, g0, hier0), 2,
+                step_want, f"bsms {label}")
+        launches[label] = {"serve": serve, "train": train}
+        record[label] = {"serve_ms": ms, "max_abs_err_vs_plain": errs,
+                         "grad_worst_rel_err": worst, "losses": losses,
+                         "step_ms": [t * 1e3 for t in times],
+                         "launches_per_forward": fwd_want,
+                         "launches_per_step": step_want}
+        log(f"[bsms_switches] {name}={value}: 2 requests "
+            f"({', '.join(f'{v:.1f}' for v in ms)} ms) within "
+            f"{max(errs):.3e} of the plain path, launches a forward K1, K3 "
+            f"{LAYERS}, K5 {k5_fwd}, K7 {k7_fwd}; 2 steps "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in times)} ms), losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}, launches a step K1-K4 "
+            f"{LAYERS}, K5 {step_want['segment_sum']}, K7 {2 * k7_fwd}")
+        del params, eng, fns
+        torch.cuda.empty_cache()
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", help="write the full JSON record here")
@@ -2873,6 +3401,7 @@ def main() -> int:
     cli_counts, cli_record = phase_cli(torch, smi)
     bsms_serve, bsms_serve_record = phase_bsms_serve(torch, requests)
     bsms_train, bsms_train_record = phase_bsms_train(torch, *requests[0])
+    bsms_sw, bsms_sw_record = phase_bsms_switches(torch, requests)
     del requests
     torch.cuda.empty_cache()
     zoo = phase_zoo(torch, zoo_reqs)
@@ -2880,8 +3409,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     save_launches, save_record = phase_save_acts(torch, *graphs[0])
     mega_launches, mega_record = phase_mega(torch, graphs)
+    remat_record = phase_remat(torch, graphs[0][1])
+    del graphs
+    torch.cuda.empty_cache()
+    large_launches, large_record = phase_large(torch, dev, smi)
     for k in kernels:
         base, dtype = k["name"].rstrip("]").split("[")
+        if base in FUSED_STEP:
+            # phase large: the 1M-node training steps of each run
+            k["launches_large"] = {
+                label: large_launches[label][base]
+                for label, dt, _, _ in LARGE_RUNS if dt == dtype}
+        if dtype == "float32" and base in ("segment_sum",
+                                           "segment_sum_weighted"):
+            k["launches_bsms_switches"] = {
+                label: {run: counts[base] for run, counts in c.items()}
+                for label, c in bsms_sw.items()}
+            if base == "segment_sum":
+                k["pool"] = bsms_sw_record["pool"]
         fourier = zoo["fouriermgn"][dtype]
         if base in ("gather_rows", "segment_sum"):
             k["launches_fouriermgn_serve"] = \
@@ -2960,6 +3505,10 @@ def main() -> int:
                        "save_acts": save_record,
                        "save_acts_launches": save_launches,
                        "mega": mega_record, "mega_launches": mega_launches,
+                       "bsms_switches": bsms_sw_record,
+                       "bsms_switches_launches": bsms_sw,
+                       "remat": remat_record, "large": large_record,
+                       "large_launches": large_launches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")

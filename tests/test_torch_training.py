@@ -98,18 +98,17 @@ def test_first_step_grads_match_jax(jax_backend, remat, port_backend):
 
 def test_full_remat_gives_the_same_grads():
     """remat_policy="full" recomputes each fused layer in the backward
-    (torch.utils.checkpoint): the same gradients as no remat."""
+    (torch.utils.checkpoint), and remat_group=3 checkpoints the 3 layers as
+    one group (and the encoders): the same gradients as no remat."""
     tree = JaxMGNConfig(**_SMALL).init(jax.random.PRNGKey(7))
     _, tb = _graphs()
-    out = [_port_grads(MGNConfig(**_SMALL, remat=remat, remat_policy=pol),
-                       tree, tb, "cuda")
-           for remat, pol in ((False, "save_fused"), (True, "full"))]
+    out = [_port_grads(MGNConfig(**_SMALL, **kw), tree, tb, "cuda")
+           for kw in (dict(remat=False), dict(remat=True,
+                                              remat_policy="full"),
+                      dict(remat=True, remat_group=3))]
     for name, g in out[0][1].items():
-        np.testing.assert_array_equal(out[1][1][name], g, err_msg=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params = params_from_jax(jax.tree.map(np.asarray, tree),
-                                 MGNConfig(**_SMALL), device="cpu")
-        MGNConfig(**_SMALL, remat_group=3).apply(params, tb)
+        for other in out[1:]:
+            np.testing.assert_array_equal(other[1][name], g, err_msg=name)
 
 
 def test_bf16_grads_are_rounded_then_cast_up():
