@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--record PATH] [--tail-only]
+    python3 chip_smoke.py [--record PATH] [--tail-only] [--parallel-only]
 
 ``--record PATH`` also writes the full record (every kernel's operations
 and bytes, launch counts, step times, build and total seconds) as JSON to
@@ -196,6 +196,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                boundaries; utils.profiling.trace of one (a) step
                writes a trace file.
 
+  14. parallel — aero_gnn_tpu_torch.parallel over ranks started by
+               parallel.distributed.spawn after phase build, each
+               loading the built kernels and rebuilding its shard from the
+               seed (the 65,536-node mesh, the flagship widths and depth, the
+               weights of one seed): (a) halo-split MGN training and serving
+               at P = 2, two gloo ranks sharing the card (the fp32 forward
+               gathered against the single device's within SERVE_TOL, one
+               fp32 step's gradients within TRAIN_GRAD_TOL, 3 bf16 and 1
+               fp32 steps timed with CUDA events beside the single-device
+               step, the replicas bit-equal, K1-K5 launches per rank gated,
+               the halo's rows, bytes and all_to_all time, K1 and K3
+               forward, K2, K4 and K5 backward against their plain versions
+               on shard 0's interior in bf16 and fp32, K1 / K2 timed there
+               beside the tight graph); (b) the same at P = 1, one rank
+               wired by a torchrun-style environment so that initialize()
+               chooses NCCL; the split step at P = 1 without a process
+               group timed and its kernel launches and matrix products
+               counted beside the single device's;
+               (c) data parallel on meshes 0 and 1 (2 ranks); (d) hybrid
+               halo-split on a 2 x 2 grid (4 ranks); (e) the BSMS halo
+               scheme (every level sharded, weighted transfer) against the
+               single-device BSMS, and K5 in each level's WEC spread
+               (ops.segment_pool_sum) against the plain segment sum; (f) (a)'s state saved by save_dcp and
+               restored bit-equal by restore_dcp in two fresh ranks.
+               ``--parallel-only`` runs the device, build and parallel
+               phases.
+
 With both switches unset (phases 3-9, 6b included) every forward and step
 launches K8, K9 and K10 0 times.
 
@@ -207,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3349,11 +3377,741 @@ def phase_bsms_switches(torch, requests):
     return launches, record
 
 
+# phase parallel: the port's parallel/ over ranks that share the one card
+# (gloo), and one rank on its own (nccl). Each rank rebuilds its shard from
+# the seed on the host; the kernels were built by phase build, so a rank
+# only loads them.
+PAR_PARTS = 2
+# (dtype, timed steps) after one warm step each, following the fp32 step
+# whose gradients are checked
+PAR_TIMED = (("bfloat16", 3), ("float32", 1))
+PAR_STEPS = 1 + sum(1 + n for _, n in PAR_TIMED)
+PAR_TIMEOUT_S = 600
+# K5 launches of the BSMS halo scheme beyond the layers' sender backward:
+# the WEC spread's sorted pool (ops.segment_pool_sum) once per up
+# transfer, in the forward
+PAR_BSMS_POOLS = BSMS_SCALES - 1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(*jobs):
+    """Each job ``(target, world, spec, env)`` runs ``target(rank, world,
+    spec)`` in ``world`` processes of the port's launcher
+    (parallel.distributed.spawn), the jobs at the same time; returns each
+    job's results in rank order and raises if any rank fails."""
+    from aero_gnn_tpu_torch.parallel import distributed as PD
+
+    return PD.spawn(jobs, timeout_s=PAR_TIMEOUT_S)
+
+
+@functools.lru_cache(maxsize=2)
+def par_sample(seed: int):
+    from aero_gnn_tpu_torch.data import dataset as D
+    from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
+
+    s = make_random_mesh_sample(n_nodes=N_NODES, avg_degree=6, seed=seed)
+    D.compute_features([s], ["mach", "alpha"])
+    return s
+
+
+def par_split(s, parts: int):
+    from aero_gnn_tpu_torch.parallel import halo as HL
+
+    return HL.partition_graph_halo_split(
+        senders=s.senders, receivers=s.receivers, x=s.x,
+        edge_attr=s.edge_attr, pos=s.pos, y=s.y, num_parts=parts,
+        align_interior=True)
+
+
+def par_init(spec, rank, world):
+    """TF32 off as in main, then this rank's device after the bring-up of
+    spec["address"] (a torchrun-style environment when None)."""
+    import torch
+
+    from aero_gnn_tpu_torch.parallel import distributed as PD
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in main
+    torch.backends.cudnn.allow_tf32 = False
+    if spec.get("address"):
+        PD.initialize(spec["address"], world, rank,
+                      initialization_timeout=PAR_TIMEOUT_S)
+    else:
+        PD.initialize(initialization_timeout=PAR_TIMEOUT_S)
+    dev = PD.rank_device()
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def par_state(params, opt):
+    """Parameters and Adam state as numpy (the checkpoint's contents)."""
+    state = opt.state_dict()["state"]
+    return ([p.detach().cpu().numpy() for p in params.parameters()],
+            [(float(v["step"]), v["exp_avg"].cpu().numpy(),
+              v["exp_avg_sq"].cpu().numpy())
+             for _, v in sorted(state.items())])
+
+
+def par_grads(params):
+    return {n: p.grad.detach().cpu().numpy()
+            for n, p in params.named_parameters()}
+
+
+def par_gather_rows(torch, pred, group, s, parts):
+    """The shards' [Nl, Dy] predictions in the mesh's node order."""
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel.spatial import unshard_rows
+
+    full = C.gather_raw(pred.contiguous(), group).reshape(parts, -1,
+                                                          pred.shape[-1])
+    return unshard_rows(full.cpu().numpy(), s.pos, s.num_nodes, parts)
+
+
+def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
+    """The main path: the flagship MGN on the split halo streams over the
+    mesh's graph axis. The fp32 forward (counted), one fp32 step (its
+    gradients), then a warm and PAR_TIMED steps per dtype (counted, timed
+    with CUDA events); the replicas' parameters; with ``save_dir`` the
+    state saved by save_dcp; last, the interior's kernels against their
+    plain versions (par_check_interior)."""
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.training import checkpoint as CK
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    parts = mesh.shape[1]
+    group = mesh.group("graph")
+    s = par_sample(mesh.coords()[0])
+    hg = par_split(s, parts)
+    g = mesh.coords()[1]
+    sh = hg.shard(g, dev)
+    cfgs = {dt: flagship_config(compute_dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    params = cfgs["float32"].init(torch.Generator().manual_seed(0),
+                                  device=dev)
+    rec = {"device": str(dev), "backend": group.backend,
+           "halo_rows": hg.halo_size,
+           "nodes_per_part": hg.nodes_per_part,
+           "interior_rows": hg.edge_attr_int.shape[1],
+           "interior_real": int(hg.edge_mask_int[g].sum()),
+           "boundary_rows": hg.edge_attr_bnd.shape[1],
+           "boundary_real": int(hg.edge_mask_bnd[g].sum()),
+           "fused": HL.fused_interior(cfgs["float32"].layer_cfg,
+                                      torch.zeros(sh.x.shape[0], HIDDEN,
+                                                  device=dev), sh)}
+    zero_counters()
+    pred = HL.make_halo_split_forward(cfgs["float32"], mesh)(params, sh)
+    torch.cuda.synchronize()
+    rec["forward_launches"] = read_counters()
+    rec["forward"] = par_gather_rows(torch, pred, group, s, parts)
+    opt = TL.make_optimizer(params, 1e-3)
+    steps = {dt: HL.make_halo_split_train_step(c, opt, mesh)
+             for dt, c in cfgs.items()}
+    zero_counters()
+    rec["loss"] = float(steps["float32"](params, sh))
+    rec["grads"] = par_grads(params)
+    rec["step_ms"] = {}
+    for dt, n in PAR_TIMED:
+        steps[dt](params, sh)
+        times = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            steps[dt](params, sh)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        rec["step_ms"][dt] = statistics.median(times)
+    torch.cuda.synchronize()
+    rec["step_launches"] = read_counters()
+    # after the counted run: two more bf16 steps, one profiled
+    rec["profile_bf16"] = phase_profile(
+        torch, f"parallel ({tag}) rank {rank} bf16 step",
+        lambda: steps["bfloat16"](params, sh), top=6)
+    flat = torch.cat([p.detach().reshape(-1) for p in params.parameters()])
+    every = C.gather_raw(flat[None], group)
+    rec["replicas_bit_equal"] = all(torch.equal(every[0], row)
+                                    for row in every)
+    if tag == "a":
+        rec["exchange_ms"] = {}
+        for dt in ("bfloat16", "float32"):
+            buf = torch.randn(parts, hg.halo_size, HIDDEN, device=dev).to(
+                getattr(torch, dt))
+            rec["exchange_ms"][dt] = cuda_time_ms(
+                torch, lambda: C.all_to_all_raw(buf, group))
+    if save_dir is not None:
+        manager = CK.make_dcp_manager(save_dir, max_to_keep=2)
+        CK.save_dcp(manager, params, opt, 1, {"loss": [rec["loss"]]})
+        manager.wait_until_finished()
+        rec["saved"] = par_state(params, opt)
+    par_check_interior(torch, mesh, sh, rec)
+    return rec
+
+
+def par_check_interior(torch, mesh, sh, rec):
+    """On the graph axis' rank 0, outside the counted runs: every kernel of
+    the split layer's interior against its plain version at the shard's
+    shapes, on bwd_cases' random inputs in bf16 and fp32 (as
+    check_large_kernels does at 1M nodes): K1 and K3 forward (TOL), K2 and
+    K4 through check_bwd, K5 on the interior's sender sort as the sender
+    gather's backward runs it; K2, K4, K5 bit-equal across launches. Then
+    K1's and K2's bf16 times there. The other ranks wait."""
+    import types
+
+    import torch.distributed as dist
+
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.ops import hopper_node as HN
+    from aero_gnn_tpu_torch.ops.scatter import degree
+
+    dist.barrier()
+    if mesh.coords()[1] == 0:
+        N = sh.x.shape[0]
+        stream = types.SimpleNamespace(
+            num_edges_pad=sh.receivers_int.shape[0], num_nodes_pad=N,
+            edge_mask=sh.edge_mask_int, receivers=sh.receivers_int,
+            senders_sorted=sh.senders_int_sorted,
+            sender_perm=sh.sender_perm_int)
+        real = sh.edge_mask_int > 0
+        empty = degree(sh.receivers_int, N, mask=sh.edge_mask_int) == 0
+        rec["interior_check"] = {}
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            gen = torch.Generator(device=sh.x.device).manual_seed(1234)
+
+            def randn(*shape, scale=1.0):
+                return (torch.randn(*shape, generator=gen,
+                                    device=sh.x.device) * scale).to(dt)
+
+            edge_args, edge_bwd, node_args, node_bwd, seg = bwd_cases(
+                torch, stream, dt, randn, HIDDEN, N_HIDDEN)
+            tag = f"shard {dt_name}"
+            ek, ak = HF.fused_edge_layer(*edge_args)
+            ep, ap = HF.fused_edge_layer_ref(*edge_args)
+            err1 = max(check_close(torch, f"K1 {tag} e'", ek, ep, dt_name,
+                                   rows=real),
+                       check_close(torch, f"K1 {tag} agg", ak, ap, dt_name))
+            if not (ak[empty] == 0).all():
+                raise AssertionError(f"K1 {tag}: agg rows of nodes without "
+                                     "a real edge are not exactly 0")
+            err3 = check_close(torch, f"K3 {tag} x'",
+                               HN.fused_node_layer(*node_args),
+                               HN.fused_node_layer_ref(*node_args), dt_name)
+            e2, e4, e5 = check_backward_kernels(torch, tag, dt_name, stream,
+                                                edge_bwd, node_bwd, seg)
+            rec["interior_check"][dt_name] = {"K1": err1, "K3": err3,
+                                              "K2": e2, "K4": e4, "K5": e5}
+            if dt_name == "bfloat16":
+                rec["interior_ms"] = {
+                    "k1": cuda_time_ms(
+                        torch, lambda: HF.fused_edge_layer(*edge_args)),
+                    "k2": cuda_time_ms(
+                        torch, lambda: HF.fused_edge_layer_bwd(*edge_bwd))}
+            del edge_args, edge_bwd, node_args, node_bwd, seg, ek, ak, ep, ap
+    dist.barrier()
+
+
+def par_check_spread_pools(torch, bsh):
+    """K5 in the BSMS halo scheme's WEC spread (ops.segment_pool_sum over
+    the level's interior sender sort) against the plain segment sum over
+    the unsorted senders, on each spread level's stream with random fp32
+    rows as wide as the model's (TOL); [(level, rows, max abs err)]."""
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.ops import hopper_segment as HS
+
+    out = []
+    gen = torch.Generator(device=bsh.levels[0].conv_edge_int.device)
+    gen.manual_seed(99)
+    for k, lvl in enumerate(bsh.levels[:-1]):
+        g = lvl.graph
+        n = g.node_mask.shape[0]
+        z = torch.randn(n, HIDDEN, generator=gen, device=g.node_mask.device)
+        data = lvl.conv_edge_int[:, None] * z[g.receivers_int]
+        got = ops.segment_pool_sum(data, g.senders_int, n,
+                                   perm=g.sender_perm_int,
+                                   seg_sorted=g.senders_int_sorted)
+        ref = HS.segment_sum_ref(data, g.senders_int, n)
+        torch.cuda.synchronize()
+        out.append((k, int(data.shape[0]),
+                    check_close(torch, f"K5 spread pool level {k}", got, ref,
+                                "float32")))
+    return out
+
+
+def par_pair_rank(rank, world, spec):
+    """Runs (a), (c) and (e) on one gloo world of two ranks that share the
+    card, and (f)'s save."""
+    import torch
+
+    from aero_gnn_tpu_torch.parallel import bsms_spatial as BS
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel import data_parallel as DP
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    dev = par_init(spec, rank, world)
+    graph = PM.make_mesh(data=1, graph=world)
+    out = {"a": par_halo_split(torch, graph, dev, rank, "a",
+                               save_dir=spec["ckpt_dir"])}
+    # (c) data parallel: rank r trains on mesh seed r
+    data = PM.make_mesh(data=world, graph=1)
+    _, g = flagship_graph(rank, dev)
+    cfg = flagship_config()
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    step = DP.make_dp_train_step(cfg, TL.make_optimizer(params, 1e-3), data)
+    zero_counters()
+    loss = float(step(params, g))
+    torch.cuda.synchronize()
+    out["c"] = {"loss": loss, "grads": par_grads(params),
+                "step_launches": read_counters()}
+    del g, params, step
+    # (e) the BSMS halo scheme, every level sharded, weighted transfer
+    s = par_sample(0)
+    bg = BS.partition_bsms_halo(
+        senders=s.senders.astype("int64"),
+        receivers=s.receivers.astype("int64"), x=s.x,
+        edge_attr=s.edge_attr, pos=s.pos, y=s.y, num_parts=world,
+        num_scales=BSMS_SCALES, mode="bistride", stride=2,
+        align_interior=True)
+    sh = bg.shard(rank, dev)
+    cfg = bsms_config()
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    zero_counters()
+    pred = BS.make_bsms_halo_forward(cfg, graph)(params, sh)
+    torch.cuda.synchronize()
+    full = C.gather_raw(pred.contiguous(), graph.group("graph"))
+    e = {"forward_launches": read_counters(),
+         "levels": [(lv.graph.nodes_per_part, lv.graph.halo_size)
+                    for lv in bg.levels],
+         "forward": BS.unshard_fine(bg, full.reshape(world, -1, 4).cpu()
+                                    .numpy())}
+    step = BS.make_bsms_halo_train_step(cfg, TL.make_optimizer(params, 1e-3),
+                                        graph)
+    zero_counters()
+    e["loss"] = float(step(params, sh))
+    torch.cuda.synchronize()
+    e["step_launches"] = read_counters()
+    e["grads"] = par_grads(params)
+    if rank == 0:  # outside the counted runs
+        e["pool_check"] = par_check_spread_pools(torch, sh)
+    out["e"] = e
+    if rank:
+        for rec in out.values():
+            for k in ("forward", "grads", "saved"):
+                rec.pop(k, None)
+    return out
+
+
+def par_nccl_rank(rank, world, spec):
+    """(b): one rank wired by a torchrun-style environment, so initialize()
+    chooses NCCL; the halo-split path with P = 1."""
+    import torch
+
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+
+    dev = par_init(spec, rank, world)
+    return par_halo_split(torch, PM.make_mesh(data=1, graph=1), dev, rank,
+                          "b")
+
+
+def par_hybrid_rank(rank, world, spec):
+    """(d): a 2 x 2 grid, mesh seed d split in two along the graph axis;
+    one fp32 step of make_hybrid_halo_split_train_step."""
+    import torch
+
+    from aero_gnn_tpu_torch.parallel import hybrid as HY
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    dev = par_init(spec, rank, world)
+    mesh = PM.make_mesh(data=2, graph=world // 2)
+    d, g = mesh.coords()
+    sh = par_split(par_sample(d), world // 2).shard(g, dev)
+    cfg = flagship_config()
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    step = HY.make_hybrid_halo_split_train_step(
+        cfg, TL.make_optimizer(params, 1e-3), mesh)
+    zero_counters()
+    loss = float(step(params, sh))
+    torch.cuda.synchronize()
+    rec = {"loss": loss, "step_launches": read_counters()}
+    if rank == 0:
+        rec["grads"] = par_grads(params)
+    return rec
+
+
+def par_restore_rank(rank, world, spec):
+    """(f): fresh ranks, parameters from another seed, restore_dcp."""
+    import torch
+
+    from aero_gnn_tpu_torch.training import checkpoint as CK
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    dev = par_init(spec, rank, world)
+    params = flagship_config().init(torch.Generator().manual_seed(1),
+                                    device=dev)
+    opt = TL.make_optimizer(params, 1e-3)
+    got = CK.restore_dcp(CK.make_dcp_manager(spec["ckpt_dir"]), params, opt)
+    return {"restored": got, "state": par_state(params, opt)}
+
+
+def par_want(forward: int = 0, step: int = 0, k5_extra: int = 0) -> dict:
+    """Per-rank launches of ``forward`` forwards and ``step`` steps on the
+    fused interior: K1 and K3 a layer each forward; K1-K5 a layer each
+    step; K5 ``k5_extra`` more; every other kernel 0."""
+    n = forward + step
+    return expect(fused_edge_fwd=LAYERS * n, fused_node_fwd=LAYERS * n,
+                  fused_edge_bwd=LAYERS * step, fused_node_bwd=LAYERS * step,
+                  segment_sum=LAYERS * step + k5_extra)
+
+
+def par_check_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"parallel {label}: launches {got}, expected "
+                             f"{want}")
+
+
+def par_check_rows(label, got, ref):
+    import numpy as np
+
+    atol, rtol = SERVE_TOL
+    err = np.abs(got - ref)
+    if not np.isfinite(got).all() or (err > atol + rtol * np.abs(ref)).any():
+        raise AssertionError(f"parallel {label}: max abs err {err.max():.3e}"
+                             f" beyond atol={atol} rtol={rtol}")
+    return float(err.max())
+
+
+def par_check_grads(torch, label, got, ref):
+    """Every parameter's gradient within TRAIN_GRAD_TOL of ``ref`` (torch
+    tensors on the card); returns the worst error over max|p|."""
+    worst = 0.0
+    for n, r in ref.items():
+        err = check_grad(torch, f"parallel {label} grad {n}",
+                         torch.from_numpy(got[n]).to(r.device), r,
+                         TRAIN_GRAD_TOL)
+        worst = max(worst, err / max(float(r.abs().max()), 1e-30))
+    return worst
+
+
+def par_single_steps(torch, sample, graph):
+    """The single-device step of the same model on the same mesh, timed
+    like the ranks' (a warm step, then CUDA events; the median): through
+    make_step_fns (``single``), and the halo-split step at P = 1 in this
+    process, without a process group (``split``: the split layer's own
+    cost, no collective); for one more bf16 step of each, its kernel
+    launches and matrix products (``host_ops``)."""
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    sh = par_split(sample, 1).shard(0, graph.device)
+    out = {"single": {}, "split": {}}
+    for dt, n in PAR_TIMED:
+        cfg = flagship_config(compute_dtype=dt)
+        params = cfg.init(torch.Generator().manual_seed(0),
+                          device=graph.device)
+        fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
+                               device=graph.device)
+        split = HL.make_halo_split_train_step(
+            cfg, TL.make_optimizer(params, 1e-3), PM.make_mesh())
+        for label, step in (("single", lambda: fns.train_step(params, graph)),
+                            ("split", lambda: split(params, sh))):
+            step()
+            times = []
+            for _ in range(n):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                step()
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            out[label][dt] = statistics.median(times)
+            if dt == "bfloat16":
+                out.setdefault("host_ops", {})[label] = host_op_counts(
+                    torch, step)
+    return out
+
+
+def host_op_counts(torch, fn, keys=("cudaLaunchKernel", "aten::mm")):
+    """Calls of the named host-side events (kernel launches through the
+    CUDA runtime, matrix products) in one warm call of ``fn``, from
+    torch.profiler's key_averages."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.key_averages():
+        counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return {k: counts.get(k, 0) for k in keys}
+
+
+def phase_parallel(torch, smi, graphs):
+    """Phase parallel (a)-(f); returns ({run: per-rank launches}, record).
+    ``graphs``: the (sample, tight aligned graph) of meshes 0 and 1."""
+    import tempfile
+
+    import numpy as np
+
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+
+    t_phase = time.perf_counter()
+    (s0, g0), (s1, g1) = graphs[:2]
+    cfg = flagship_config()
+    dev = g0.device
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        ref_fwd = cfg.apply(params, g0)[:s0.num_nodes].cpu().numpy()
+    loss0, grads0, _ = step_grads(torch, cfg, params, g0)
+    loss1, grads1, _ = step_grads(torch, cfg, params, g1)
+    mean_grads = {n: (grads0[n] + grads1[n]) / 2 for n in grads0}
+    steps_ms = par_single_steps(torch, s0, g0)
+    single_ms = steps_ms["single"]
+    ops_ = steps_ms["host_ops"]
+    log(f"[parallel] one bf16 step's host calls (torch.profiler): single "
+        f"device {ops_['single']['cudaLaunchKernel']} cudaLaunchKernel, "
+        f"{ops_['single']['aten::mm']} aten::mm; the split step at P = 1 "
+        f"without a process group {ops_['split']['cudaLaunchKernel']}, "
+        f"{ops_['split']['aten::mm']}")
+    # K1 / K2 on the tight single-device graph: the yardstick of the
+    # shard's interior times
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    edge_args, edge_bwd = bwd_cases(
+        torch, g0, torch.bfloat16,
+        lambda *sh, scale=1.0: (torch.randn(*sh, generator=gen, device=dev)
+                                * scale).to(torch.bfloat16),
+        HIDDEN, N_HIDDEN)[:2]
+    tight_ms = {"k1": cuda_time_ms(torch,
+                                   lambda: HF.fused_edge_layer(*edge_args)),
+                "k2": cuda_time_ms(torch,
+                                   lambda: HF.fused_edge_layer_bwd(*edge_bwd))}
+    del edge_args, edge_bwd
+    requests, _ = bsms_requests(torch, [s0], dev)
+    _, gb, aux = requests[0]
+    bcfg = bsms_config()
+    bparams = bcfg.init(torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        bsms_fwd = bcfg.apply(bparams, gb, hierarchy=aux["hierarchy"])[
+            :s0.num_nodes].cpu().numpy()
+    bparams.zero_grad(set_to_none=True)
+    from aero_gnn_tpu_torch.training.loop import masked_mse
+
+    bloss = masked_mse(bcfg.apply(bparams, gb, hierarchy=aux["hierarchy"]),
+                       gb.y, gb.node_mask)
+    bloss.backward()
+    bsms_grads = {n: p.grad.clone() for n, p in bparams.named_parameters()}
+    del requests, gb, aux, bparams
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t_phase
+    log(f"[parallel] single-device references (forward, fp32 gradients of "
+        f"meshes 0 and 1, BSMS, step times) in {ref_s:.1f} s")
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_dcp_")
+    t0 = time.perf_counter()
+    (pair,) = spawn_ranks((par_pair_rank, PAR_PARTS, {
+        "address": f"tcp://localhost:{free_port()}", "ckpt_dir": ckpt}, {}))
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ((nccl,),) = spawn_ranks((par_nccl_rank, 1, {}, {
+        "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+        "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+        "MASTER_PORT": str(free_port())}))
+    nccl_s = time.perf_counter() - t0
+    # (d) and (f) time nothing: they run side by side
+    t0 = time.perf_counter()
+    hybrid, restored = spawn_ranks(
+        (par_hybrid_rank, 4, {"address": f"tcp://localhost:{free_port()}"},
+         {}),
+        (par_restore_rank, PAR_PARTS,
+         {"address": f"tcp://localhost:{free_port()}", "ckpt_dir": ckpt}, {}))
+    hybrid_s = time.perf_counter() - t0
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    launches, record = {}, {"card": smi, "single_step_ms": single_ms,
+                            "split_p1_no_group_step_ms": steps_ms["split"],
+                            "host_ops_bf16_step": ops_,
+                            "tight_ms": tight_ms, "seconds": {
+                                "references": ref_s, "pair": pair_s,
+                                "nccl": nccl_s,
+                                "hybrid_and_restore": hybrid_s}}
+    # (a) and (b): the halo-split main path
+    for label, recs in (("a", [r["a"] for r in pair]), ("b", [nccl])):
+        r0 = recs[0]
+        want_fwd, want_step = par_want(forward=1), par_want(step=PAR_STEPS)
+        for i, r in enumerate(recs):
+            if not r["device"].startswith("cuda") or not r["fused"]:
+                raise AssertionError(f"parallel ({label}) rank {i}: device "
+                                     f"{r['device']}, fused {r['fused']}")
+            par_check_launches(f"({label}) rank {i} forward",
+                               r["forward_launches"], want_fwd)
+            par_check_launches(f"({label}) rank {i} steps",
+                               r["step_launches"], want_step)
+            if not r["replicas_bit_equal"]:
+                raise AssertionError(f"parallel ({label}): the replicas' "
+                                     "parameters differ")
+        fwd_err = par_check_rows(f"({label}) forward", r0["forward"],
+                                 ref_fwd)
+        worst = par_check_grads(torch, f"({label})", r0["grads"], grads0)
+        if abs(r0["loss"] - loss0) > 1e-4 * abs(loss0):
+            raise AssertionError(f"parallel ({label}): loss {r0['loss']} vs "
+                                 f"single device {loss0}")
+        launches[label] = {"forward": [r["forward_launches"] for r in recs],
+                           "steps": [r["step_launches"] for r in recs]}
+        isz = {"bfloat16": 2, "float32": 4}
+        parts = len(recs)
+        bytes_layer = {dt: r0["halo_rows"] * HIDDEN * isz[dt] * parts
+                       for dt in isz}
+        record[label] = {k: v for k, v in r0.items()
+                         if k not in ("forward", "grads", "saved")}
+        record[label].update(forward_err=fwd_err, grad_worst_rel_err=worst,
+                             bytes_per_layer=bytes_layer)
+        log(f"[parallel] ({label}) halo-split P={parts} {r0['backend']} on "
+            f"{r0['device']}: {r0['nodes_per_part']} rows per shard, halo "
+            f"H={r0['halo_rows']} rows per peer, interior "
+            f"{r0['interior_real']} real edges in {r0['interior_rows']} rows,"
+            f" boundary {r0['boundary_real']} in {r0['boundary_rows']}; "
+            f"exchanged per layer {bytes_layer['bfloat16']} B bf16, "
+            f"{bytes_layer['float32']} B fp32 (H x {HIDDEN} x size x P), "
+            f"the card's tensors handed to {r0['backend']} directly")
+        log(f"[parallel] ({label}) fp32 forward vs single device: max abs "
+            f"err {fwd_err:.3e} (SERVE_TOL); fp32 step gradients within "
+            f"TRAIN_GRAD_TOL, worst {worst:.3e} of max|p|; loss "
+            f"{r0['loss']:.6f} vs {loss0:.6f}; launches per rank: forward "
+            f"{LAYERS} of K1 and K3, {PAR_STEPS} steps {LAYERS * PAR_STEPS} "
+            f"of K1-K5, every other kernel 0; replicas bit-equal")
+        log(f"[parallel] ({label}) step ms (CUDA events, median): bf16 "
+            f"{r0['step_ms']['bfloat16']:.2f} of {PAR_TIMED[0][1]}, fp32 "
+            f"{r0['step_ms']['float32']:.2f}; single device bf16 "
+            f"{single_ms['bfloat16']:.2f}, fp32 {single_ms['float32']:.2f}; "
+            f"the split step at P = 1 without a process group bf16 "
+            f"{steps_ms['split']['bfloat16']:.2f}, fp32 "
+            f"{steps_ms['split']['float32']:.2f} ({smi})")
+        share = r0["interior_real"] / s0.num_edges
+        ratio = {k: r0["interior_ms"][k] / (tight_ms[k] * share)
+                 for k in tight_ms}
+        record[label]["shard_tight_ratio"] = ratio
+        chk = r0["interior_check"]
+        log(f"[parallel] ({label}) shard 0 interior vs the tight "
+            f"single-device graph: K1 {r0['interior_ms']['k1']:.4f} ms vs "
+            f"{tight_ms['k1']:.4f} ms, K2 {r0['interior_ms']['k2']:.4f} vs "
+            f"{tight_ms['k2']:.4f} (bf16); per real edge shard / tight: K1 "
+            f"{ratio['k1']:.3f}, K2 {ratio['k2']:.3f}")
+        for dt in ("bfloat16", "float32"):
+            c = chk[dt]
+            log(f"[parallel] ({label}) shard 0 interior kernels {dt} against "
+                f"their plain versions ({r0['interior_rows']} edge rows, "
+                f"{r0['nodes_per_part']} nodes): K1 max abs err "
+                f"{c['K1']:.3e}, K3 {c['K3']:.3e} (TOL), K2 {c['K2'][0]:.3e} "
+                f"(weight grads {c['K2'][1]:.3e} of max|p|), K4 "
+                f"{c['K4'][0]:.3e} ({c['K4'][1]:.3e}), K5 {c['K5']:.3e}; "
+                f"K2, K4, K5 bit-equal across launches")
+    a0 = pair[0]["a"]
+    log(f"[parallel] (a) all_to_all of a layer's halo ([{PAR_PARTS}, "
+        f"{a0['halo_rows']}, {HIDDEN}]): bf16 "
+        f"{a0['exchange_ms']['bfloat16']:.4f} ms, fp32 "
+        f"{a0['exchange_ms']['float32']:.4f} ms ({smi})")
+    # (c) data parallel
+    for i, r in enumerate(pair):
+        par_check_launches(f"(c) rank {i}", r["c"]["step_launches"],
+                           par_want(step=1))
+    worst_c = par_check_grads(torch, "(c)", pair[0]["c"]["grads"],
+                              mean_grads)
+    mean_loss = (loss0 + loss1) / 2
+    for label, loss in (("c", pair[0]["c"]["loss"]),
+                        ("d", hybrid[0]["loss"])):
+        if abs(loss - mean_loss) > 1e-4 * abs(mean_loss):
+            raise AssertionError(f"parallel ({label}): loss {loss} vs the "
+                                 f"single-device mean {mean_loss}")
+    launches["c"] = [r["c"]["step_launches"] for r in pair]
+    record["c"] = {"loss": pair[0]["c"]["loss"], "grad_worst_rel_err": worst_c}
+    log(f"[parallel] (c) data parallel, 2 gloo ranks, meshes 0 and 1: loss "
+        f"{pair[0]['c']['loss']:.6f} (single-device mean {mean_loss:.6f}); "
+        f"averaged gradients within TRAIN_GRAD_TOL of the mean of the two "
+        f"single-device gradients, worst {worst_c:.3e} of max|p|")
+    # (d) hybrid
+    for i, r in enumerate(hybrid):
+        par_check_launches(f"(d) rank {i}", r["step_launches"],
+                           par_want(step=1))
+    worst_d = par_check_grads(torch, "(d)", hybrid[0]["grads"], mean_grads)
+    launches["d"] = [r["step_launches"] for r in hybrid]
+    record["d"] = {"loss": hybrid[0]["loss"], "grad_worst_rel_err": worst_d}
+    log(f"[parallel] (d) hybrid halo-split 2 x 2 gloo ranks: loss "
+        f"{hybrid[0]['loss']:.6f}; gradients within TRAIN_GRAD_TOL of the "
+        f"single-device mean, worst {worst_d:.3e} of max|p|")
+    # (e) BSMS halo
+    e0 = pair[0]["e"]
+    for i, r in enumerate(pair):
+        par_check_launches(f"(e) rank {i} forward", r["e"]["forward_launches"],
+                           par_want(forward=1, k5_extra=PAR_BSMS_POOLS))
+        par_check_launches(f"(e) rank {i} step", r["e"]["step_launches"],
+                           par_want(step=1, k5_extra=PAR_BSMS_POOLS))
+    err_e = par_check_rows("(e) forward", e0["forward"], bsms_fwd)
+    worst_e = par_check_grads(torch, "(e)", e0["grads"], bsms_grads)
+    launches["e"] = {"forward": [r["e"]["forward_launches"] for r in pair],
+                     "step": [r["e"]["step_launches"] for r in pair]}
+    record["e"] = {"levels": e0["levels"], "forward_err": err_e,
+                   "pool_check": e0["pool_check"],
+                   "grad_worst_rel_err": worst_e, "loss": e0["loss"],
+                   "single_loss": float(bloss.detach())}
+    log(f"[parallel] (e) BSMS halo P=2 (bistride, 3 scales, weighted, "
+        f"levels (rows per shard, H) {e0['levels']}): forward max abs err "
+        f"{err_e:.3e} vs single-device BSMS (SERVE_TOL); step gradients "
+        f"worst {worst_e:.3e} of max|p|; loss {e0['loss']:.6f} vs "
+        f"{float(bloss.detach()):.6f}; K5 {PAR_BSMS_POOLS} more per forward "
+        f"(the WEC spread's sorted pool)")
+    for k, rows, err in e0["pool_check"]:
+        log(f"[parallel] (e) rank 0 level {k} WEC spread: "
+            f"ops.segment_pool_sum (K5) on {rows} interior rows x {HIDDEN} "
+            f"fp32 against the plain segment sum, max abs err {err:.3e} "
+            f"(TOL)")
+    # (f) the checkpoint
+    saved = a0["saved"]
+    for i, r in enumerate(restored):
+        if r["restored"] != (1, {"loss": [a0["loss"]]}):
+            raise AssertionError(f"parallel (f) rank {i}: restored "
+                                 f"{r['restored']}")
+        got = r["state"]
+        same = (len(got[0]) == len(saved[0])
+                and all(np.array_equal(a, b)
+                        for a, b in zip(got[0], saved[0]))
+                and len(got[1]) == len(saved[1])
+                and all(x[0] == y[0] and np.array_equal(x[1], y[1])
+                        and np.array_equal(x[2], y[2])
+                        for x, y in zip(got[1], saved[1])))
+        if not same:
+            raise AssertionError(f"parallel (f) rank {i}: the restored state "
+                                 "is not the saved one bit for bit")
+    log(f"[parallel] (f) save_dcp of (a)'s state (async) restored by "
+        f"restore_dcp in 2 fresh ranks: {len(saved[0])} parameters and "
+        f"{len(saved[1])} Adam states bit-equal")
+    log(f"[parallel] ranks: pair {pair_s:.1f} s, nccl {nccl_s:.1f} s, hybrid "
+        f"and restore side by side {hybrid_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", help="write the full JSON record here")
     ap.add_argument("--tail-only", action="store_true",
                     help="run only the device, build and tail phases")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run only the device, build and parallel phases")
     args = ap.parse_args()
     import torch
 
@@ -3372,6 +4130,10 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs = [flagship_graph(seed, dev) for seed in (0, 1, 2)]
     log(f"[serve] 3 meshes built in {time.perf_counter() - t0:.1f} s")
+    if args.parallel_only:
+        print(json.dumps({"parallel": phase_parallel(torch, smi, graphs)},
+                         default=str))
+        return 0
     tail = phase_tail(torch, *graphs[0])
     if args.tail_only:
         print(json.dumps({"tail": tail}))
@@ -3410,12 +4172,19 @@ def main() -> int:
     save_launches, save_record = phase_save_acts(torch, *graphs[0])
     mega_launches, mega_record = phase_mega(torch, graphs)
     remat_record = phase_remat(torch, graphs[0][1])
+    par_launches, par_record = phase_parallel(torch, smi, graphs)
     del graphs
     torch.cuda.empty_cache()
     large_launches, large_record = phase_large(torch, dev, smi)
     for k in kernels:
         base, dtype = k["name"].rstrip("]").split("[")
         if base in FUSED_STEP:
+            # phase parallel: per rank, each run's forward and steps
+            k["launches_parallel"] = {
+                f"{run}_{what}": [c[base] for c in counts]
+                for run, per in par_launches.items()
+                for what, counts in (per.items() if isinstance(per, dict)
+                                     else (("step", per),))}
             # phase large: the 1M-node training steps of each run
             k["launches_large"] = {
                 label: large_launches[label][base]
@@ -3509,6 +4278,8 @@ def main() -> int:
                        "bsms_switches_launches": bsms_sw,
                        "remat": remat_record, "large": large_record,
                        "large_launches": large_launches,
+                       "parallel": par_record,
+                       "parallel_launches": par_launches,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(f"{smi}")

@@ -28,13 +28,16 @@ assert not bad, bad
 """
 
 # modules the walk must reach: the CLI path's (config, data I/O, reports,
-# persistence) and utils/ besides the model and kernel modules
+# persistence), utils/ and parallel/ besides the model and kernel modules
 _MUST_IMPORT = ("cli", "config.config", "data.vtk_core", "data.vtk_geometry",
                 "data.vtk_reader", "data.vtk_writer", "data.mesh_io",
                 "inference.aero_coeffs", "inference.rollout",
                 "training.checkpoint", "training.artifacts",
                 "utils.logging", "utils.profiling", "utils.diagnostics",
-                "utils.torch_import")
+                "utils.torch_import", "parallel.distributed",
+                "parallel.collectives", "parallel.mesh",
+                "parallel.data_parallel", "parallel.spatial", "parallel.halo",
+                "parallel.hybrid", "parallel.bsms_spatial")
 
 
 def test_import_pulls_in_no_jax():

@@ -1,0 +1,347 @@
+"""Rank programs of the port's parallel tests (tests/test_torch_parallel_*).
+
+``run_ranks(program, world, tmp_path, spec)`` starts ``world`` ranks through
+the port's launcher (``parallel.distributed.spawn``), wires them as gloo
+ranks on the CPU through a FileStore in ``tmp_path``
+(``parallel.distributed.initialize``), runs ``program(rank, world, spec)``
+in each and returns the ranks' results (picklable values). A rank that
+raises fails the call with its traceback. This module imports torch and the
+port only, so a rank starts without JAX.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import time
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 150
+
+
+def run_ranks(program, world: int, tmp_path, spec):
+    from aero_gnn_tpu_torch.parallel import distributed as PD
+
+    store = os.path.join(str(tmp_path),
+                         f"store_{program.__name__}_{time.monotonic_ns()}")
+    (results,) = PD.spawn([(functools.partial(_cpu_rank, program, store),
+                            world, spec, {})], timeout_s=TIMEOUT_S)
+    return results
+
+
+def _cpu_rank(program, store, rank, world, spec):
+    from aero_gnn_tpu_torch.parallel import distributed as PD
+
+    torch.set_num_threads(1)
+    PD.initialize(f"file://{store}", world, rank, device="cpu")
+    return program(rank, world, spec)
+
+
+def failing_program(rank: int, world: int, spec) -> None:
+    """Rank 1 raises; the others wait in a barrier that never completes
+    (the launcher must kill them and report rank 1's traceback)."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        raise ValueError("rank 1 gave up")
+    dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# helpers shared by the programs and the tests
+# ---------------------------------------------------------------------------
+
+def mesh_sample(n_nodes: int, seed: int):
+    """The port's make_random_mesh_sample with its features (the same
+    arrays as the JAX package's, bit for bit)."""
+    from aero_gnn_tpu_torch.data import dataset as D
+    from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
+
+    s = make_random_mesh_sample(n_nodes=n_nodes, seed=seed)
+    D.compute_features([s], ["mach", "alpha"])
+    return s
+
+
+def graph_kw(s) -> dict:
+    return dict(senders=s.senders, receivers=s.receivers, x=s.x,
+                edge_attr=s.edge_attr, pos=s.pos, y=s.y)
+
+
+def model_config(kind: str, kw: dict):
+    from aero_gnn_tpu_torch.models.bsms import BSMSConfig
+    from aero_gnn_tpu_torch.models.fouriermgn import FourierMGNConfig
+    from aero_gnn_tpu_torch.models.mgn import MGNConfig
+    from aero_gnn_tpu_torch.models.poolmgn import PoolMGNConfig
+
+    return {"mgn": MGNConfig, "fouriermgn": FourierMGNConfig,
+            "poolmgn": PoolMGNConfig, "bsms": BSMSConfig}[kind](**kw)
+
+
+COUNTED = (("fused_edge_fwd", "hopper_fused", "fused_edge_layer"),
+           ("fused_edge_bwd", "hopper_fused", "fused_edge_layer_bwd"),
+           ("fused_node_fwd", "hopper_node", "fused_node_layer"),
+           ("fused_node_bwd", "hopper_node", "fused_node_layer_bwd"),
+           ("segment_sum", "hopper_segment", "segment_sum"),
+           ("segment_sum_weighted", "hopper_segment", "segment_sum_weighted"),
+           ("gather_rows", "hopper_gather", "gather_rows"))
+
+
+_COUNTS: dict = {}
+
+
+def count_kernel_calls() -> dict:
+    """Wrap each kernel wrapper of COUNTED (the function that launches the
+    kernel on CUDA tensors and runs its plain version on CPU tensors) with
+    a counter, once per process; returns {name: [calls]}."""
+    import importlib
+
+    if _COUNTS:
+        return _COUNTS
+    counts = _COUNTS
+    for name, mod, fn in COUNTED:
+        m = importlib.import_module(f"aero_gnn_tpu_torch.ops.{mod}")
+        orig = getattr(m, fn)
+        box = counts[name] = [0]
+
+        def counted(*a, _orig=orig, _box=box, **k):
+            _box[0] += 1
+            return _orig(*a, **k)
+
+        setattr(m, fn, counted)
+    return counts
+
+
+def snapshot(counts: dict) -> dict:
+    return {k: v[0] for k, v in counts.items()}
+
+
+def delta(before: dict, counts: dict) -> dict:
+    return {k: v[0] - before[k] for k, v in counts.items()}
+
+
+def partition(scheme: str, s, num_parts: int, part_kw: dict):
+    from aero_gnn_tpu_torch.parallel import bsms_spatial as BS
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import spatial as SP
+
+    kw = dict(graph_kw(s), num_parts=num_parts, **part_kw)
+    if scheme == "bsms_halo":
+        kw.update(senders=np.asarray(s.senders, np.int64),
+                  receivers=np.asarray(s.receivers, np.int64))
+    return {"spatial": SP.partition_graph, "model": SP.partition_graph,
+            "halo": HL.partition_graph_halo,
+            "halo_split": HL.partition_graph_halo_split,
+            "bsms_spatial": BS.partition_bsms,
+            "bsms_halo": BS.partition_bsms_halo}[scheme](**kw)
+
+
+def _builders(scheme: str):
+    from aero_gnn_tpu_torch.parallel import bsms_spatial as BS
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import spatial as SP
+
+    return {"spatial": (SP.make_spatial_forward, SP.make_spatial_train_step),
+            "model": (SP.make_spatial_forward, None),
+            "halo": (HL.make_halo_forward, HL.make_halo_train_step),
+            "halo_split": (HL.make_halo_split_forward,
+                           HL.make_halo_split_train_step),
+            "bsms_spatial": (BS.make_bsms_spatial_forward,
+                             BS.make_bsms_spatial_train_step),
+            "bsms_halo": (BS.make_bsms_halo_forward,
+                          BS.make_bsms_halo_train_step)}[scheme]
+
+
+def grads_tree(params, cfg) -> dict:
+    from aero_gnn_tpu_torch.models.convert import params_to_jax
+
+    return params_to_jax(params, cfg, grads=True)
+
+
+def sharded_program(rank: int, world: int, spec: dict) -> dict:
+    """One scheme of spec["scheme"] over a (data, graph) grid of
+    spec["mesh"]: rank (d, g) holds shard g of the mesh of sample d
+    (spec["samples"][d] = (n_nodes, seed)). Returns this rank's forward
+    predictions (fp32 [Nl, Dy]), the gradients of one Adam step (the JAX
+    tree's layout), the losses of spec["steps"] Adam steps (lr 1e-3) and,
+    with spec["count"], the kernel wrappers' calls in the forward and in
+    one step. With spec["psum_numerator"] the loss takes a numerator
+    summed across ranks instead (the seed-inflation fault)."""
+    from aero_gnn_tpu_torch.models.convert import params_from_jax
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel import hybrid as HY
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.parallel import spatial as SP
+    from aero_gnn_tpu_torch.training.loop import make_optimizer
+
+    counts = count_kernel_calls() if spec.get("count") else None
+    data, graph = spec["mesh"]
+    mesh = PM.make_mesh(data=data, graph=graph)
+    d, g = mesh.coords()
+    s = mesh_sample(*spec["samples"][d])
+    cfg = model_config(spec["kind"], spec["cfg"])
+    sh = partition(spec["scheme"], s, graph, spec.get("part", {})).shard(
+        g, "cpu")
+    fwd_fn, step_fn = _builders(spec["scheme"])
+    params = params_from_jax(spec["tree"], cfg, device="cpu")
+    out = {}
+    if data == 1:
+        before = counts and snapshot(counts)
+        fwd = fwd_fn(cfg, mesh)(params, sh)
+        out["forward"] = fwd.numpy()
+        if counts:
+            out["forward_counts"] = delta(before, counts)
+    shard_loss = SP.shard_loss
+    if spec.get("psum_numerator"):
+        def psum_loss(pred, y, node_mask, group):
+            m = node_mask[:, None]
+            se = C.all_reduce_sum(torch.sum(torch.square(pred - y) * m),
+                                  group)
+            cnt = C.all_reduce_raw((torch.sum(m) * y.shape[-1]).detach(),
+                                   group)
+            return se / cnt
+
+        SP.shard_loss = psum_loss
+    steps = spec.get("steps", 0)
+    if steps:
+        opt = make_optimizer(params, 1e-3)
+        if data > 1:
+            step = (HY.make_hybrid_train_step if spec["scheme"] == "spatial"
+                    else HY.make_hybrid_halo_split_train_step)(cfg, opt, mesh)
+        else:
+            step = step_fn(cfg, opt, mesh)
+        losses = []
+        for i in range(steps):
+            before = counts and snapshot(counts)
+            losses.append(float(step(params, sh)))
+            if i == 0:
+                out["grads"] = grads_tree(params, cfg)
+                if counts:
+                    out["step_counts"] = delta(before, counts)
+        out["losses"] = losses
+        out["params"] = [p.detach().numpy().copy()
+                         for p in params.parameters()]
+    SP.shard_loss = shard_loss
+    return out
+
+
+def multi_program(rank: int, world: int, specs: dict) -> dict:
+    """sharded_program for each named spec, in one set of ranks."""
+    return {name: sharded_program(rank, world, spec)
+            for name, spec in specs.items()}
+
+
+def dp_program(rank: int, world: int, spec: dict) -> dict:
+    """Data parallelism over ``world`` ranks: rank r trains on sample
+    spec["samples"][r] (a GraphBatch padded to spec["pad"]); the
+    averaged gradients of the first Adam step, the losses of
+    spec["steps"] steps, and the eval loss before them. With
+    spec["dropout_seed"] the per-rank generators are drawn too."""
+    from aero_gnn_tpu_torch.graph import padded
+    from aero_gnn_tpu_torch.models.convert import params_from_jax
+    from aero_gnn_tpu_torch.parallel import data_parallel as DP
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training.loop import make_optimizer
+
+    mesh = PM.make_mesh(data=world, graph=1)
+    s = mesh_sample(*spec["samples"][rank])
+    n_pad, e_pad = spec["pad"]
+    gb = padded.build_graph_batch(**graph_kw(s), num_nodes_pad=n_pad,
+                                  num_edges_pad=e_pad, device="cpu")
+    cfg = model_config(spec["kind"], spec["cfg"])
+    params = params_from_jax(spec["tree"], cfg, device="cpu")
+    out = {"eval": float(DP.make_dp_eval_step(cfg, mesh)(params, gb))}
+    opt = make_optimizer(params, 1e-3)
+    step = DP.make_dp_train_step(cfg, opt, mesh)
+    losses = []
+    for i in range(spec["steps"]):
+        losses.append(float(step(params, gb)))
+        if i == 0:
+            out["grads"] = grads_tree(params, cfg)
+    out["losses"] = losses
+    if "dropout_seed" in spec:
+        gen = DP.rank_generator(spec["dropout_seed"], mesh.coords()[0],
+                                torch.device("cpu"))
+        out["draw"] = torch.rand(8, generator=gen).numpy()
+    return out
+
+
+def dp_and_collectives_program(rank: int, world: int, spec: dict) -> dict:
+    """dp_program and collectives_program in one set of ranks."""
+    return {"dp": dp_program(rank, world, spec),
+            "collectives": collectives_program(rank, world, spec)}
+
+
+def collectives_program(rank: int, world: int, spec: dict) -> dict:
+    """Central differences of the global objective sum_r <w_r, op(x_r)>
+    (float64) against each collective's autograd gradient, at a few
+    coordinates of each rank's input; returns [(op, autograd, numeric)]."""
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+
+    group = PM.make_mesh(data=1, graph=world).group("graph")
+    rng = np.random.default_rng(100 + rank)
+    shapes = {"all_gather_tiled": (3, 2), "all_to_all": (world, 2, 3),
+              "all_reduce_sum": (4, 2)}
+    out = []
+    for name, shape in shapes.items():
+        op = getattr(C, name)
+        x = torch.tensor(rng.standard_normal(shape), requires_grad=True)
+        y_shape = op(x.detach(), group).shape
+        w = torch.tensor(rng.standard_normal(tuple(y_shape)))
+
+        def objective(xx):
+            return C.all_reduce_raw(torch.sum(w * op(xx, group)), group)
+
+        torch.sum(w * op(x, group)).backward()
+        eps = 1e-6
+        for owner in range(world):
+            for idx in [(0,) * len(shape), tuple(n - 1 for n in shape)]:
+                vals = []
+                for sign in (1.0, -1.0):
+                    xx = x.detach().clone()
+                    if rank == owner:
+                        xx[idx] += sign * eps
+                    vals.append(float(objective(xx)))
+                num = (vals[0] - vals[1]) / (2 * eps)
+                if rank == owner:
+                    out.append((name, float(x.grad[idx]), num))
+    return out
+
+
+def checkpoint_program(rank: int, world: int, spec: dict) -> dict:
+    """spec["mode"] "save": two Adam steps of the halo-split MGN, then
+    save_dcp (asynchronous) as epoch 2, returns the state saved;
+    "restore": fresh parameters and optimizer, restore_dcp, returns the
+    state restored."""
+    from aero_gnn_tpu_torch.models.convert import params_from_jax
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training import checkpoint as CK
+    from aero_gnn_tpu_torch.training.loop import make_optimizer
+
+    mesh = PM.make_mesh(data=1, graph=world)
+    cfg = model_config("mgn", spec["cfg"])
+    params = params_from_jax(spec["tree"], cfg, device="cpu")
+    opt = make_optimizer(params, 1e-3)
+    manager = CK.make_dcp_manager(spec["dir"], max_to_keep=2)
+    if spec["mode"] == "save":
+        s = mesh_sample(*spec["sample"])
+        sh = HL.partition_graph_halo_split(
+            **graph_kw(s), num_parts=world).shard(mesh.coords()[1], "cpu")
+        step = HL.make_halo_split_train_step(cfg, opt, mesh)
+        for epoch in range(3):
+            step(params, sh)
+            CK.save_dcp(manager, params, opt, epoch, {"epoch": [epoch]})
+        manager.wait_until_finished()
+        restored = None
+    else:
+        restored = CK.restore_dcp(manager, params, opt)
+    state = opt.state_dict()["state"]
+    return {"params": [p.detach().numpy().copy()
+                       for p in params.parameters()],
+            "adam": [(float(v["step"]), v["exp_avg"].numpy().copy(),
+                      v["exp_avg_sq"].numpy().copy())
+                     for _, v in sorted(state.items())],
+            "restored": restored, "steps": manager.all_steps()}
