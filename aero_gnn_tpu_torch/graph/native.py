@@ -1,0 +1,132 @@
+"""ctypes bindings of the port's native host graph core (counterpart of
+aero_gnn_tpu.graph.native).
+
+``csrc/host/graphcore.cpp`` is built with g++ at first use
+(``ops._build.host_library``, into the git-ignored ``_kernels_build/``); a
+failed build raises, there is no quiet fallback. Its four entry points are
+the O(E + N) counting sorts and the block alignment of the host path
+(``graph.padded``). The numpy versions they replace stay as the plain
+versions the tests hold them to: ``np.lexsort``, a stable ``np.argsort``,
+``np.searchsorted`` and ``graph.padded._align_edge_blocks_ref``.
+
+Every pointer handed to the library is a contiguous int32 / int64 array
+this module made; keys are checked against their bound first, since the
+counting sorts index their count arrays with them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+
+from aero_gnn_tpu_torch.ops import _build
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_SIGNATURES = {
+    "gc_sort_edges_by_receiver": (
+        [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32, _I32P], None),
+    "gc_argsort_i32": (
+        [_I32P, ctypes.c_int64, ctypes.c_int32, _I32P], None),
+    "gc_csr_offsets": (
+        [_I32P, ctypes.c_int64, ctypes.c_int32, _I64P], None),
+    "gc_align_blocks": (
+        [_I32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int32, _I32P, _I32P, _I32P, _I64P], ctypes.c_int64),
+}
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def _function(symbol: str):
+    fn = getattr(_build.host_library("graphcore"), symbol)
+    fn.argtypes, fn.restype = _SIGNATURES[symbol]
+    return fn
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(_I32P if a.dtype == np.int32 else _I64P)
+
+
+def _bound(name: str, n: int) -> int:
+    n = int(n)
+    if not 0 <= n <= _I32_MAX:
+        raise ValueError(f"{name}={n} outside [0, {_I32_MAX}]")
+    return n
+
+
+def _keys(name: str, a, bound: int) -> np.ndarray:
+    """``a`` as contiguous int32, every value in [0, bound)."""
+    a = np.asarray(a)
+    if len(a) > _I32_MAX:
+        raise ValueError(f"{name} has {len(a)} entries; int32 permutations "
+                         f"hold at most {_I32_MAX}")
+    if len(a) and (a.min() < 0 or a.max() >= bound):
+        raise ValueError(f"{name} holds values outside [0, {bound})")
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def sort_edges_by_receiver(senders: np.ndarray, receivers: np.ndarray,
+                           num_nodes: int) -> np.ndarray:
+    """Stable receiver-major permutation (int32): (receivers[perm],
+    senders[perm]) ascending, ties in edge order; ``np.lexsort((senders,
+    receivers))``'s permutation. Ids must lie in [0, num_nodes)."""
+    num_nodes = _bound("num_nodes", num_nodes)
+    s = _keys("senders", senders, num_nodes)
+    r = _keys("receivers", receivers, num_nodes)
+    if s.shape != r.shape:
+        raise ValueError(f"senders {s.shape} and receivers {r.shape} differ")
+    perm = np.empty(len(s), dtype=np.int32)
+    _function("gc_sort_edges_by_receiver")(_ptr(s), _ptr(r), len(s),
+                                           num_nodes, _ptr(perm))
+    return perm
+
+
+def argsort_i32(keys: np.ndarray, num_keys: int) -> np.ndarray:
+    """Stable argsort (int32) of keys in [0, num_keys); ``np.argsort(keys,
+    kind="stable")``."""
+    num_keys = _bound("num_keys", num_keys)
+    k = _keys("keys", keys, num_keys)
+    perm = np.empty(len(k), dtype=np.int32)
+    _function("gc_argsort_i32")(_ptr(k), len(k), num_keys, _ptr(perm))
+    return perm
+
+
+def csr_offsets(sorted_ids: np.ndarray, num_segments: int) -> np.ndarray:
+    """offsets[v] = the first index whose id is >= v, v in [0,
+    num_segments] (int64); ``np.searchsorted(sorted_ids,
+    np.arange(num_segments + 1))``."""
+    num_segments = _bound("num_segments", num_segments)
+    ids = np.ascontiguousarray(sorted_ids, dtype=np.int32)
+    out = np.empty(num_segments + 1, dtype=np.int64)
+    _function("gc_csr_offsets")(_ptr(ids), len(ids), num_segments, _ptr(out))
+    return out
+
+
+def align_blocks(receivers_sorted: np.ndarray, num_nodes_pad: int,
+                 node_block: int, edge_tile: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The block-aligned layout of a receiver-sorted edge stream: (rows,
+    tile_block, tile_first), int32. ``rows`` holds one entry per output
+    slot, the source edge row or -1 for a pad slot; every node block of
+    ``node_block`` nodes owns a whole number of ``edge_tile``-slot tiles,
+    at least one, and ``tile_block`` / ``tile_first`` name each tile's block
+    and whether it is the block's first."""
+    if node_block <= 0 or edge_tile <= 0:
+        raise ValueError(f"node_block={node_block} and edge_tile={edge_tile}"
+                         " must be positive")
+    num_nodes_pad = _bound("num_nodes_pad", num_nodes_pad)
+    r = np.ascontiguousarray(receivers_sorted, dtype=np.int32)
+    fn = _function("gc_align_blocks")
+    null32, null64 = _I32P(), _I64P()
+    args = (_ptr(r), len(r), num_nodes_pad, int(node_block), int(edge_tile))
+    total = fn(*args, null32, null32, null32, null64)
+    rows = np.empty(total, dtype=np.int32)
+    tile_block = np.empty(total // edge_tile, dtype=np.int32)
+    tile_first = np.empty(total // edge_tile, dtype=np.int32)
+    n_tiles = ctypes.c_int64(0)
+    fn(*args, _ptr(rows), _ptr(tile_block), _ptr(tile_first),
+       ctypes.byref(n_tiles))
+    k = int(n_tiles.value)
+    return rows, tile_block[:k], tile_first[:k]

@@ -23,8 +23,9 @@ Conventions the kernels and models rely on:
     ``ops.hopper_segment``), so a padded batch's tail does not all land on
     the last node block's CTA.
 
-Host-side construction is numpy; the result is a dataclass of tensors on
-the requested device.
+Host-side construction is numpy, with the receiver sort and the block
+alignment on the port's native graph core (``graph.native``) as in the JAX
+package; the result is a dataclass of tensors on the requested device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
+from aero_gnn_tpu_torch.graph import native
 
 ALIGN_NODE_BLOCK = 256
 ALIGN_EDGE_TILE = 1024
@@ -110,7 +112,18 @@ class GraphBatch:
 
 def sort_edges_by_receiver(senders: np.ndarray,
                            receivers: np.ndarray) -> np.ndarray:
-    """Stable destination-major (receiver, then sender) permutation."""
+    """Stable destination-major (receiver, then sender) permutation, by the
+    graph core's O(E + N) counting sort (``graph.native``); the same
+    permutation as ``sort_edges_by_receiver_ref``."""
+    if len(senders) == 0:
+        return np.zeros(0, dtype=np.int64)
+    num_nodes = int(max(senders.max(), receivers.max())) + 1
+    return native.sort_edges_by_receiver(senders, receivers, num_nodes)
+
+
+def sort_edges_by_receiver_ref(senders: np.ndarray,
+                               receivers: np.ndarray) -> np.ndarray:
+    """The plain version of sort_edges_by_receiver: ``np.lexsort``."""
     if len(senders) == 0:
         return np.zeros(0, dtype=np.int64)
     return np.lexsort((senders, receivers))
@@ -327,7 +340,44 @@ def _align_edge_blocks(senders, receivers, edge_attr, num_nodes_pad, dtype):
     range is a whole number of ALIGN_EDGE_TILE-edge tiles; every node block
     gets at least one tile. Pad edges repeat the block's last receiver (its
     first node when the block has no edge), with sender = receiver and zero
-    features, so receivers stay ascending."""
+    features, so receivers stay ascending. The layout comes from the graph
+    core (``native.align_blocks``, as JAX's padded.py:559-561); the result
+    equals ``_align_edge_blocks_ref``'s, which also lays out a stream
+    without edges (all pad slots: no row to index)."""
+    if len(receivers) == 0:
+        return _align_edge_blocks_ref(senders, receivers, edge_attr,
+                                      num_nodes_pad, dtype)
+    nb, et = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
+    rows, tile_block, tile_first = native.align_blocks(
+        receivers, num_nodes_pad, nb, et)
+    valid = rows >= 0
+    pad_slots = np.flatnonzero(~valid)
+    # each block's pad receiver: its last receiver, else its first node
+    n_blocks = num_nodes_pad // nb
+    ends = np.searchsorted(receivers, np.arange(1, n_blocks + 1) * nb)
+    starts = np.concatenate([[0], ends[:-1]])
+    fill = np.where(ends > starts, receivers[np.maximum(ends - 1, 0)],
+                    np.minimum(np.arange(n_blocks) * nb, num_nodes_pad - 1))
+    fill = fill[tile_block[pad_slots // et]]
+    s_slot = np.empty(len(rows), senders.dtype)
+    r_slot = np.empty(len(rows), receivers.dtype)
+    s_slot[valid], s_slot[pad_slots] = senders, fill
+    r_slot[valid], r_slot[pad_slots] = receivers, fill
+    ea = np.ascontiguousarray(edge_attr,
+                              dtype=np.result_type(edge_attr.dtype, dtype))
+    ea_slot = np.zeros((len(rows),) + ea.shape[1:], ea.dtype)
+    if ea.size:
+        # each row one item of a void view: one scatter pass, not per value
+        row = np.dtype((np.void, ea[:1].nbytes))
+        ea_slot.reshape(len(rows), -1).view(row)[:, 0][valid] = \
+            ea.reshape(len(ea), -1).view(row)[:, 0]
+    return s_slot, r_slot, ea_slot, valid, tile_block, tile_first
+
+
+def _align_edge_blocks_ref(senders, receivers, edge_attr, num_nodes_pad,
+                           dtype):
+    """The plain version of _align_edge_blocks (numpy, a loop over the node
+    blocks)."""
     nb, et = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
     n_blocks = num_nodes_pad // nb
     block_of_edge = receivers // nb

@@ -6,6 +6,10 @@ ctypes. The output directory ``_kernels_build/<hash>/`` is keyed by a hash
 of every file in ``csrc/``, so an edited source rebuilds. All sources are
 compiled in parallel, one nvcc process each. A failed build raises with
 nvcc's stderr. Nothing here runs at import time.
+
+The host libraries ``csrc/host/<name>.cpp`` (the graph core) build the same
+way with g++ (``host_library``), into ``_kernels_build/host-<hash>/`` keyed
+by the source, the flags and the machine's architecture.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -24,6 +29,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_SRC = CSRC / "host"
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, object] = {}
@@ -47,14 +55,18 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _build_dir() -> Path:
+def _hashed_dir(paths, flags, prefix: str = "") -> Path:
     h = hashlib.sha256()
-    for p in sorted(CSRC.iterdir()):
-        if p.suffix in (".cu", ".cuh"):
-            h.update(p.name.encode())
-            h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_ROOT / (prefix + h.hexdigest()[:16])
+
+
+def _build_dir() -> Path:
+    return _hashed_dir([p for p in sorted(CSRC.iterdir())
+                        if p.suffix in (".cu", ".cuh")], NVCC_FLAGS)
 
 
 def build_all(names: Optional[list] = None) -> float:
@@ -96,6 +108,34 @@ def library(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = ctypes.CDLL(str(_build_dir() / f"lib{name}.so"))
         _libs[name] = lib
+    return lib
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/host/<name>.cpp``, built with g++ on
+    first use. Raises RuntimeError when g++ is missing or fails (with its
+    stderr): the host code has no quiet fallback."""
+    key = f"host/{name}"
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    src = HOST_SRC / f"{name}.cpp"
+    out_dir = _hashed_dir([src], GXX_FLAGS + [platform.machine()], "host-")
+    so = out_dir / f"lib{name}.so"
+    if not so.exists():
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH; {src.name} cannot "
+                               "be built")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+        p = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"g++ failed for {src.name} (exit "
+                               f"{p.returncode}):\n{p.stdout}{p.stderr}")
+        os.replace(tmp, so)
+    lib = _libs[key] = ctypes.CDLL(str(so))
     return lib
 
 

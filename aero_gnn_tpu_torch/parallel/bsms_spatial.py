@@ -45,7 +45,7 @@ from aero_gnn_tpu_torch.parallel import collectives as C
 from aero_gnn_tpu_torch.parallel.halo import (
     HaloSplitGraph,
     _assign_parts,
-    _exchange,
+    _exchange_start,
     _remat_kw,
     cast_split_graph,
     halo_split_stack,
@@ -567,17 +567,18 @@ def _fetch_route(tgt_global: np.ndarray, owner: np.ndarray,
 
 def _wec_conv_sharded(lvl: BSMSHaloLevel, x, group: C.Group):
     """Sharded WeightedEdgeConv aggregation on this level's rows: remote
-    sender rows arrive through the level's halo exchange, then the
-    receiver-owned conv is complete per shard."""
+    sender rows arrive through the level's halo exchange, in flight while
+    the interior stream is summed; then the receiver-owned conv is complete
+    per shard."""
     g = lvl.graph
     n_local = x.shape[0]
-    halo_x = _exchange(x, g.send_idx, group)
+    halo_x = _exchange_start(x, g.send_idx, group)
     xs_i = ops.gather_senders(x, g.senders_int, g.sender_perm_int,
                               g.senders_int_sorted)
-    xs_b = ops.gather(halo_x, g.senders_bnd)
-    return (lvl.conv_self[:, None] * x
-            + ops.segment_sum_sorted(lvl.conv_edge_int[:, None] * xs_i,
-                                     g.receivers_int, n_local)
+    interior = ops.segment_sum_sorted(lvl.conv_edge_int[:, None] * xs_i,
+                                      g.receivers_int, n_local)
+    xs_b = ops.gather(halo_x.wait().flatten(0, 1), g.senders_bnd)
+    return (lvl.conv_self[:, None] * x + interior
             + ops.segment_sum_sorted(lvl.conv_edge_bnd[:, None] * xs_b,
                                      g.receivers_bnd, n_local))
 
@@ -585,8 +586,8 @@ def _wec_conv_sharded(lvl: BSMSHaloLevel, x, group: C.Group):
 def _wec_spread_sharded(lvl: BSMSHaloLevel, z, group: C.Group):
     """Sharded transpose of _wec_conv_sharded: contributions to REMOTE
     senders ship back with the reverse all_to_all (the manual transpose of
-    halo._exchange; unused halo slots carry exact zeros, so their adds to
-    row send_idx[..., 0] change nothing)."""
+    halo._exchange_start; unused halo slots carry exact zeros, so their
+    adds to row send_idx[..., 0] change nothing)."""
     g = lvl.graph
     n_local = z.shape[0]
     zr_i = ops.gather(z, g.receivers_int)
@@ -597,6 +598,7 @@ def _wec_spread_sharded(lvl: BSMSHaloLevel, z, group: C.Group):
     p_, h_ = g.send_idx.shape
     buf = ops.segment_sum(lvl.conv_edge_bnd[:, None] * zr_b, g.senders_bnd,
                           p_ * h_)
+    # synchronous: every next op reads its result
     rev = C.all_to_all(buf.reshape(p_, h_, -1), group)
     spread = spread + torch.zeros_like(z).index_add(
         0, g.send_idx.reshape(-1), rev.reshape(-1, z.shape[-1]))
@@ -610,6 +612,7 @@ def _sparse_reduce(payload, slot, recv_rows, n_dst: int, group: C.Group):
     p_, ht = recv_rows.shape
     big = ops.segment_sum(payload, slot, n_dst + p_ * ht)
     local, stage = big[:n_dst], big[n_dst:].reshape(p_, ht, -1)
+    # synchronous: every next op reads its result
     recv = C.all_to_all(stage, group)
     return local.index_add(0, recv_rows.reshape(-1),
                            recv.reshape(p_ * ht, -1))
@@ -620,6 +623,7 @@ def _sparse_fetch(xk1, send_rows, fetch, group: C.Group):
     (all_to_all), then read local + received rows by ``fetch``."""
     buf = ops.gather(xk1, send_rows.reshape(-1)).reshape(
         tuple(send_rows.shape) + (xk1.shape[-1],))
+    # synchronous: every next op reads its result
     table = C.all_to_all(buf, group)
     return ops.gather(torch.cat([xk1, table.reshape(-1, xk1.shape[-1])]),
                       fetch)
@@ -690,6 +694,7 @@ def _bsms_halo(params, cfg, levels, group):
         big = (ops.segment_sum(pi, plan.edge_slot_int, d_e + p_ * ht)
                + ops.segment_sum(pb, plan.edge_slot_bnd, d_e + p_ * ht))
         local, stage = big[:d_e], big[d_e:].reshape(p_, ht, -1)
+        # synchronous: every next op reads its result
         recv = C.all_to_all(stage, group)
         comb = local.index_add(0, plan.edge_recv_rows.reshape(-1),
                                recv.reshape(p_ * ht, -1))

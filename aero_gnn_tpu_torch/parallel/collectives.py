@@ -7,6 +7,16 @@
   * ``all_to_all``: [P, ...] per rank, block q to rank q -> block q from
     rank q (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``); backward
     the reverse all_to_all, which is the same exchange;
+  * ``all_to_all_start`` -> ``Pending``, ``Pending.wait()``: the same
+    exchange split into its issue and its wait, so that work which does not
+    read the result runs while it is in flight (the async all-to-all that
+    JAX's ``async_jit_options`` turns on, parallel/xla_flags.py). The
+    backward is split the same way: the wait's backward starts the reverse
+    exchange of the cotangent and the start's backward waits for it, so the
+    backward of what ran between the two overlaps it too.
+    ``AERO_GNN_ASYNC_COLLECTIVES`` (JAX's switch, "1" by default, read at
+    call time) set to anything else makes the pair today's synchronous
+    ``all_to_all``;
   * ``all_reduce_sum``: ``jax.lax.psum``; backward the psum of the
     cotangent. Counts and losses call it on tensors without a gradient;
   * ``sum_gradients``: the parameters' gradients summed over the group by
@@ -25,6 +35,7 @@ group of one, where every collective is the identity.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -60,14 +71,19 @@ def gather_raw(x: torch.Tensor, group: Group) -> torch.Tensor:
     return out
 
 
+def _blocks(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` contiguous, ValueError unless it holds one block per rank."""
+    if x.shape[0] != group.size:
+        raise ValueError(f"all_to_all of {x.shape[0]} blocks over a group "
+                         f"of {group.size}")
+    return x.contiguous()
+
+
 def all_to_all_raw(x: torch.Tensor, group: Group) -> torch.Tensor:
     """[P, ...] -> [P, ...], block q exchanged with rank q; no autograd."""
     if group.pg is None:
         return x
-    if x.shape[0] != group.size:
-        raise ValueError(f"all_to_all of {x.shape[0]} blocks over a group "
-                         f"of {group.size}")
-    x = x.contiguous()
+    x = _blocks(x, group)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group.pg)
     return out
@@ -134,6 +150,97 @@ def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
     """[P, ...]: block q goes to rank q, block q of the result came from
     rank q; backward the reverse exchange."""
     return _AllToAll.apply(x, group)
+
+
+def async_collectives() -> bool:
+    """Whether ``all_to_all_start`` issues its exchange asynchronously
+    (``AERO_GNN_ASYNC_COLLECTIVES``, "1" by default, as JAX's
+    ``async_jit_options`` reads it)."""
+    return os.environ.get("AERO_GNN_ASYNC_COLLECTIVES", "1") == "1"
+
+
+class _Flight:
+    """One exchange in flight: its work handle and the buffers it reads and
+    writes, held until it has completed (the forward's, then the reverse
+    exchange's in the backward)."""
+
+    __slots__ = ("work", "send", "recv")
+
+    def __init__(self):
+        self.work = self.send = self.recv = None
+
+
+def _launch(x: torch.Tensor, group: Group, flight: _Flight) -> torch.Tensor:
+    """Issue the all_to_all of ``x`` with ``async_op=True``; returns the
+    receive buffer, whose contents are defined once ``_finish`` ran. On
+    NCCL the exchange runs on its own stream after the current stream's
+    work; on gloo its copies of CUDA tensors run on gloo's own streams."""
+    flight.send = _blocks(x, group)
+    flight.recv = torch.empty_like(flight.send)
+    flight.work = dist.all_to_all_single(flight.recv, flight.send,
+                                         group=group.pg, async_op=True)
+    return flight.recv
+
+
+def _finish(flight: _Flight) -> torch.Tensor:
+    """Wait for the exchange in ``flight`` and release its buffers; returns
+    the received blocks. On NCCL the current stream waits, the host does
+    not; on gloo the host waits for the exchange, and the current stream
+    for its copies back to CUDA tensors."""
+    flight.work.wait()
+    out = flight.recv
+    flight.work = flight.send = flight.recv = None
+    return out
+
+
+class _AllToAllStart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, flight):
+        ctx.flight = flight
+        return _launch(x, group, flight)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # ct is the buffer _AllToAllWait.backward's reverse exchange fills
+        return _finish(ctx.flight), None, None
+
+
+class _AllToAllWait(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, recv, group, flight):
+        ctx.group, ctx.flight = group, flight
+        return _finish(flight)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _launch(ct, ctx.group, ctx.flight), None, None
+
+
+class Pending:
+    """An all_to_all issued by ``all_to_all_start``; ``wait()`` (once)
+    returns the received [P, ...] blocks."""
+
+    def __init__(self, recv: torch.Tensor, group: Group,
+                 flight: Optional[_Flight]):
+        self._recv, self._group, self._flight = recv, group, flight
+
+    def wait(self) -> torch.Tensor:
+        if self._flight is None:
+            return self._recv
+        return _AllToAllWait.apply(self._recv, self._group, self._flight)
+
+
+def all_to_all_start(x: torch.Tensor, group: Group) -> Pending:
+    """``all_to_all(x, group)`` issued now and read at ``Pending.wait()``:
+    with ``async_collectives()`` the exchange is in flight in between, and
+    in the backward the reverse exchange is in flight between the wait's
+    backward and the start's (the autograd engine runs the backward of the
+    work created between the two in that window). Without it, or on a
+    group of one, the exchange has completed when this returns."""
+    if group.pg is None or not async_collectives():
+        return Pending(all_to_all(x, group), group, None)
+    flight = _Flight()
+    return Pending(_AllToAllStart.apply(x, group, flight), group, flight)
 
 
 def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -7,11 +7,13 @@ partitions only boundary nodes are referenced across shards, so this module
 exchanges exactly the needed rows with one all_to_all: O(P * H * h), H the
 largest boundary of a shard pair (planned on the host, static).
 
-Per layer, per shard (``_exchange``):
+Per layer, per shard (``_exchange_start``):
   1. send_buf = s_proj[send_idx]       # [P, H, h] rows for each peer
   2. recv     = all_to_all(send_buf)   # [P, H, h] rows from each peer
   3. the halo table recv.reshape(P * H, h), read by the boundary senders.
-The all_to_all's backward is the reverse all_to_all
+The all_to_all is issued with ``collectives.all_to_all_start`` and waited
+for where the table is first read; its backward is the reverse all_to_all,
+started by the wait's backward and waited for by the start's
 (``parallel.collectives``).
 
 ``HaloSplitGraph`` (the flagship, ``partition_graph_halo_split``) splits
@@ -19,9 +21,12 @@ each shard's edges into an interior stream (both endpoints local) and a
 boundary stream (sender remote): with ``align_interior`` the interior is
 block-aligned, and ``_halo_split_layer`` runs it on the fused kernels K1 /
 K3 (backward K2 / K4, the sender gather's backward K5) while the boundary
-chain, O(surface), stays plain torch. JAX issues the exchange first so
-that XLA hides it under the interior work (halo.py:543); here it is issued
-first and runs synchronously (no overlap).
+chain, O(surface), stays plain torch. As in JAX (halo.py:543, compiled
+with xla_flags.async_jit_options) the exchange is issued first and only
+the boundary chain waits for it, so it is in flight while the interior
+runs; in the backward the reverse exchange is in flight while the
+interior's backward runs. ``AERO_GNN_ASYNC_COLLECTIVES=0`` makes it
+synchronous (``collectives.async_collectives``).
 
 Host side: numpy, bit-equal to the JAX package's; ``.shard(p, device)`` is
 rank p's slice (``parallel.spatial.Sharded``). The forwards checkpoint the
@@ -368,12 +373,13 @@ def partition_graph_halo_split(
 # rank side
 # ---------------------------------------------------------------------------
 
-def _exchange(values: torch.Tensor, send_idx_local: torch.Tensor,
-              group: C.Group) -> torch.Tensor:
-    """values [Nl, h], send_idx_local [P, H] -> halo table rows [P*H, h]."""
+def _exchange_start(values: torch.Tensor, send_idx_local: torch.Tensor,
+                    group: C.Group) -> C.Pending:
+    """Issue the exchange of ``values`` [Nl, h] by ``send_idx_local``
+    [P, H]; ``.wait().flatten(0, 1)`` is the halo table [P*H, h]."""
     send_buf = ops.gather(values, send_idx_local.reshape(-1)).reshape(
         tuple(send_idx_local.shape) + (values.shape[-1],))
-    return C.all_to_all(send_buf, group).reshape(-1, values.shape[-1])
+    return C.all_to_all_start(send_buf, group)
 
 
 def _halo_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
@@ -383,17 +389,20 @@ def _halo_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
     if cfg.do_concat_trick:
         p = layer.edge
         s_proj = x @ p.w_s
+        halo = _exchange_start(s_proj, sh.send_idx, group)
         d_proj = x @ p.w_d + p.b
-        table = torch.cat([s_proj, _exchange(s_proj, sh.send_idx, group)])
-        h0 = (e @ p.w_e + ops.gather_senders(table, *sg_args)
-              + ops.gather(d_proj, sh.receivers_local))
+        h_e = e @ p.w_e
+        h_d = ops.gather(d_proj, sh.receivers_local)
+        table = torch.cat([s_proj, halo.wait().flatten(0, 1)])
+        h0 = h_e + ops.gather_senders(table, *sg_args) + h_d
         delta_e = B.edge_block_sum_post(p, h0, cfg)
     else:
-        table = torch.cat([x, _exchange(x, sh.send_idx, group)])
+        halo = _exchange_start(x, sh.send_idx, group)
+        x_d = ops.gather(x, sh.receivers_local)
+        table = torch.cat([x, halo.wait().flatten(0, 1)])
         delta_e = M.mlp_apply(
             layer.edge,
-            torch.cat([e, ops.gather_senders(table, *sg_args),
-                       ops.gather(x, sh.receivers_local)], dim=-1),
+            torch.cat([e, ops.gather_senders(table, *sg_args), x_d], dim=-1),
             activation=cfg.activation)
     e = e + delta_e
     agg = masked_sum(e, sh.edge_mask, sh.receivers_local, n_local)
@@ -449,10 +458,11 @@ def fused_interior(cfg: B.MGNLayerConfig, x, sh: HaloSplitGraph) -> bool:
 
 def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
                       e_bnd, sh: HaloSplitGraph, group: C.Group):
-    """One MGN layer on the split streams: the exchange first, the
+    """One MGN layer on the split streams: the exchange issued first, the
     interior chain (on K1 / K3 when ``fused_interior``; the sender gather
-    sorted, its backward on K5), then the boundary chain from the halo
-    table, its aggregate added to the interior's."""
+    sorted, its backward on K5) while it is in flight, then the boundary
+    chain, which waits for the halo table where it first reads it; its
+    aggregate is added to the interior's."""
     n_local = x.shape[0]
     int_args = (sh.senders_int, sh.sender_perm_int, sh.senders_int_sorted)
     streams = [(sh.receivers_int, sh.edge_mask_int),
@@ -460,12 +470,13 @@ def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
     if fused_interior(cfg, x, sh):
         p = layer.edge
         s_proj = x @ p.w_s
-        halo = _exchange(s_proj, sh.send_idx, group)
+        halo = _exchange_start(s_proj, sh.send_idx, group)
         d_proj = x @ p.w_d + p.b
         sg = ops.gather_senders(s_proj, *int_args, aligned=True)
         e_int, agg = fused_edge(p, cfg, e_int, sg, d_proj, sh.edge_mask_int,
                                 sh.receivers_int, n_local)
-        h0_b = (e_bnd @ p.w_e + ops.gather(halo, sh.senders_bnd)
+        h0_b = (e_bnd @ p.w_e
+                + ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd)
                 + ops.gather(d_proj, sh.receivers_bnd))
         e_bnd = e_bnd + B.edge_block_sum_post(p, h0_b, cfg)
         agg = agg + masked_sum(e_bnd, sh.edge_mask_bnd, sh.receivers_bnd,
@@ -476,16 +487,17 @@ def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
     if cfg.do_concat_trick:
         p = layer.edge
         s_proj = x @ p.w_s
-        halo = _exchange(s_proj, sh.send_idx, group)
+        halo = _exchange_start(s_proj, sh.send_idx, group)
         d_proj = x @ p.w_d + p.b
         h0_i = (e_int @ p.w_e + ops.gather_senders(s_proj, *int_args)
                 + ops.gather(d_proj, sh.receivers_int))
         de_i = B.edge_block_sum_post(p, h0_i, cfg)
-        h0_b = (e_bnd @ p.w_e + ops.gather(halo, sh.senders_bnd)
+        h0_b = (e_bnd @ p.w_e
+                + ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd)
                 + ops.gather(d_proj, sh.receivers_bnd))
         de_b = B.edge_block_sum_post(p, h0_b, cfg)
     else:
-        halo = _exchange(x, sh.send_idx, group)
+        halo = _exchange_start(x, sh.send_idx, group)
         de_i = M.mlp_apply(
             layer.edge,
             torch.cat([e_int, ops.gather_senders(x, *int_args),
@@ -493,7 +505,8 @@ def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
             activation=cfg.activation)
         de_b = M.mlp_apply(
             layer.edge,
-            torch.cat([e_bnd, ops.gather(halo, sh.senders_bnd),
+            torch.cat([e_bnd,
+                       ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd),
                        ops.gather(x, sh.receivers_bnd)], dim=-1),
             activation=cfg.activation)
     e_int = e_int + de_i

@@ -11,7 +11,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
   1. device  — nvidia-smi name and power limit, CUDA and card names;
   2. build   — compile every kernel in aero_gnn_tpu_torch/csrc with nvcc
-               (sm_90a), one process per source, and report the time;
+               (sm_90a), one process per source, and the host graph core
+               (csrc/host/graphcore.cpp) with g++, and report the times;
+               then build_graph_batch's host ms on the 65,536-node mesh
+               with the graph core (graph.native) and with the numpy
+               plain versions (np.lexsort, the block loop), in turns, the
+               batches bit-equal (phase large does the same at 1,048,576);
   3. tail    — K1, K2 and K5 (the sender backward's, and the unfused
                aggregation's: the receiver stream, the edge mask and the
                pad sink declared) on the Loader-padded 65,536-node graph
@@ -205,14 +210,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                gathered against the single device's within SERVE_TOL, one
                fp32 step's gradients within TRAIN_GRAD_TOL, 3 bf16 and 1
                fp32 steps timed with CUDA events beside the single-device
-               step, the replicas bit-equal, K1-K5 launches per rank gated,
+               step in turns with AERO_GNN_ASYNC_COLLECTIVES off, on, on,
+               off (the exchange issued with async_op and waited for where
+               the boundary chain reads it, or synchronous), the fp32
+               forward bit-equal between the two and one fp32 backward's
+               gradients within GRAD_TOL, one bf16 step profiled under
+               each to measure how many ms of the exchange's device copies
+               overlap K1 / K2 on the timeline,
+               the replicas bit-equal, K1-K5 launches per rank gated,
                the halo's rows, bytes and all_to_all time, K1 and K3
                forward, K2, K4 and K5 backward against their plain versions
                on shard 0's interior in bf16 and fp32, K1 / K2 timed there
                beside the tight graph); (b) the same at P = 1, one rank
                wired by a torchrun-style environment so that initialize()
-               chooses NCCL; the split step at P = 1 without a process
-               group timed and its kernel launches and matrix products
+               chooses NCCL (the exchange async through NCCL); the
+               split step at P = 1 without a process group timed and its kernel launches and matrix products
                counted beside the single device's;
                (c) data parallel on meshes 0 and 1 (2 ranks); (d) hybrid
                halo-split on a 2 x 2 grid (4 ranks); (e) the BSMS halo
@@ -368,6 +380,10 @@ def phase_build():
 
     secs = _build.build_all()
     log(f"[build] {', '.join(_build.sources())} built in {secs:.1f} s")
+    t0 = time.perf_counter()
+    _build.host_library("graphcore")
+    log(f"[build] graph core (csrc/host/graphcore.cpp, g++) built and "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
     for name, report in sorted(_build.ptxas_report.items()):
         for line in report.splitlines():
             if "entry function" in line:
@@ -521,6 +537,65 @@ def flagship_graph(seed: int, device, n_nodes: int = N_NODES):
         edge_attr=s.edge_attr, pos=s.pos, y=s.y, num_nodes_pad=np_pad,
         align_edges=True, device=device)
     return s, g
+
+
+def host_graph_build(torch, sample, dev, smi: str) -> dict:
+    """build_graph_batch's host ms on ``sample`` (flagship_graph's layout)
+    with the graph core (graph.native's counting sort and block alignment)
+    and with the numpy plain versions (padded.sort_edges_by_receiver_ref:
+    np.lexsort; padded._align_edge_blocks_ref), in turns (core, numpy,
+    numpy, core), and the receiver sort alone; the two batches bit-equal.
+    Host clock, ending in a synchronize."""
+    import dataclasses
+
+    from aero_gnn_tpu_torch.graph import padded
+
+    paths = {"core": (padded.sort_edges_by_receiver,
+                      padded._align_edge_blocks),
+             "numpy": (padded.sort_edges_by_receiver_ref,
+                       padded._align_edge_blocks_ref)}
+    n = sample.num_nodes
+    kw = dict(senders=sample.senders, receivers=sample.receivers,
+              x=sample.x, edge_attr=sample.edge_attr, pos=sample.pos,
+              y=sample.y, num_nodes_pad=-(-(n + 1) // 512) * 512,
+              align_edges=True, device=dev)
+    ms = {"core": [], "numpy": []}
+    sort_ms = {"core": [], "numpy": []}
+    first = {}
+    try:
+        for name in ("core", "numpy", "numpy", "core"):
+            sort, align = paths[name]
+            padded.sort_edges_by_receiver = sort
+            padded._align_edge_blocks = align
+            t0 = time.perf_counter()
+            g = padded.build_graph_batch(**kw)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            sort(sample.senders, sample.receivers)
+            sort_ms[name].append((time.perf_counter() - t0) * 1e3)
+            first.setdefault(name, g)
+            del g
+    finally:
+        padded.sort_edges_by_receiver, padded._align_edge_blocks = \
+            paths["core"]
+    a, b = first["core"], first["numpy"]
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = (x.dtype == y.dtype and torch.equal(x, y)
+                if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            raise AssertionError(f"host graph build at {n} nodes: {f.name} "
+                                 "differs between the graph core and numpy")
+    log(f"[host] build_graph_batch at {n} nodes ({sample.num_edges} edges, "
+        f"aligned, to the card), host ms in turns core / numpy / numpy / "
+        f"core: {ms['core'][0]:.1f} / {ms['numpy'][0]:.1f} / "
+        f"{ms['numpy'][1]:.1f} / {ms['core'][1]:.1f}; the receiver sort "
+        f"alone (graph core / np.lexsort): {sort_ms['core'][0]:.1f} / "
+        f"{sort_ms['numpy'][0]:.1f} / {sort_ms['numpy'][1]:.1f} / "
+        f"{sort_ms['core'][1]:.1f}; batches bit-equal (host clock; {smi})")
+    return {"nodes": n, "edges": sample.num_edges, "build_ms": ms,
+            "sort_ms": sort_ms}
 
 
 def cuda_time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -3100,6 +3175,7 @@ def phase_large(torch, dev, smi):
         f"{boundary / 1e9:.3f} GB")
     record = {"nodes_pad": g.num_nodes_pad, "edge_rows": g.num_edges_pad,
               "live_edges": live, "host_s": host_s,
+              "host_graph": host_graph_build(torch, sample, dev, smi),
               "boundary_bytes": boundary,
               "kernels": check_large_kernels(torch, g)}
     launches, first_loss = {}, None
@@ -3385,7 +3461,10 @@ PAR_PARTS = 2
 # (dtype, timed steps) after one warm step each, following the fp32 step
 # whose gradients are checked
 PAR_TIMED = (("bfloat16", 3), ("float32", 1))
-PAR_STEPS = 1 + sum(1 + n for _, n in PAR_TIMED)
+# AERO_GNN_ASYNC_COLLECTIVES in turns: PAR_TIMED's steps under each
+PAR_TURNS = ("0", "1", "1", "0")
+PAR_SETTING = {"0": "sync", "1": "async"}
+PAR_STEPS = 1 + len(PAR_TIMED) + len(PAR_TURNS) * sum(n for _, n in PAR_TIMED)
 PAR_TIMEOUT_S = 600
 # K5 launches of the BSMS halo scheme beyond the layers' sender backward:
 # the WEC spread's sorted pool (ops.segment_pool_sum) once per up
@@ -3476,8 +3555,10 @@ def par_gather_rows(torch, pred, group, s, parts):
 def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
     """The main path: the flagship MGN on the split halo streams over the
     mesh's graph axis. The fp32 forward (counted), one fp32 step (its
-    gradients), then a warm and PAR_TIMED steps per dtype (counted, timed
-    with CUDA events); the replicas' parameters; with ``save_dir`` the
+    gradients), then a warm step per dtype and PAR_TIMED's steps under
+    each setting of PAR_TURNS in turn (counted, timed with CUDA events);
+    outside the count the async / sync comparison (par_async_check) and a
+    profiled bf16 step; the replicas' parameters; with ``save_dir`` the
     state saved by save_dcp; last, the interior's kernels against their
     plain versions (par_check_interior)."""
     from aero_gnn_tpu_torch.parallel import collectives as C
@@ -3496,6 +3577,7 @@ def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
     params = cfgs["float32"].init(torch.Generator().manual_seed(0),
                                   device=dev)
     rec = {"device": str(dev), "backend": group.backend,
+           "async_default": C.async_collectives(),
            "halo_rows": hg.halo_size,
            "nodes_per_part": hg.nodes_per_part,
            "interior_rows": hg.edge_attr_int.shape[1],
@@ -3516,25 +3598,39 @@ def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
     zero_counters()
     rec["loss"] = float(steps["float32"](params, sh))
     rec["grads"] = par_grads(params)
-    rec["step_ms"] = {}
-    for dt, n in PAR_TIMED:
+    for dt, _ in PAR_TIMED:
         steps[dt](params, sh)
-        times = []
-        for _ in range(n):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            steps[dt](params, sh)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        rec["step_ms"][dt] = statistics.median(times)
+    times = {st: {dt: [] for dt, _ in PAR_TIMED} for st in PAR_SETTING}
+    for setting in PAR_TURNS:
+        with knob("AERO_GNN_ASYNC_COLLECTIVES", setting):
+            for dt, n in PAR_TIMED:
+                for _ in range(n):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    steps[dt](params, sh)
+                    b.record()
+                    b.synchronize()
+                    times[setting][dt].append(a.elapsed_time(b))
+    rec["step_ms"] = {PAR_SETTING[st]: {dt: statistics.median(t)
+                                        for dt, t in per.items()}
+                      for st, per in times.items()}
+    rec["step_ms_all"] = {PAR_SETTING[st]: per for st, per in times.items()}
     torch.cuda.synchronize()
     rec["step_launches"] = read_counters()
-    # after the counted run: two more bf16 steps, one profiled
+    # after the counted run: the settings compared, then more bf16 steps,
+    # two profiled (one under each setting, for the overlap)
+    rec["async_check"] = par_async_check(torch, cfgs["float32"], params, sh,
+                                         mesh)
     rec["profile_bf16"] = phase_profile(
         torch, f"parallel ({tag}) rank {rank} bf16 step",
         lambda: steps["bfloat16"](params, sh), top=6)
+    rec["overlap_bf16"] = {}
+    for setting, label in PAR_SETTING.items():
+        with knob("AERO_GNN_ASYNC_COLLECTIVES", setting):
+            rec["overlap_bf16"][label] = exchange_overlap(
+                torch, lambda: steps["bfloat16"](params, sh),
+                parts * hg.halo_size * HIDDEN * 2)  # the bf16 halo blocks
     flat = torch.cat([p.detach().reshape(-1) for p in params.parameters()])
     every = C.gather_raw(flat[None], group)
     rec["replicas_bit_equal"] = all(torch.equal(every[0], row)
@@ -3553,6 +3649,134 @@ def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
         rec["saved"] = par_state(params, opt)
     par_check_interior(torch, mesh, sh, rec)
     return rec
+
+
+def par_async_check(torch, cfg, params, sh, mesh) -> dict:
+    """The fp32 forward, and one fp32 forward and backward with the
+    gradients summed over the group (no optimizer step), under
+    AERO_GNN_ASYNC_COLLECTIVES 0 and 1 with deterministic algorithms on:
+    the forwards bit-equal (else it raises), the gradients within GRAD_TOL
+    of the synchronous ones (the names of those not bit-equal, the worst
+    error over max|p|). Without deterministic algorithms the boundary
+    chain's index_add (the plain segment sum and the gathers' backward)
+    adds in the atomics' order, so two synchronous forwards are compared
+    too (``sync_repeat_bit_equal``), for the record."""
+    from aero_gnn_tpu_torch.parallel import collectives as C
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import spatial as SP
+
+    group = mesh.group("graph")
+    fwd = HL.make_halo_split_forward(cfg, mesh)
+    with knob("AERO_GNN_ASYNC_COLLECTIVES", "0"):
+        repeat = torch.equal(fwd(params, sh), fwd(params, sh))
+    preds, grads = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for setting in PAR_SETTING:
+            with knob("AERO_GNN_ASYNC_COLLECTIVES", setting):
+                preds[setting] = fwd(params, sh)
+                params.zero_grad(set_to_none=True)
+                pred = HL.halo_split_mgn_forward(params, cfg, sh, group)
+                SP.shard_loss(pred, sh.y, sh.node_mask, group).backward()
+                C.sum_gradients(params, group)
+                grads[setting] = {n: p.grad.clone()
+                                  for n, p in params.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    params.zero_grad(set_to_none=True)
+    if not torch.equal(preds["0"], preds["1"]):
+        err = float((preds["0"] - preds["1"]).abs().max())
+        raise AssertionError(
+            "parallel: the fp32 forward differs between "
+            f"AERO_GNN_ASYNC_COLLECTIVES=0 and =1 under deterministic "
+            f"algorithms (max abs {err:.3e}; two synchronous forwards "
+            f"without them bit-equal: {repeat})")
+    worst, differ = 0.0, []
+    for n, ref in grads["0"].items():
+        got = grads["1"][n]
+        if not torch.equal(got, ref):
+            differ.append(n)
+        err = check_grad(torch, f"parallel async grad {n}", got, ref,
+                         GRAD_TOL["float32"])
+        worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
+    return {"forward_bit_equal": True, "sync_repeat_bit_equal": repeat,
+            "grads_not_bit_equal": differ, "grad_worst_rel_err": worst}
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(intervals, merged) -> float:
+    return sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in intervals for c, d in merged)
+
+
+# the device kernels of K1 and K2 (csrc/edge_fwd_rows.cuh,
+# csrc/edge_bwd_rows.cuh)
+K12_KERNELS = ("edge_fwd_rows_kernel", "edge_rows_kernel", "edge_dw_kernel")
+
+
+def exchange_overlap(torch, fn, nbytes: int) -> dict:
+    """One warm call of ``fn`` traced by torch.profiler (its Chrome trace):
+    the exchange's device copies (gloo's copies of CUDA tensors through
+    pinned host memory: memcpy events of the exchange buffer's ``nbytes``)
+    and NCCL's send / receive kernels, and how many ms of them overlap K1 /
+    K2 kernels (K12_KERNELS) and any kernel on the timeline; the count of
+    every memcpy by size. None where the trace holds no device event."""
+    import json as _json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = _json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    kernels, k12, copies, nccl, sizes = [], [], [], [], {}
+    for ev in events:
+        if ev.get("ph") != "X" or "dur" not in ev:
+            continue
+        span = (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+        cat, name = ev.get("cat", ""), ev.get("name", "")
+        if cat == "kernel":
+            kernels.append(span)
+            if any(k in name for k in K12_KERNELS):
+                k12.append(span)
+            low = name.lower()
+            if "nccl" in low and ("sendrecv" in low or "alltoall" in low):
+                nccl.append(span)
+        elif cat == "gpu_memcpy":
+            size = (ev.get("args") or {}).get("bytes")
+            sizes[size] = sizes.get(size, 0) + 1
+            if size == nbytes:
+                copies.append(span)
+    if not kernels:
+        return None
+    every, k12m = _merged(kernels), _merged(k12)
+    exch = copies + nccl
+    return {"copies": len(copies), "nccl_kernels": len(nccl),
+            "exchange_ms": sum(b - a for a, b in exch) / 1e3,
+            "overlap_k12_ms": _overlap_us(exch, k12m) / 1e3,
+            "overlap_any_kernel_ms": _overlap_us(exch, every) / 1e3,
+            "k12_ms": sum(b - a for a, b in k12m) / 1e3,
+            "memcpy_sizes": sizes}
 
 
 def par_check_interior(torch, mesh, sh, rec):
@@ -3726,6 +3950,7 @@ def par_hybrid_rank(rank, world, spec):
     one fp32 step of make_hybrid_halo_split_train_step."""
     import torch
 
+    from aero_gnn_tpu_torch.parallel import collectives as C
     from aero_gnn_tpu_torch.parallel import hybrid as HY
     from aero_gnn_tpu_torch.parallel import mesh as PM
     from aero_gnn_tpu_torch.training import loop as TL
@@ -3741,7 +3966,8 @@ def par_hybrid_rank(rank, world, spec):
     zero_counters()
     loss = float(step(params, sh))
     torch.cuda.synchronize()
-    rec = {"loss": loss, "step_launches": read_counters()}
+    rec = {"loss": loss, "step_launches": read_counters(),
+           "async_default": C.async_collectives()}
     if rank == 0:
         rec["grads"] = par_grads(params)
     return rec
@@ -3954,9 +4180,11 @@ def phase_parallel(torch, smi, graphs):
         r0 = recs[0]
         want_fwd, want_step = par_want(forward=1), par_want(step=PAR_STEPS)
         for i, r in enumerate(recs):
-            if not r["device"].startswith("cuda") or not r["fused"]:
+            if (not r["device"].startswith("cuda") or not r["fused"]
+                    or not r["async_default"]):
                 raise AssertionError(f"parallel ({label}) rank {i}: device "
-                                     f"{r['device']}, fused {r['fused']}")
+                                     f"{r['device']}, fused {r['fused']}, "
+                                     f"async {r['async_default']}")
             par_check_launches(f"({label}) rank {i} forward",
                                r["forward_launches"], want_fwd)
             par_check_launches(f"({label}) rank {i} steps",
@@ -3994,13 +4222,38 @@ def phase_parallel(torch, smi, graphs):
             f"{r0['loss']:.6f} vs {loss0:.6f}; launches per rank: forward "
             f"{LAYERS} of K1 and K3, {PAR_STEPS} steps {LAYERS * PAR_STEPS} "
             f"of K1-K5, every other kernel 0; replicas bit-equal")
-        log(f"[parallel] ({label}) step ms (CUDA events, median): bf16 "
-            f"{r0['step_ms']['bfloat16']:.2f} of {PAR_TIMED[0][1]}, fp32 "
-            f"{r0['step_ms']['float32']:.2f}; single device bf16 "
-            f"{single_ms['bfloat16']:.2f}, fp32 {single_ms['float32']:.2f}; "
-            f"the split step at P = 1 without a process group bf16 "
-            f"{steps_ms['split']['bfloat16']:.2f}, fp32 "
+        sm = r0["step_ms"]
+        log(f"[parallel] ({label}) step ms a rank (CUDA events, median of "
+            f"{len(PAR_TURNS) // 2 * PAR_TIMED[0][1]} bf16 / "
+            f"{len(PAR_TURNS) // 2 * PAR_TIMED[1][1]} fp32 steps a setting, "
+            f"settings in turns {', '.join(PAR_SETTING[t] for t in PAR_TURNS)}"
+            f"): async bf16 {sm['async']['bfloat16']:.2f}, fp32 "
+            f"{sm['async']['float32']:.2f}; sync bf16 "
+            f"{sm['sync']['bfloat16']:.2f}, fp32 {sm['sync']['float32']:.2f};"
+            f" single device bf16 {single_ms['bfloat16']:.2f}, fp32 "
+            f"{single_ms['float32']:.2f}; the split step at P = 1 without a "
+            f"process group bf16 {steps_ms['split']['bfloat16']:.2f}, fp32 "
             f"{steps_ms['split']['float32']:.2f} ({smi})")
+        ac = r0["async_check"]
+        log(f"[parallel] ({label}) AERO_GNN_ASYNC_COLLECTIVES=1 against =0 "
+            f"under deterministic algorithms: fp32 forward bit-equal (two "
+            f"synchronous forwards without them bit-equal: "
+            f"{ac['sync_repeat_bit_equal']}); fp32 gradients within "
+            f"GRAD_TOL, worst "
+            f"{ac['grad_worst_rel_err']:.3e} of max|p|, "
+            f"{len(ac['grads_not_bit_equal'])} of {len(r0['grads'])} "
+            f"tensors not bit-equal {ac['grads_not_bit_equal']}")
+        for st, ov in r0["overlap_bf16"].items():
+            if ov is None:
+                log(f"[parallel] ({label}) {st} bf16 step: the profiler saw "
+                    "no device event (overlap not measured)")
+                continue
+            log(f"[parallel] ({label}) {st} bf16 step on rank 0's timeline: "
+                f"{ov['copies']} exchange copies and {ov['nccl_kernels']} "
+                f"NCCL send / receive kernels, {ov['exchange_ms']:.3f} ms; "
+                f"{ov['overlap_k12_ms']:.3f} ms of them overlap K1 / K2 "
+                f"({ov['k12_ms']:.3f} ms), {ov['overlap_any_kernel_ms']:.3f}"
+                f" ms overlap any kernel ({smi})")
         share = r0["interior_real"] / s0.num_edges
         ratio = {k: r0["interior_ms"][k] / (tight_ms[k] * share)
                  for k in tight_ms}
@@ -4047,10 +4300,14 @@ def phase_parallel(torch, smi, graphs):
     for i, r in enumerate(hybrid):
         par_check_launches(f"(d) rank {i}", r["step_launches"],
                            par_want(step=1))
+        if not r["async_default"]:
+            raise AssertionError(f"parallel (d) rank {i}: the exchange is "
+                                 "not async by default")
     worst_d = par_check_grads(torch, "(d)", hybrid[0]["grads"], mean_grads)
     launches["d"] = [r["step_launches"] for r in hybrid]
     record["d"] = {"loss": hybrid[0]["loss"], "grad_worst_rel_err": worst_d}
-    log(f"[parallel] (d) hybrid halo-split 2 x 2 gloo ranks: loss "
+    log(f"[parallel] (d) hybrid halo-split 2 x 2 gloo ranks, exchange "
+        f"async: loss "
         f"{hybrid[0]['loss']:.6f}; gradients within TRAIN_GRAD_TOL of the "
         f"single-device mean, worst {worst_d:.3e} of max|p|")
     # (e) BSMS halo
@@ -4130,6 +4387,7 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs = [flagship_graph(seed, dev) for seed in (0, 1, 2)]
     log(f"[serve] 3 meshes built in {time.perf_counter() - t0:.1f} s")
+    host_graph = host_graph_build(torch, graphs[0][0], dev, smi)
     if args.parallel_only:
         print(json.dumps({"parallel": phase_parallel(torch, smi, graphs)},
                          default=str))
@@ -4259,6 +4517,7 @@ def main() -> int:
                     exist_ok=True)
         with open(args.record, "w") as f:
             json.dump({"nvidia_smi": smi, "build_s": build_s,
+                       "host_graph": host_graph,
                        "kernels": kernels, "launches": launches,
                        "serve_ms": serve_ms,
                        "train": train_record,

@@ -37,7 +37,7 @@ _MUST_IMPORT = ("cli", "config.config", "data.vtk_core", "data.vtk_geometry",
                 "utils.torch_import", "parallel.distributed",
                 "parallel.collectives", "parallel.mesh",
                 "parallel.data_parallel", "parallel.spatial", "parallel.halo",
-                "parallel.hybrid", "parallel.bsms_spatial")
+                "parallel.hybrid", "parallel.bsms_spatial", "graph.native")
 
 
 def test_import_pulls_in_no_jax():

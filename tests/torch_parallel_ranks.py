@@ -283,10 +283,14 @@ def collectives_program(rank: int, world: int, spec: dict) -> dict:
     group = PM.make_mesh(data=1, graph=world).group("graph")
     rng = np.random.default_rng(100 + rank)
     shapes = {"all_gather_tiled": (3, 2), "all_to_all": (world, 2, 3),
-              "all_reduce_sum": (4, 2)}
+              "all_reduce_sum": (4, 2), "all_to_all_start": (world, 2, 3)}
+    ops = dict(all_gather_tiled=C.all_gather_tiled, all_to_all=C.all_to_all,
+               all_reduce_sum=C.all_reduce_sum,
+               all_to_all_start=lambda x, g: C.all_to_all_start(x, g).wait())
     out = []
-    for name, shape in shapes.items():
-        op = getattr(C, name)
+    for name in spec.get("collectives", ("all_gather_tiled", "all_to_all",
+                                          "all_reduce_sum")):
+        shape, op = shapes[name], ops[name]
         x = torch.tensor(rng.standard_normal(shape), requires_grad=True)
         y_shape = op(x.detach(), group).shape
         w = torch.tensor(rng.standard_normal(tuple(y_shape)))
@@ -345,3 +349,96 @@ def checkpoint_program(rank: int, world: int, spec: dict) -> dict:
                       v["exp_avg_sq"].numpy().copy())
                      for _, v in sorted(state.items())],
             "restored": restored, "steps": manager.all_steps()}
+
+
+def async_program(rank: int, world: int, spec: dict) -> dict:
+    """The halo exchange issued asynchronously and synchronously:
+    sharded_program for each case of spec["cases"] under
+    AERO_GNN_ASYNC_COLLECTIVES "0" and "1" ({case: {setting: result}}),
+    the order of one step's exchanges and interior kernels
+    (exchange_order_program), and all_to_all_start's backward against
+    central differences (collectives_program)."""
+    saved = os.environ.get("AERO_GNN_ASYNC_COLLECTIVES")
+    out = {"cases": {}}
+    try:
+        for name, case in spec["cases"].items():
+            out["cases"][name] = {}
+            for setting in ("0", "1"):
+                os.environ["AERO_GNN_ASYNC_COLLECTIVES"] = setting
+                out["cases"][name][setting] = sharded_program(rank, world,
+                                                              case)
+        os.environ["AERO_GNN_ASYNC_COLLECTIVES"] = "1"
+        out["order"] = {name: exchange_order_program(rank, world, case)
+                        for name, case in spec["order"].items()}
+    finally:
+        if saved is None:
+            os.environ.pop("AERO_GNN_ASYNC_COLLECTIVES", None)
+        else:
+            os.environ["AERO_GNN_ASYNC_COLLECTIVES"] = saved
+    out["collectives"] = collectives_program(
+        rank, world, {"collectives": ("all_to_all_start",)})
+    return out
+
+
+class _LoggedWork:
+    """A collective's work handle whose wait() is logged."""
+
+    def __init__(self, work, log):
+        self._work, self._log = work, log
+
+    def wait(self, *a, **k):
+        self._log.append("wait")
+        return self._work.wait(*a, **k)
+
+
+def exchange_order_program(rank: int, world: int, spec: dict) -> list:
+    """One forward and backward of the halo-split MGN (spec as for
+    sharded_program, one shard per rank) with every all_to_all_single
+    ("start", or "sync" without async_op), every wait on its work
+    ("wait"), the interior's fused edge layer ("interior") and its backward
+    ("interior_bwd") logged in call order; "backward" marks the start of
+    the backward. Returns the log."""
+    import torch.distributed as dist
+
+    from aero_gnn_tpu_torch.models.convert import params_from_jax
+    from aero_gnn_tpu_torch.ops import hopper_fused as HF
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.parallel import spatial as SP
+
+    log = []
+    originals = {"all_to_all_single": dist.all_to_all_single,
+                 "fused_edge_layer": HF.fused_edge_layer,
+                 "fused_edge_layer_bwd": HF.fused_edge_layer_bwd}
+
+    def a2a(*a, async_op=False, **k):
+        log.append("start" if async_op else "sync")
+        work = originals["all_to_all_single"](*a, async_op=async_op, **k)
+        return _LoggedWork(work, log) if async_op else work
+
+    def logged(label, fn):
+        def call(*a, **k):
+            log.append(label)
+            return fn(*a, **k)
+        return call
+
+    mesh = PM.make_mesh(data=1, graph=world)
+    group = mesh.group("graph")
+    s = mesh_sample(*spec["samples"][0])
+    cfg = model_config("mgn", spec["cfg"])
+    sh = partition("halo_split", s, world, spec["part"]).shard(
+        mesh.coords()[1], "cpu")
+    params = params_from_jax(spec["tree"], cfg, device="cpu")
+    dist.all_to_all_single = a2a
+    HF.fused_edge_layer = logged("interior", HF.fused_edge_layer)
+    HF.fused_edge_layer_bwd = logged("interior_bwd", HF.fused_edge_layer_bwd)
+    try:
+        pred = HL.halo_split_mgn_forward(params, cfg, sh, group)
+        loss = SP.shard_loss(pred, sh.y, sh.node_mask, group)
+        log.append("backward")
+        loss.backward()
+    finally:
+        dist.all_to_all_single = originals["all_to_all_single"]
+        HF.fused_edge_layer = originals["fused_edge_layer"]
+        HF.fused_edge_layer_bwd = originals["fused_edge_layer_bwd"]
+    return log
