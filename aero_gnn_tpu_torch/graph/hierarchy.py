@@ -37,13 +37,15 @@ from aero_gnn_tpu_torch.graph.padded import (
     _align_sender_stream,
     _round_up,
     bucket_size,
+    chunk_plan,
     sort_edges_by_receiver,
 )
 
 _INT_FIELDS = ("fine_to_coarse", "edge_to_coarse", "senders", "receivers",
                "sender_perm", "senders_sorted", "node_graph", "tile_block",
                "tile_first", "node_pool_perm", "node_pool_sorted",
-               "edge_pool_perm", "edge_pool_sorted")
+               "edge_pool_perm", "edge_pool_sorted", "unpool_chunk",
+               "unpool_chunk_node")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +87,24 @@ class HierarchyLevel:
     # last coarse id is real
     node_pool_live: Optional[int] = None
     edge_pool_live: Optional[int] = None
+    # the unpool's chunk plan over node_pool_perm (graph.padded.chunk_plan:
+    # the chunk of each sorted fine row, the coarse node of each chunk)
+    unpool_chunk: Optional[torch.Tensor] = None  # i32[Nf]
+    unpool_chunk_node: Optional[torch.Tensor] = None  # i32[C]
 
     @property
     def edges_aligned(self) -> bool:
         """True iff the coarse streams carry the block-aligned layout."""
         return self.tile_block is not None
+
+    @property
+    def unpool_chunks(self):
+        """(node_pool_perm, unpool_chunk, unpool_chunk_node): the plan of
+        the unpool's ``ops.gather_chunked``; None where not built."""
+        if self.unpool_chunk is None:
+            return None
+        return (self.node_pool_perm, self.unpool_chunk,
+                self.unpool_chunk_node)
 
     @property
     def num_coarse_nodes_pad(self) -> int:
@@ -154,17 +169,19 @@ def _pool_live(ids_sorted: np.ndarray, coarse_mask: np.ndarray) -> int:
 
 def with_pool_perms(level: HierarchyLevel) -> HierarchyLevel:
     """Attach the sorted-pooling permutations (stable argsort of the final
-    fine_to_coarse / edge_to_coarse) and the rows of each before its pad
-    tail."""
+    fine_to_coarse / edge_to_coarse), the rows of each before its pad tail,
+    and the unpool's chunk plan (its backward sums every fine row, the pad
+    tail's long run too, in chunks)."""
     f2c = _np(level.fine_to_coarse)
     e2c = _np(level.edge_to_coarse)
-    npp = np.argsort(f2c, kind="stable").astype(np.int32)
+    npp, chunk, chunk_node = chunk_plan(f2c, level.num_coarse_nodes_pad)
     epp = np.argsort(e2c, kind="stable").astype(np.int32)
     nps, eps = f2c[npp].astype(np.int32), e2c[epp].astype(np.int32)
     return _replace(level, node_pool_perm=npp, node_pool_sorted=nps,
                     edge_pool_perm=epp, edge_pool_sorted=eps,
                     node_pool_live=_pool_live(nps, _np(level.node_mask)),
-                    edge_pool_live=_pool_live(eps, _np(level.edge_mask)))
+                    edge_pool_live=_pool_live(eps, _np(level.edge_mask)),
+                    unpool_chunk=chunk, unpool_chunk_node=chunk_node)
 
 
 def _geometric_weights(senders: np.ndarray, receivers: np.ndarray,

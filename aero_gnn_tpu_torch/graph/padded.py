@@ -80,11 +80,24 @@ class GraphBatch:
     tile_first: Optional[torch.Tensor] = None  # i32[T]
     # True iff the sender-sorted stream was block-aligned (pad slots added)
     senders_aligned: bool = False
+    # the per-graph pools' plan (chunk_plan): node rows sorted by graph,
+    # the ascending chunk of each, the ascending graph of each chunk
+    graph_perm: Optional[torch.Tensor] = None  # i32[N]
+    graph_chunk: Optional[torch.Tensor] = None  # i32[N]
+    chunk_graph: Optional[torch.Tensor] = None  # i32[C]
 
     @property
     def edges_aligned(self) -> bool:
         """True iff built with align_edges=True (the fused-kernel layout)."""
         return self.tile_block is not None
+
+    @property
+    def graph_chunks(self):
+        """(graph_perm, graph_chunk, chunk_graph), the plan of
+        ``ops.graph_pool`` / ``graph_broadcast``; None where not built."""
+        if self.graph_perm is None:
+            return None
+        return (self.graph_perm, self.graph_chunk, self.chunk_graph)
 
     @property
     def num_nodes_pad(self) -> int:
@@ -127,6 +140,37 @@ def sort_edges_by_receiver_ref(senders: np.ndarray,
     if len(senders) == 0:
         return np.zeros(0, dtype=np.int64)
     return np.lexsort((senders, receivers))
+
+
+def chunk_plan(ids: np.ndarray, num_segments: int):
+    """The host plan of a segment sum without long runs
+    (``ops.gather_chunked``, the per-graph pools, the BSMS unpool):
+    ``perm``, the rows in a stable sort by id; ``chunk``, the ascending
+    chunk of each sorted row, runs of at most ``size`` rows of one id;
+    ``chunk_seg``, the ascending id of each chunk. A segment sum is then two
+    sorted sums, rows into chunks and chunks into segments. A warp of K5
+    walks 8 segments' rows in turn: 8 chunks in the first pass, every chunk
+    of 8 ids in the second; ``size`` ~ sqrt(N / 8) keeps each near
+    sqrt(8 N) rows where one id's run (a single graph, a pad tail) would
+    give one warp up to N. The chunk count is fixed by N and
+    ``num_segments``, so batches of one padded shape stack: chunks past the
+    last hold no row and belong to the last id. int32 arrays."""
+    ids = np.asarray(ids)
+    n = ids.shape[0]
+    perm = np.argsort(ids, kind="stable")
+    g = ids[perm]
+    size = max(16, int(np.ceil(np.sqrt(n / 8))))
+    first = np.ones(n, dtype=bool)
+    first[1:] = g[1:] != g[:-1]
+    run_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    local = (np.arange(n) - run_start) // size
+    new = first.copy()
+    new[1:] |= local[1:] != local[:-1]
+    chunk = np.cumsum(new) - 1
+    chunk_seg = np.full(-(-n // size) + num_segments, num_segments - 1,
+                        dtype=np.int32)
+    chunk_seg[:int(new.sum())] = g[new]
+    return perm.astype(np.int32), chunk.astype(np.int32), chunk_seg
 
 
 def build_graph_batch(
@@ -247,6 +291,8 @@ def build_graph_batch(
         sender_perm, senders_sorted, senders_aligned = _align_sender_stream(
             sender_perm, senders_sorted, edge_mask, np_pad)
 
+    graph_perm, graph_chunk, chunk_graph = chunk_plan(ng_p, num_graphs_pad)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -260,7 +306,8 @@ def build_graph_batch(
         n_node=n, n_edge=e,
         tile_block=None if tile_block is None else t(tile_block),
         tile_first=None if tile_first is None else t(tile_first),
-        senders_aligned=senders_aligned,
+        senders_aligned=senders_aligned, graph_perm=t(graph_perm),
+        graph_chunk=t(graph_chunk), chunk_graph=t(chunk_graph),
     )
     return (gb, align_src) if return_align_map else gb
 

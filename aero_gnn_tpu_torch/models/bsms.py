@@ -29,19 +29,23 @@ float32 whatever ``compute_dtype`` says. The port does the same: the
 parameters are cast up to float32 (a cast autograd sees) and the inputs
 taken as float32.
 
+Every sum on the cuda backend adds in an order fixed by the hierarchy:
+the down path's node and edge pools run as ``ops.segment_pool_sum`` over
+the level's pool permutations (kernel K5), each stream cut before its pad
+tail (``HierarchyLevel.node_pool_live`` / ``edge_pool_live``: every pool
+operand is masked to zero there), and the up path's unpool as
+``ops.gather_chunked`` (its backward K5 through the level's chunk plan,
+``unpool_chunks``, which splits the pad tail's long run).
+
 Two switches, read at call time from the JAX package's environment names
 and off by default, as there:
 
-  * ``AERO_GNN_SORTED_POOL=1``: the down path's node and edge pools run as
-    ``ops.segment_pool_sum`` over the level's pool permutations (kernel K5
-    on the cuda backend, in place of ``index_add_``), each stream cut
-    before its pad tail (``HierarchyLevel.node_pool_live`` /
-    ``edge_pool_live``: every pool operand is masked to zero there), and
-    the up path's unpool as ``ops.gather_senders`` over them (a sorted
-    segment sum for its backward);
+  * ``AERO_GNN_SORTED_POOL=1``: the sorted pools on the torch backend too
+    (the JAX package's switch schedules XLA's scatter on the TPU; off, the
+    torch backend pools with the plain ``segment_sum`` / ``segment_mean``);
   * ``AERO_GNN_WEC_FUSED=0``: the WEC multiplies ``ce * x[senders]`` in its
-    own pass and aggregates it with ``ops.aggregate_edges`` (K5 on an
-    aligned stream) in place of K7.
+    own pass and aggregates it with ``ops.aggregate_edges`` (K5) in place
+    of K7.
 
 The JAX package's third, ``AERO_GNN_WEC_DTYPE=compute``, casts the WEC's
 weights to the data's dtype: the identity while BSMS computes in float32,
@@ -104,8 +108,8 @@ def _wec_fused_enabled() -> bool:
 
 
 def _sorted_pool_enabled() -> bool:
-    """AERO_GNN_SORTED_POOL=1 (default off): the hierarchy transfers in
-    sorted order (ops.segment_pool_sum, the sorted unpool)."""
+    """AERO_GNN_SORTED_POOL=1 (default off): the pools in sorted order
+    (ops.segment_pool_sum) on the torch backend too."""
     return os.environ.get("AERO_GNN_SORTED_POOL", "0") == "1"
 
 
@@ -113,7 +117,9 @@ def _wec_sum(st: Stream, x, ce, ids, rows):
     """sum over the rows of ``ids`` of ce * x[rows]: K7 with the weight
     folded in, or (AERO_GNN_WEC_FUSED=0) the weighted rows in their own
     pass summed by ops.aggregate_edges. The weights are zero on pad rows,
-    so the pad sink's rows add nothing."""
+    so the pad sink's rows add nothing. Called only inside the WEC's
+    autograd Functions, which record no graph: the gather of the unfused
+    pass has no backward here."""
     if _wec_fused_enabled():
         return ops.aggregate_edges_weighted(x, ce, ids, x.shape[0],
                                             aligned=st.aligned, rows=rows)
@@ -130,10 +136,14 @@ def _wec_A_raw(st: Stream, x, cs, ce):
 def _wec_At_raw(st: Stream, y, cs, ce, ce_t):
     """A^T y. On a symmetric stream it is the forward conv with the
     reverse-edge weights ``ce_t``; otherwise it runs on the sender-sorted
-    stream (an unsorted segment sum without one)."""
+    stream (an unsorted segment sum without one, which the cuda backend
+    refuses on a CUDA tensor)."""
     if ce_t is not None:
         return _wec_A_raw(st, y, cs, ce_t)
     if st.sender_perm is None or st.senders_sorted is None:
+        if ops.backend() == "cuda" and y.is_cuda:
+            raise ValueError("the WEC adjoint on the cuda backend needs the "
+                             "stream's sender sort")
         zr = gather(y, st.receivers)
         return cs[:, None] * y + segment_sum(ce[:, None] * zr, st.senders,
                                              y.shape[0])
@@ -190,14 +200,10 @@ def wec_down(level: HierarchyLevel, x: torch.Tensor, senders, receivers,
              pool=None) -> torch.Tensor:
     """Weighted fine -> coarse node transfer: the conv, then each coarse
     node's representative fine node (rep_mask) pooled by fine_to_coarse
-    (``pool``, the model's pool of the node rows, in place of the plain
-    segment sum)."""
+    (``pool``, by default the model's pool of the node rows)."""
     agg = wec_aggregate(level, x, senders, receivers, sperm, ssort, aligned)
     sel = agg * level.rep_mask.to(agg.dtype)[:, None]
-    if pool is not None:
-        return pool(sel)
-    return segment_sum(sel, level.fine_to_coarse,
-                       level.num_coarse_nodes_pad)
+    return (pool or _pools(level)[0])(sel)
 
 
 def wec_up(level: HierarchyLevel, xc_fine: torch.Tensor, senders, receivers,
@@ -312,14 +318,10 @@ class BSMSConfig(MGNConfig):
         for i in range(len(hierarchy)):
             level = hierarchy[-(i + 1)]
             skip_x, skip_e, st = skips[-(i + 1)]
-            if _sorted(level):
-                # the unpool with a sorted segment sum for its backward
-                xc = ops.gather_senders(x, level.fine_to_coarse,
-                                        level.node_pool_perm,
-                                        level.node_pool_sorted,
-                                        aligned=False)
-            else:
-                xc = gather(x, level.fine_to_coarse)
+            # the unpool; its backward sums by coarse node through the
+            # level's chunk plan on the cuda backend
+            xc = ops.gather_chunked(x, level.fine_to_coarse,
+                                    level.unpool_chunks)
             if weighted:
                 xc = wec_up(level, xc, st.senders, st.receivers,
                             st.sender_perm, st.senders_sorted, st.aligned)
@@ -329,16 +331,18 @@ class BSMSConfig(MGNConfig):
 
 
 def _sorted(level: HierarchyLevel) -> bool:
-    """Whether the level's transfers run in sorted order."""
-    return _sorted_pool_enabled() and level.node_pool_perm is not None
+    """Whether the level's pools run in sorted order: on the cuda backend,
+    or under AERO_GNN_SORTED_POOL=1."""
+    return level.node_pool_perm is not None and (
+        ops.backend() == "cuda" or _sorted_pool_enabled())
 
 
 def _pools(level: HierarchyLevel):
     """(pool of fine node rows, pool of fine edge rows) onto the level's
-    coarse graph: sorted (ops.segment_pool_sum) under
-    AERO_GNN_SORTED_POOL=1, else the plain segment sum. The sorted pools
-    stop before each stream's pad tail, whose rows every pool operand
-    masks to zero (so K5 does not walk that one long run)."""
+    coarse graph: sorted (ops.segment_pool_sum) where ``_sorted``, else the
+    plain segment sum. The sorted pools stop before each stream's pad tail,
+    whose rows every pool operand masks to zero (so K5 does not walk that
+    one long run)."""
     nc, ec = level.num_coarse_nodes_pad, level.num_coarse_edges_pad
     if _sorted(level):
         n_live, e_live = level.node_pool_live, level.edge_pool_live

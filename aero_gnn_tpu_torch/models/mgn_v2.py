@@ -118,9 +118,10 @@ class MGNv2Config:
         x0 = graph.x.float()
         g = params.global_linout(build_mlp_apply(params.global_encoder, x0))
         pooled = ops.graph_pool(g, graph.node_graph, graph.num_graphs_pad,
-                                method="mean", node_mask=graph.node_mask)
-        x = torch.cat([x0, ops.graph_broadcast(pooled, graph.node_graph)],
-                      dim=-1)
+                                method="mean", node_mask=graph.node_mask,
+                                chunks=graph.graph_chunks)
+        x = torch.cat([x0, ops.graph_broadcast(
+            pooled, graph.node_graph, chunks=graph.graph_chunks)], dim=-1)
         drop = dict(dropout=self.dropout, generator=generator)
         x = build_mlp_apply(params.node_encoder, x, **drop)
         e = build_mlp_apply(params.edge_encoder, graph.edge_attr.float(),

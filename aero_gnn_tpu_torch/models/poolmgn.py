@@ -79,9 +79,10 @@ class PoolMGNConfig(MGNConfig):
         g = M.mlp_apply(params.global_encoder, x, **drop)
         pooled = ops.graph_pool(g, graph.node_graph, graph.num_graphs_pad,
                                 method=self.global_pool_method,
-                                node_mask=graph.node_mask)
-        x_in = torch.cat([x, ops.graph_broadcast(pooled, graph.node_graph)],
-                         dim=-1)
+                                node_mask=graph.node_mask,
+                                chunks=graph.graph_chunks)
+        x_in = torch.cat([x, ops.graph_broadcast(
+            pooled, graph.node_graph, chunks=graph.graph_chunks)], dim=-1)
         x = M.mlp_apply(params.node_encoder, x_in, **drop)
         e = M.mlp_apply(params.edge_encoder, graph.edge_attr.float(), **drop)
         x, e = run_processor(params.layers, self.layer_cfg, x, e,

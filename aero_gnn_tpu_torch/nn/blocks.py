@@ -15,9 +15,11 @@
     ``AERO_GNN_MEGA=1`` and 'add' aggregation the whole layer is K9 (its
     forward and backward kernels) instead of K1-K4. The
     unfused layer (``do_concat_trick=False``, the registry's default) runs
-    its receiver gather on K6 (backward K5), its aggregation on K5 with the
-    pad sink declared, the sender gather's backward on K5 and the rest as
-    plain ops (the node update is ``node_block_post``).
+    its receiver gather on K6 on an aligned graph, and on the cuda backend
+    its sums on K5 with the pad sink declared (the aggregation, the
+    receiver and the sender gather's backward) on any graph of
+    ``graph.padded``; the rest are plain ops (the node update is
+    ``node_block_post``).
 
 All functions take explicit masks so pad edges/nodes contribute zeros, and
 are differentiable end to end.
@@ -79,9 +81,11 @@ def edge_block_apply(mlp: M.MLP, cfg: MGNLayerConfig,
                      sender_perm: Optional[torch.Tensor] = None,
                      senders_sorted: Optional[torch.Tensor] = None,
                      aligned: bool = False) -> torch.Tensor:
+    # the streams of graph.padded: rows keyed by the pad sink are pad rows
     x_src = ops.gather_senders(node_attr, senders, sender_perm,
-                               senders_sorted, aligned)
-    x_dst = ops.gather_receivers(node_attr, receivers, aligned)
+                               senders_sorted, aligned, pad_sink=True)
+    x_dst = ops.gather_receivers(node_attr, receivers, aligned,
+                                 pad_sink=True)
     edge_input = torch.cat([edge_attr, x_src, x_dst], dim=-1)
     return M.mlp_apply(mlp, edge_input, activation=cfg.activation)
 
@@ -124,8 +128,9 @@ def edge_block_sum_pre(p: EdgeBlockSum, edge_attr: torch.Tensor,
     d_proj = node_attr @ p.w_d + p.b
     return (e_proj
             + ops.gather_senders(s_proj, senders, sender_perm,
-                                 senders_sorted, aligned)
-            + ops.gather_receivers(d_proj, receivers, aligned))
+                                 senders_sorted, aligned, pad_sink=True)
+            + ops.gather_receivers(d_proj, receivers, aligned,
+                                   pad_sink=True))
 
 
 def edge_block_sum_post(p: EdgeBlockSum, h0: torch.Tensor,

@@ -29,6 +29,7 @@ from aero_gnn_tpu_torch.ops.hopper_segment import (  # noqa: F401
 from aero_gnn_tpu_torch.ops.scatter import (  # noqa: F401
     degree,
     gather,
+    gather_chunked,
     gather_receivers,
     gather_senders,
     graph_broadcast,
@@ -74,14 +75,14 @@ def aggregate_edges(messages: torch.Tensor, receivers: torch.Tensor,
                     aligned: bool = False,
                     pad_sink: bool = False) -> torch.Tensor:
     """Aggregate edge messages to destination nodes ([E, D] -> [N, D]),
-    'add' or 'mean'; ValueError on any other mode. On the cuda backend an
-    aligned stream takes kernel K5 (its plain version on CPU tensors); the
-    'mean' degree is K5's sum of the mask, as segment_agg_pallas does.
-    ``pad_sink`` declares the stream one of ``graph.padded`` (GraphBatch,
-    HierarchyLevel): every row keyed by the last node, the pad sink, is
-    masked, so K5 skips those rows (a Loader batch's pad tail) and writes
-    the sink's row as 0, the exact sum. Without it the last node's rows
-    are summed like any other."""
+    'add' or 'mean'; ValueError on any other mode. On the cuda backend the
+    sum runs on kernel K5 (its plain version on CPU tensors); on an aligned
+    stream the 'mean' degree is K5's sum of the mask, as segment_agg_pallas
+    does, elsewhere ``degree``'s exact counts. ``pad_sink`` declares the
+    stream one of ``graph.padded`` (GraphBatch, HierarchyLevel): every row
+    keyed by the last node, the pad sink, is masked, so K5 skips those rows
+    (a Loader batch's pad tail) and writes the sink's row as 0, the exact
+    sum. Without it the last node's rows are summed like any other."""
     if aggregation not in ("add", "mean"):
         raise ValueError(f"Unsupported aggregation method: {aggregation}")
     if aligned and _BACKEND == "cuda":
@@ -98,7 +99,8 @@ def aggregate_edges(messages: torch.Tensor, receivers: torch.Tensor,
         return summed
     if edge_mask is not None:
         messages = messages * edge_mask[:, None].to(messages.dtype)
-    summed = segment_sum_sorted(messages, receivers, num_nodes)
+    summed = segment_sum_sorted(messages, receivers, num_nodes,
+                                pad_sink=pad_sink)
     if aggregation == "mean":
         deg = degree(receivers, num_nodes, mask=edge_mask,
                      dtype=messages.dtype)
@@ -118,7 +120,10 @@ def aggregate_edges_weighted(messages: torch.Tensor, weights: torch.Tensor,
     tensors; the gather read inside the kernel), the weight at the
     messages' precision, differentiable in both with the JAX package's
     ``_sswp_bwd``. Elsewhere an explicit gather, multiply and sorted
-    segment sum. Pad edges: pass ``mask``, or give them zero weights."""
+    segment sum (K5 on the cuda backend). Pad edges: pass ``mask``, or
+    give them zero weights. The model's only caller, the BSMS WEC, calls
+    it inside its own autograd Functions, so no card path differentiates
+    the ``rows`` gather (its backward is the plain ``index_add``)."""
     if aligned and _BACKEND == "cuda":
         return segment_sum_weighted(messages, weights, receivers, num_nodes,
                                     mask=mask, rows=rows)

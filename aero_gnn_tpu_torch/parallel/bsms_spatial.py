@@ -20,8 +20,15 @@ Two partition schemes:
     runs sharded: the down conv reads remote senders through the level's
     halo exchange; the up adjoint ships the boundary contributions back
     with the reverse all_to_all (bsms_spatial.py:640-686). Its sums are
-    plain segment sums, as JAX's ``jax.ops.segment_sum`` there (no K7);
-    the spread's sorted pool is ``ops.segment_pool_sum`` (K5 on the card).
+    segment sums, as JAX's ``jax.ops.segment_sum`` there (no K7).
+
+On the cuda backend every sum of both schemes adds in an order fixed on
+the host: each id table the forward sums or gathers by has a stable sort
+(``spatial.SortOrder``, built by the partitioners), the sums run as
+``ops.segment_pool_sum`` / ``ops.segment_sum_sorted`` and the gathers as
+``ops.gather_senders`` / ``gather_receivers`` on K5. A pool over a table
+with many masked rows (an aligned edge stream's pads) keys them one past
+its last segment, where K5 skips them.
 
 Host side numpy, bit-equal to the JAX package's; ``.shard(p, device)`` is
 rank p's part (``spatial.Sharded``; the replicated arrays whole).
@@ -46,6 +53,7 @@ from aero_gnn_tpu_torch.parallel.halo import (
     HaloSplitGraph,
     _assign_parts,
     _exchange_start,
+    _halo_rows,
     _remat_kw,
     cast_split_graph,
     halo_split_stack,
@@ -54,10 +62,13 @@ from aero_gnn_tpu_torch.parallel.halo import (
 from aero_gnn_tpu_torch.parallel.mesh import Mesh
 from aero_gnn_tpu_torch.parallel.spatial import (
     Sharded,
+    SortOrder,
     SpatialGraph,
     _spatial_layer,
     make_sharded_step,
     partition_graph,
+    sender_sort,
+    sort_order,
     with_compute_params,
 )
 
@@ -78,6 +89,21 @@ class BSMSSpatialGraph(Sharded):
     # transitions between coarse levels s -> s+1 (replicated)
     coarse_f2c: Tuple[np.ndarray, ...]
     coarse_e2c: Tuple[np.ndarray, ...]
+    # the port's sorts of those tables (sort_order; the edge table's
+    # masked rows keyed past its last coarse edge)
+    f2c_order: Optional[SortOrder] = None
+    e2c_order: Optional[SortOrder] = None
+    # replicated: (perm, sorted) of each coarse level's senders and of each
+    # transition's tables
+    coarse_sender_sort: Tuple[Tuple[np.ndarray, np.ndarray], ...] = ()
+    coarse_f2c_sort: Tuple[Tuple[np.ndarray, np.ndarray], ...] = ()
+    coarse_e2c_sort: Tuple[Tuple[np.ndarray, np.ndarray], ...] = ()
+
+
+def _replicated_sort(ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm, sorted): the stable sort of a replicated id array."""
+    perm, srt = sender_sort(ids[None])
+    return perm[0], srt[0]
 
 
 def _hierarchy(senders, receivers, n, pos, num_scales, mode, stride):
@@ -174,16 +200,44 @@ def partition_bsms(
         fine=fine, fine_to_coarse=f2c, edge_to_coarse=e2c,
         coarse_senders=tuple(cs), coarse_receivers=tuple(cr),
         coarse_edge_mask=tuple(cem), coarse_node_mask=tuple(cnm),
-        coarse_f2c=tuple(cf2c), coarse_e2c=tuple(ce2c))
+        coarse_f2c=tuple(cf2c), coarse_e2c=tuple(ce2c),
+        f2c_order=sort_order(f2c),
+        e2c_order=sort_order(e2c, fine.edge_mask > 0, ec1),
+        coarse_sender_sort=tuple(_replicated_sort(a) for a in cs),
+        coarse_f2c_sort=tuple(_replicated_sort(a) for a in cf2c),
+        coarse_e2c_sort=tuple(_replicated_sort(a) for a in ce2c))
 
 
-def _psum_segment_mean(vals, mask, ids, num_segments, group: C.Group):
-    """Cross-shard segment mean: local masked partials, one psum each."""
+def _pool(data, ids, perm, srt, num_segments: int, sink: bool = False):
+    """The segment sum of ``data`` by ``ids`` through their sort (perm,
+    srt): K5 on the cuda backend (``ops.segment_pool_sum``). ``sink``: the
+    sort keys the rows of a zero operand ``num_segments`` (``sort_order``),
+    which K5 skips."""
+    if not sink:
+        return ops.segment_pool_sum(data, ids, num_segments, perm=perm,
+                                    seg_sorted=srt)
+    return ops.segment_pool_sum(data, ids, num_segments + 1, perm=perm,
+                                seg_sorted=srt, pad_sink=True)[:num_segments]
+
+
+def _psum_segment_mean(vals, mask, ids, order: SortOrder, num_segments,
+                       group: C.Group, sink: bool = False):
+    """Cross-shard segment mean: local masked partials (summed through
+    ``order``), one psum each."""
     w = mask.to(vals.dtype)
-    s = ops.segment_sum(vals * w[:, None], ids, num_segments)
-    c = ops.segment_sum(w, ids, num_segments)
+    s = _pool(vals * w[:, None], ids, order.perm, order.ids, num_segments,
+              sink)
+    c = ops.degree(ids, num_segments, mask=w, dtype=vals.dtype)
     s = C.all_reduce_sum(s, group)
     c = C.all_reduce_raw(c, group)
+    return s / torch.clamp(c, min=1.0)[:, None]
+
+
+def _coarse_mean(x, mask, ids, sort, num_segments):
+    """Replicated segment mean of the masked rows, the sum through
+    ``sort`` (perm, sorted)."""
+    s = _pool(x * mask.to(x.dtype)[:, None], ids, *sort, num_segments)
+    c = ops.degree(ids, num_segments, mask=mask, dtype=x.dtype)
     return s / torch.clamp(c, min=1.0)[:, None]
 
 
@@ -206,34 +260,40 @@ def bsms_spatial_forward(params, cfg, bg: BSMSSpatialGraph,
     def coarse_stack(layers, x, e, s):
         return run_processor(layers, layer_cfg, x, e, bg.coarse_senders[s],
                              bg.coarse_receivers[s], bg.coarse_edge_mask[s],
+                             sender_perm=bg.coarse_sender_sort[s][0],
+                             senders_sorted=bg.coarse_sender_sort[s][1],
                              remat=False)
 
     skips = []
     x, e = fine_stack(params.down[0], x, e)
     skip_fine = (x, e)
     x = _psum_segment_mean(x, fine.node_mask, bg.fine_to_coarse,
-                           bg.coarse_node_mask[0].shape[0], group)
+                           bg.f2c_order, bg.coarse_node_mask[0].shape[0],
+                           group)
     e = _psum_segment_mean(e, fine.edge_mask, bg.edge_to_coarse,
-                           bg.coarse_edge_mask[0].shape[0], group)
+                           bg.e2c_order, bg.coarse_edge_mask[0].shape[0],
+                           group, sink=True)
     for s in range(1, n_levels):
         x, e = coarse_stack(params.down[s], x, e, s - 1)
         skips.append((x, e))
-        x = ops.segment_mean(x, bg.coarse_f2c[s - 1],
-                             bg.coarse_node_mask[s].shape[0],
-                             mask=bg.coarse_node_mask[s - 1])
-        e = ops.segment_mean(e, bg.coarse_e2c[s - 1],
-                             bg.coarse_edge_mask[s].shape[0],
-                             mask=bg.coarse_edge_mask[s - 1])
+        x = _coarse_mean(x, bg.coarse_node_mask[s - 1], bg.coarse_f2c[s - 1],
+                         bg.coarse_f2c_sort[s - 1],
+                         bg.coarse_node_mask[s].shape[0])
+        e = _coarse_mean(e, bg.coarse_edge_mask[s - 1], bg.coarse_e2c[s - 1],
+                         bg.coarse_e2c_sort[s - 1],
+                         bg.coarse_edge_mask[s].shape[0])
 
     x, e = coarse_stack(params.bottleneck, x, e, n_levels - 1)
 
     for i in range(n_levels - 1):
         s = n_levels - 1 - i
         skip_x, skip_e = skips[-(i + 1)]
-        x = ops.gather(x, bg.coarse_f2c[s - 1]) + skip_x
+        x = ops.gather_senders(x, bg.coarse_f2c[s - 1],
+                               *bg.coarse_f2c_sort[s - 1]) + skip_x
         x, e = coarse_stack(params.up[i], x, skip_e, s - 1)
     sx, se = skip_fine
-    x = ops.gather(x, bg.fine_to_coarse) + sx
+    x = ops.gather_senders(x, bg.fine_to_coarse, bg.f2c_order.perm,
+                           bg.f2c_order.ids) + sx
     x, e = fine_stack(params.up[n_levels - 1], x, se)
     return M.mlp_apply(params.decoder, x, activation=act)
 
@@ -285,6 +345,15 @@ class TransferPlan(Sharded):
     edge_recv_rows: np.ndarray  # i32[P, P, Hte] combined local k+1 edges
     up_send_rows: np.ndarray    # i32[P, P, Htu] local k+1 rows to ship
     up_fetch: np.ndarray        # i32[P, Nl_k] into [Nl_next + P*Htu]
+    # the port's sorts of each table (sort_order; the node and edge slots'
+    # masked rows keyed past the combined space)
+    node_slot_order: Optional[SortOrder] = None
+    node_recv_order: Optional[SortOrder] = None
+    edge_slot_int_order: Optional[SortOrder] = None
+    edge_slot_bnd_order: Optional[SortOrder] = None
+    edge_recv_order: Optional[SortOrder] = None
+    up_send_order: Optional[SortOrder] = None
+    up_fetch_order: Optional[SortOrder] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -488,12 +557,26 @@ def partition_bsms_halo(
         n_int = lk.e2c_int.shape[1]
         up_fetch, up_send, _ = _fetch_route(
             lk.f2c, owner_n, slot_n, my_part, hn["nlp"], num_parts)
+        es_int = np.ascontiguousarray(es_both[:, :n_int])
+        es_bnd = np.ascontiguousarray(es_both[:, n_int:])
+        node_space = hn["nlp"] + num_parts * node_recv.shape[2]
+        edge_space = (ei_n + hn["erb"].shape[1]
+                      + num_parts * edge_recv.shape[2])
         levels[k] = dataclasses.replace(lk, plan=TransferPlan(
             node_slot=node_slot, node_recv_rows=node_recv,
-            edge_slot_int=np.ascontiguousarray(es_both[:, :n_int]),
-            edge_slot_bnd=np.ascontiguousarray(es_both[:, n_int:]),
+            edge_slot_int=es_int, edge_slot_bnd=es_bnd,
             edge_recv_rows=edge_recv, up_send_rows=up_send,
-            up_fetch=up_fetch))
+            up_fetch=up_fetch,
+            node_slot_order=sort_order(
+                node_slot, lk.graph.node_mask > 0, node_space),
+            node_recv_order=sort_order(node_recv),
+            edge_slot_int_order=sort_order(
+                es_int, host[k]["emi"], edge_space),
+            edge_slot_bnd_order=sort_order(
+                es_bnd, host[k]["emb"], edge_space),
+            edge_recv_order=sort_order(edge_recv),
+            up_send_order=sort_order(up_send),
+            up_fetch_order=sort_order(up_fetch)))
     return BSMSHaloGraph(levels=tuple(levels))
 
 
@@ -572,12 +655,15 @@ def _wec_conv_sharded(lvl: BSMSHaloLevel, x, group: C.Group):
     per shard."""
     g = lvl.graph
     n_local = x.shape[0]
-    halo_x = _exchange_start(x, g.send_idx, group)
+    halo_x = _exchange_start(x, g, group)
+    # the aligned interior's rows keyed by its pad node are pad rows with
+    # zero weights
     xs_i = ops.gather_senders(x, g.senders_int, g.sender_perm_int,
-                              g.senders_int_sorted)
+                              g.senders_int_sorted, g.aligned)
     interior = ops.segment_sum_sorted(lvl.conv_edge_int[:, None] * xs_i,
-                                      g.receivers_int, n_local)
-    xs_b = ops.gather(halo_x.wait().flatten(0, 1), g.senders_bnd)
+                                      g.receivers_int, n_local,
+                                      pad_sink=g.aligned)
+    xs_b = _halo_rows(halo_x, g)
     return (lvl.conv_self[:, None] * x + interior
             + ops.segment_sum_sorted(lvl.conv_edge_bnd[:, None] * xs_b,
                                      g.receivers_bnd, n_local))
@@ -590,43 +676,53 @@ def _wec_spread_sharded(lvl: BSMSHaloLevel, z, group: C.Group):
     adds to row send_idx[..., 0] change nothing)."""
     g = lvl.graph
     n_local = z.shape[0]
-    zr_i = ops.gather(z, g.receivers_int)
+    zr_i = ops.gather_receivers(z, g.receivers_int, pad_sink=g.aligned)
     spread = ops.segment_pool_sum(
         lvl.conv_edge_int[:, None] * zr_i, g.senders_int, n_local,
-        perm=g.sender_perm_int, seg_sorted=g.senders_int_sorted)
-    zr_b = ops.gather(z, g.receivers_bnd)
+        perm=g.sender_perm_int, seg_sorted=g.senders_int_sorted,
+        pad_sink=g.aligned)
+    zr_b = ops.gather_receivers(z, g.receivers_bnd)
     p_, h_ = g.send_idx.shape
-    buf = ops.segment_sum(lvl.conv_edge_bnd[:, None] * zr_b, g.senders_bnd,
-                          p_ * h_)
+    buf = ops.segment_pool_sum(
+        lvl.conv_edge_bnd[:, None] * zr_b, g.senders_bnd, p_ * h_,
+        perm=g.sender_perm_bnd, seg_sorted=g.senders_bnd_sorted)
     # synchronous: every next op reads its result
     rev = C.all_to_all(buf.reshape(p_, h_, -1), group)
-    spread = spread + torch.zeros_like(z).index_add(
-        0, g.send_idx.reshape(-1), rev.reshape(-1, z.shape[-1]))
+    spread = spread + ops.segment_pool_sum(
+        rev.reshape(-1, z.shape[-1]), g.send_idx.reshape(-1), n_local,
+        perm=g.send_perm, seg_sorted=g.send_sorted)
     return lvl.conv_self[:, None] * z + spread
 
 
-def _sparse_reduce(payload, slot, recv_rows, n_dst: int, group: C.Group):
+def _sparse_reduce(payload, slot, slot_order: SortOrder, recv_rows,
+                   recv_order: SortOrder, n_dst: int, group: C.Group):
     """Owner-routed reduction: one segment sum into [n_dst + P*Ht] (local
-    rows + per-peer staging), the staging block all_to_all'd, the received
-    rows scatter-added (staged pads carry exact zeros)."""
+    rows + per-peer staging; the payload's masked rows, zero, keyed past
+    it by ``slot_order``), the staging block all_to_all'd, the received
+    rows added into their local rows (staged pads carry exact zeros)."""
     p_, ht = recv_rows.shape
-    big = ops.segment_sum(payload, slot, n_dst + p_ * ht)
+    big = _pool(payload, slot, slot_order.perm, slot_order.ids,
+                n_dst + p_ * ht, sink=True)
     local, stage = big[:n_dst], big[n_dst:].reshape(p_, ht, -1)
     # synchronous: every next op reads its result
     recv = C.all_to_all(stage, group)
-    return local.index_add(0, recv_rows.reshape(-1),
-                           recv.reshape(p_ * ht, -1))
+    return local + _pool(recv.reshape(p_ * ht, -1), recv_rows.reshape(-1),
+                         recv_order.perm, recv_order.ids, n_dst)
 
 
-def _sparse_fetch(xk1, send_rows, fetch, group: C.Group):
+def _sparse_fetch(xk1, send_rows, send_order: SortOrder, fetch,
+                  fetch_order: SortOrder, group: C.Group):
     """Owner-routed gather: ship each peer its requested local rows
-    (all_to_all), then read local + received rows by ``fetch``."""
-    buf = ops.gather(xk1, send_rows.reshape(-1)).reshape(
+    (all_to_all), then read local + received rows by ``fetch``; both
+    gathers' backward through their sorts."""
+    buf = ops.gather_senders(xk1, send_rows.reshape(-1), send_order.perm,
+                             send_order.ids).reshape(
         tuple(send_rows.shape) + (xk1.shape[-1],))
     # synchronous: every next op reads its result
     table = C.all_to_all(buf, group)
-    return ops.gather(torch.cat([xk1, table.reshape(-1, xk1.shape[-1])]),
-                      fetch)
+    return ops.gather_senders(
+        torch.cat([xk1, table.reshape(-1, xk1.shape[-1])]), fetch,
+        fetch_order.perm, fetch_order.ids)
 
 
 def bsms_halo_forward(params, cfg, bg: BSMSHaloGraph,
@@ -669,10 +765,11 @@ def _bsms_halo(params, cfg, levels, group):
         n_next = nxt.graph.node_mask.shape[0]
         ei_next = nxt.graph.edge_mask_int.shape[0]
         eb_next = nxt.graph.edge_mask_bnd.shape[0]
+        node_route = (plan.node_slot, plan.node_slot_order,
+                      plan.node_recv_rows, plan.node_recv_order, n_next)
         if weighted:
             sel = _wec_conv_sharded(lvl, x, group) * lvl.rep_mask[:, None]
-            x = _sparse_reduce(sel, plan.node_slot, plan.node_recv_rows,
-                               n_next, group).to(dt)
+            x = _sparse_reduce(sel, *node_route, group).to(dt)
             w_i = lvl.edge_w_int * g.edge_mask_int
             w_b = lvl.edge_w_bnd * g.edge_mask_bnd
             eps = 1e-12
@@ -680,7 +777,7 @@ def _bsms_halo(params, cfg, levels, group):
             nm = g.node_mask.to(x.dtype)
             res = _sparse_reduce(
                 torch.cat([x * nm[:, None], nm[:, None]], dim=1),
-                plan.node_slot, plan.node_recv_rows, n_next, group)
+                *node_route, group)
             x = (res[:, :-1]
                  / torch.clamp(res[:, -1:], min=1.0)).to(dt)
             w_i, w_b = g.edge_mask_int, g.edge_mask_bnd
@@ -691,13 +788,18 @@ def _bsms_halo(params, cfg, levels, group):
         d_e = ei_next + eb_next
         pi = torch.cat([e_i * w_i[:, None], w_i[:, None]], dim=1)
         pb = torch.cat([e_b * w_b[:, None], w_b[:, None]], dim=1)
-        big = (ops.segment_sum(pi, plan.edge_slot_int, d_e + p_ * ht)
-               + ops.segment_sum(pb, plan.edge_slot_bnd, d_e + p_ * ht))
+        oi, ob = plan.edge_slot_int_order, plan.edge_slot_bnd_order
+        big = (_pool(pi, plan.edge_slot_int, oi.perm, oi.ids, d_e + p_ * ht,
+                     sink=True)
+               + _pool(pb, plan.edge_slot_bnd, ob.perm, ob.ids,
+                       d_e + p_ * ht, sink=True))
         local, stage = big[:d_e], big[d_e:].reshape(p_, ht, -1)
         # synchronous: every next op reads its result
         recv = C.all_to_all(stage, group)
-        comb = local.index_add(0, plan.edge_recv_rows.reshape(-1),
-                               recv.reshape(p_ * ht, -1))
+        orc = plan.edge_recv_order
+        comb = local + _pool(recv.reshape(p_ * ht, -1),
+                             plan.edge_recv_rows.reshape(-1), orc.perm,
+                             orc.ids, d_e)
         comb = (comb[:, :-1]
                 / torch.clamp(comb[:, -1:], min=eps)).to(dt)
         e_i, e_b = comb[:ei_next], comb[ei_next:]
@@ -708,8 +810,9 @@ def _bsms_halo(params, cfg, levels, group):
         k = S - 2 - i
         lvl = levels[k]
         sx, sei, seb = skips[-(i + 1)]
-        xc = _sparse_fetch(x, lvl.plan.up_send_rows, lvl.plan.up_fetch,
-                           group)
+        plan = lvl.plan
+        xc = _sparse_fetch(x, plan.up_send_rows, plan.up_send_order,
+                           plan.up_fetch, plan.up_fetch_order, group)
         if weighted:
             xc = _wec_spread_sharded(lvl, xc * lvl.rep_mask[:, None],
                                      group).to(dt)

@@ -9,6 +9,7 @@ largest boundary of a shard pair (planned on the host, static).
 
 Per layer, per shard (``_exchange_start``):
   1. send_buf = s_proj[send_idx]       # [P, H, h] rows for each peer
+                                       # (backward: K5 over send_sorted)
   2. recv     = all_to_all(send_buf)   # [P, H, h] rows from each peer
   3. the halo table recv.reshape(P * H, h), read by the boundary senders.
 The all_to_all is issued with ``collectives.all_to_all_start`` and waited
@@ -21,7 +22,11 @@ each shard's edges into an interior stream (both endpoints local) and a
 boundary stream (sender remote): with ``align_interior`` the interior is
 block-aligned, and ``_halo_split_layer`` runs it on the fused kernels K1 /
 K3 (backward K2 / K4, the sender gather's backward K5) while the boundary
-chain, O(surface), stays plain torch. As in JAX (halo.py:543, compiled
+chain, O(surface), stays plain torch around K5: on the cuda backend its
+masked sum runs on K5 and each of its gathers has a K5 backward over a
+host-built sort (``sender_perm_bnd``; ``send_perm`` for the send gather,
+whose rows repeat across peers), so the step adds in the same order on
+every run. As in JAX (halo.py:543, compiled
 with xla_flags.async_jit_options) the exchange is issued first and only
 the boundary chain waits for it, so it is in flight while the interior
 runs; in the backward the reverse exchange is in flight while the
@@ -81,6 +86,9 @@ class HaloSpatialGraph(Sharded):
     y: np.ndarray  # [P, Nl, Dy]
     sender_perm: Optional[np.ndarray] = None  # i32[P, El]
     senders_sorted: Optional[np.ndarray] = None  # i32[P, El]
+    # per-shard sort of the rows shipped to the peers (send_sort)
+    send_perm: Optional[np.ndarray] = None  # i32[P, P*H]
+    send_sorted: Optional[np.ndarray] = None  # i32[P, P*H]
 
     @property
     def num_parts(self) -> int:
@@ -93,6 +101,13 @@ class HaloSpatialGraph(Sharded):
     @property
     def halo_size(self) -> int:
         return self.send_idx.shape[2]
+
+
+def send_sort(send_idx: np.ndarray):
+    """Per-shard stable sort of the local rows each shard ships, [P, P, H]
+    -> (perm, sorted) [P, P*H]: the send gather's backward (rows repeat
+    across peers, and pad slots repeat row 0) is a sorted segment sum."""
+    return sender_sort(send_idx.reshape(send_idx.shape[0], -1))
 
 
 def _halo_plan(s_new: np.ndarray, owner_s: np.ndarray, owner_r: np.ndarray,
@@ -221,10 +236,12 @@ def partition_graph_halo(
         pad_sender=n_local + num_parts * H - 1, pad_receiver=n_local - 1)
     sperm, ssort = sender_sort(sc)
     xs, ys, nm = _pack_nodes(order, n_local, num_parts, x, y, dtype)
+    send_perm, send_sorted = send_sort(send_idx)
     return HaloSpatialGraph(
         x=xs, edge_attr=ea, senders_combined=sc, receivers_local=rl,
         send_idx=send_idx, node_mask=nm, edge_mask=em, y=ys,
-        sender_perm=sperm, senders_sorted=ssort)
+        sender_perm=sperm, senders_sorted=ssort, send_perm=send_perm,
+        send_sorted=send_sorted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +273,12 @@ class HaloSplitGraph(Sharded):
     # ALIGN_EDGE_TILE edge tiles per shard), the fused kernels' layout: an
     # explicit flag, divisible shapes alone are unsafe
     aligned: bool = False
+    # per-shard sender sort of the boundary stream (the halo-table gather's
+    # backward) and of the shipped rows (send_sort); the port's own
+    sender_perm_bnd: Optional[np.ndarray] = None  # i32[P, Eb]
+    senders_bnd_sorted: Optional[np.ndarray] = None  # i32[P, Eb]
+    send_perm: Optional[np.ndarray] = None  # i32[P, P*H]
+    send_sorted: Optional[np.ndarray] = None  # i32[P, P*H]
 
     @property
     def num_parts(self) -> int:
@@ -349,6 +372,8 @@ def partition_graph_halo_split(
         pack_dtype, rows=edges_bnd_rows, pad_sender=num_parts * H - 1,
         pad_receiver=n_local_pad - 1)
     sperm_i, ssort_i = sender_sort(si)
+    sperm_b, ssort_b = sender_sort(sb)
+    send_perm, send_sorted = send_sort(send_idx)
 
     aux_int = aux_bnd = None
     if edge_aux is not None:
@@ -363,7 +388,9 @@ def partition_graph_halo_split(
         edge_mask_int=emi, sender_perm_int=sperm_i,
         senders_int_sorted=ssort_i, edge_attr_bnd=eab, senders_bnd=sb,
         receivers_bnd=rb, edge_mask_bnd=emb, send_idx=send_idx,
-        node_mask=nm, y=ys, aligned=align_interior)
+        node_mask=nm, y=ys, aligned=align_interior, sender_perm_bnd=sperm_b,
+        senders_bnd_sorted=ssort_b, send_perm=send_perm,
+        send_sorted=send_sorted)
     if edge_aux is not None:
         return sg, aux_int, aux_bnd
     return sg
@@ -373,12 +400,13 @@ def partition_graph_halo_split(
 # rank side
 # ---------------------------------------------------------------------------
 
-def _exchange_start(values: torch.Tensor, send_idx_local: torch.Tensor,
-                    group: C.Group) -> C.Pending:
-    """Issue the exchange of ``values`` [Nl, h] by ``send_idx_local``
-    [P, H]; ``.wait().flatten(0, 1)`` is the halo table [P*H, h]."""
-    send_buf = ops.gather(values, send_idx_local.reshape(-1)).reshape(
-        tuple(send_idx_local.shape) + (values.shape[-1],))
+def _exchange_start(values: torch.Tensor, sh, group: C.Group) -> C.Pending:
+    """Issue the exchange of ``values`` [Nl, h] by the shard's
+    ``send_idx`` [P, H] (its backward over ``send_perm`` / ``send_sorted``);
+    ``.wait().flatten(0, 1)`` is the halo table [P*H, h]."""
+    send_buf = ops.gather_senders(values, sh.send_idx.reshape(-1),
+                                  sh.send_perm, sh.send_sorted).reshape(
+        tuple(sh.send_idx.shape) + (values.shape[-1],))
     return C.all_to_all_start(send_buf, group)
 
 
@@ -389,16 +417,16 @@ def _halo_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
     if cfg.do_concat_trick:
         p = layer.edge
         s_proj = x @ p.w_s
-        halo = _exchange_start(s_proj, sh.send_idx, group)
+        halo = _exchange_start(s_proj, sh, group)
         d_proj = x @ p.w_d + p.b
         h_e = e @ p.w_e
-        h_d = ops.gather(d_proj, sh.receivers_local)
+        h_d = ops.gather_receivers(d_proj, sh.receivers_local)
         table = torch.cat([s_proj, halo.wait().flatten(0, 1)])
         h0 = h_e + ops.gather_senders(table, *sg_args) + h_d
         delta_e = B.edge_block_sum_post(p, h0, cfg)
     else:
-        halo = _exchange_start(x, sh.send_idx, group)
-        x_d = ops.gather(x, sh.receivers_local)
+        halo = _exchange_start(x, sh, group)
+        x_d = ops.gather_receivers(x, sh.receivers_local)
         table = torch.cat([x, halo.wait().flatten(0, 1)])
         delta_e = M.mlp_apply(
             layer.edge,
@@ -456,13 +484,21 @@ def fused_interior(cfg: B.MGNLayerConfig, x, sh: HaloSplitGraph) -> bool:
                               sh.aligned)
 
 
+def _halo_rows(halo: C.Pending, sh: HaloSplitGraph) -> torch.Tensor:
+    """The boundary senders' rows of the halo table (waited for here),
+    their gather's backward over the boundary stream's sender sort."""
+    return ops.gather_senders(halo.wait().flatten(0, 1), sh.senders_bnd,
+                              sh.sender_perm_bnd, sh.senders_bnd_sorted)
+
+
 def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
                       e_bnd, sh: HaloSplitGraph, group: C.Group):
     """One MGN layer on the split streams: the exchange issued first, the
     interior chain (on K1 / K3 when ``fused_interior``; the sender gather
     sorted, its backward on K5) while it is in flight, then the boundary
     chain, which waits for the halo table where it first reads it; its
-    aggregate is added to the interior's."""
+    aggregate is added to the interior's. On the cuda backend the boundary
+    chain's masked sum and its gathers' backward run on K5."""
     n_local = x.shape[0]
     int_args = (sh.senders_int, sh.sender_perm_int, sh.senders_int_sorted)
     streams = [(sh.receivers_int, sh.edge_mask_int),
@@ -470,14 +506,14 @@ def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
     if fused_interior(cfg, x, sh):
         p = layer.edge
         s_proj = x @ p.w_s
-        halo = _exchange_start(s_proj, sh.send_idx, group)
+        halo = _exchange_start(s_proj, sh, group)
         d_proj = x @ p.w_d + p.b
         sg = ops.gather_senders(s_proj, *int_args, aligned=True)
         e_int, agg = fused_edge(p, cfg, e_int, sg, d_proj, sh.edge_mask_int,
                                 sh.receivers_int, n_local)
         h0_b = (e_bnd @ p.w_e
-                + ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd)
-                + ops.gather(d_proj, sh.receivers_bnd))
+                + _halo_rows(halo, sh)
+                + ops.gather_receivers(d_proj, sh.receivers_bnd))
         e_bnd = e_bnd + B.edge_block_sum_post(p, h0_b, cfg)
         agg = agg + masked_sum(e_bnd, sh.edge_mask_bnd, sh.receivers_bnd,
                                n_local)
@@ -487,27 +523,27 @@ def _halo_split_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e_int,
     if cfg.do_concat_trick:
         p = layer.edge
         s_proj = x @ p.w_s
-        halo = _exchange_start(s_proj, sh.send_idx, group)
+        halo = _exchange_start(s_proj, sh, group)
         d_proj = x @ p.w_d + p.b
         h0_i = (e_int @ p.w_e + ops.gather_senders(s_proj, *int_args)
-                + ops.gather(d_proj, sh.receivers_int))
+                + ops.gather_receivers(d_proj, sh.receivers_int))
         de_i = B.edge_block_sum_post(p, h0_i, cfg)
         h0_b = (e_bnd @ p.w_e
-                + ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd)
-                + ops.gather(d_proj, sh.receivers_bnd))
+                + _halo_rows(halo, sh)
+                + ops.gather_receivers(d_proj, sh.receivers_bnd))
         de_b = B.edge_block_sum_post(p, h0_b, cfg)
     else:
-        halo = _exchange_start(x, sh.send_idx, group)
+        halo = _exchange_start(x, sh, group)
         de_i = M.mlp_apply(
             layer.edge,
             torch.cat([e_int, ops.gather_senders(x, *int_args),
-                       ops.gather(x, sh.receivers_int)], dim=-1),
+                       ops.gather_receivers(x, sh.receivers_int)], dim=-1),
             activation=cfg.activation)
         de_b = M.mlp_apply(
             layer.edge,
             torch.cat([e_bnd,
-                       ops.gather(halo.wait().flatten(0, 1), sh.senders_bnd),
-                       ops.gather(x, sh.receivers_bnd)], dim=-1),
+                       _halo_rows(halo, sh),
+                       ops.gather_receivers(x, sh.receivers_bnd)], dim=-1),
             activation=cfg.activation)
     e_int = e_int + de_i
     e_bnd = e_bnd + de_b

@@ -13,7 +13,8 @@ rank must call it, with the same arguments: each group is made by all
 ranks together. ``make_mesh_dcn`` groups ranks by host where JAX groups
 devices by ``slice_index``: a host holds ``local_world_size`` consecutive
 ranks (``LOCAL_WORLD_SIZE``), and a graph group, which carries the
-per-layer exchanges, never straddles two hosts.
+per-layer exchanges, never straddles two hosts. ``local_device_count`` is
+the devices this process can place a rank on.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from aero_gnn_tpu_torch.parallel import collectives as C
@@ -131,3 +133,11 @@ def make_mesh_dcn(*, data: int = -1, graph: int = 1,
     else:
         arr = np.asarray(sorted(rs)).reshape(data, graph)
     return _build(arr)
+
+
+def local_device_count() -> int:
+    """The devices this process can place a rank on: the CUDA cards it
+    sees (``torch.cuda.device_count()``, as ``parallel.distributed``
+    counts them), or 1 without a card, the CPU (as JAX counts its one CPU
+    device)."""
+    return torch.cuda.device_count() or 1

@@ -154,6 +154,28 @@ def sender_sort(sc: np.ndarray):
     return perm, np.take_along_axis(sc, perm, axis=1).astype(np.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class SortOrder(Sharded):
+    """A per-shard stable sort of a [P, ...] id table (``sort_order``):
+    ``perm`` [P, R] the rows in id order, ``ids`` [P, R] the sorted ids, the
+    stream K5 reads on the card (``ops.segment_pool_sum``,
+    ``ops.gather_senders``)."""
+
+    perm: np.ndarray
+    ids: np.ndarray
+
+
+def sort_order(ids: np.ndarray, valid: Optional[np.ndarray] = None,
+               sink: Optional[int] = None) -> SortOrder:
+    """The stable sort of each shard's ids (trailing axes flattened). With
+    ``valid`` the invalid rows are keyed ``sink``, one past the last
+    segment, so that they end the stream: a pool whose operand is zero
+    there sums into ``sink + 1`` segments with ``pad_sink`` and K5 skips
+    them (``parallel.bsms_spatial``)."""
+    keys = ids if valid is None else np.where(valid, ids, sink)
+    return SortOrder(*sender_sort(keys.reshape(keys.shape[0], -1)))
+
+
 def partition_graph(
     *,
     senders: np.ndarray,
@@ -292,9 +314,9 @@ def mean_degree(agg, cfg: B.MGNLayerConfig, streams, n_local: int):
 
 
 def masked_sum(e, mask, receivers, n_local: int):
-    """sum of mask * e by (sorted) receiver: [E, h] -> [N, h]."""
-    return ops.segment_sum_sorted(e * mask[:, None].to(e.dtype), receivers,
-                                  n_local)
+    """sum of mask * e by (sorted) receiver: [E, h] -> [N, h]; K5 on the
+    cuda backend (``ops.segment_sum_masked``), else the plain sum."""
+    return ops.segment_sum_masked(e, receivers, mask, n_local)
 
 
 def _spatial_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
@@ -302,8 +324,9 @@ def _spatial_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
     """One MGN layer on a shard; one all_gather per layer for the sender
     halo. On the align_interior layout (``B.uses_fused_layer``) the edge
     chain and aggregation run on K1 and the node update on K3 (backward
-    K2, K4, and K5 for the sender gather); otherwise plain ops, the
-    receivers gathered by a plain index (spatial.py:274-305)."""
+    K2, K4, and K5 for the sender gather); otherwise plain ops around
+    K5's sums on the cuda backend (the aggregation, both gathers'
+    backward; spatial.py:274-305)."""
     n_local = x.shape[0]
     sg_args = (sh.senders_global, sh.sender_perm, sh.senders_sorted)
     if B.uses_fused_layer(cfg, x, sh.receivers_local, sh.edge_mask,
@@ -324,12 +347,13 @@ def _spatial_layer(layer: B.MGNLayer, cfg: B.MGNLayerConfig, x, e,
         d_proj = x @ p.w_d + p.b
         all_s = C.all_gather_tiled(s_proj, group)
         h0 = (e @ p.w_e + ops.gather_senders(all_s, *sg_args)
-              + ops.gather(d_proj, sh.receivers_local))
+              + ops.gather_receivers(d_proj, sh.receivers_local))
         delta_e = B.edge_block_sum_post(p, h0, cfg)
     else:
         all_x = C.all_gather_tiled(x, group)
         edge_input = torch.cat([e, ops.gather_senders(all_x, *sg_args),
-                                ops.gather(x, sh.receivers_local)], dim=-1)
+                                ops.gather_receivers(x, sh.receivers_local)],
+                               dim=-1)
         delta_e = M.mlp_apply(layer.edge, edge_input,
                               activation=cfg.activation)
     e = e + delta_e

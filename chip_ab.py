@@ -24,7 +24,14 @@ save variant saved), K9-bwd and K4 -> K2 launched in turn in both dtypes
 bf16
 train steps and 10 bf16 forwards of the flagship MeshGraphNet on mesh 0
 (host clock to a synchronize, both switches unset), with the card's name
-and power limit. It hashes K7's outputs, K2's activation gradients (d_e,
+and power limit. ``python3 chip_ab.py --steps TREE [TREE ...]`` instead
+times, with each tree's own package in one process each, the flagship
+BSMS fp32 train step on mesh 0's Loader batch (host clock to a
+synchronize, the median of 6 after a warm step) and the flagship MGN's
+halo-split bf16 step a rank at P = 2 (two gloo ranks sharing the card,
+mesh 0 split as chip_smoke.py's phase parallel (a) splits it, the exchange
+as the tree sets it by default, CUDA events, the median of 6 after a warm
+step), one "AB-STEPS " line a tree. It hashes K7's outputs, K2's activation gradients (d_e,
 d_sg), K4's (d_x, d_agg), K5's outputs on its streams, K1's (e', agg),
 its save variant's six outputs, K10's two, K3's x', K9-fwd's (x', e',
 agg), K8's ten outputs and K9-bwd's (d_e, d_sg, d_dproj, d_x), both
@@ -468,6 +475,78 @@ def measure(tree: str, grads_path: str) -> dict:
     return out
 
 
+def split_rank(rank: int, world: int, spec: dict) -> list:
+    """One rank of the halo-split bf16 step (the tree in spec["tree"]):
+    ms of each of 6 steps after a warm one (CUDA events)."""
+    sys.path.insert(0, spec["tree"])
+    import torch
+
+    import chip_smoke as C
+    from aero_gnn_tpu_torch.parallel import halo as HL
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    dev = C.par_init(spec, rank, world)
+    mesh = PM.make_mesh(data=1, graph=world)
+    sh = C.par_split(C.par_sample(0), world).shard(rank, dev)
+    params = C.flagship_config().init(torch.Generator().manual_seed(0),
+                                      device=dev)
+    step = HL.make_halo_split_train_step(
+        C.flagship_config(compute_dtype="bfloat16"),
+        TL.make_optimizer(params, 1e-3), mesh)
+    step(params, sh)
+    times = []
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(params, sh)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def measure_steps(tree: str) -> dict:
+    """The BSMS fp32 step and the halo-split bf16 step a rank of ``tree``
+    (module docstring)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as C
+    from aero_gnn_tpu_torch.parallel import distributed as PD
+    from aero_gnn_tpu_torch.training import loop as TL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"tree": tree, "device": C.phase_device(torch)}
+    C.phase_build()
+    dev = torch.device("cuda")
+    (_, g, aux), = C.bsms_requests(torch, [C.par_sample(0)], dev)[0]
+    hier = aux["hierarchy"]
+    cfg = C.bsms_config()
+    params = cfg.init(torch.Generator().manual_seed(0), device=dev)
+    fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3), device=dev,
+                           needs_hierarchy=True)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns.train_step(params, g, hier)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["bsms_fp32_step_ms"] = times[1:]
+    out["bsms_fp32_step_median_ms"] = statistics.median(times[1:])
+    del g, aux, hier, params, fns
+    torch.cuda.empty_cache()
+    (ranks,) = PD.spawn([(split_rank, 2, {
+        "tree": tree, "address": f"tcp://localhost:{C.free_port()}"}, {})],
+        timeout_s=600)
+    out["split_bf16_step_ms"] = ranks
+    out["split_bf16_step_median_ms"] = [statistics.median(r) for r in ranks]
+    return out
+
+
 def grads_against_first(torch, paths) -> dict:
     """K4's weight gradients of each tree against the first tree's, with
     the GRAD_TOL rule of the chip_smoke.py beside this script (|a - b| <=
@@ -494,9 +573,20 @@ def main() -> int:
         print("AB " + json.dumps(measure(sys.argv[2], sys.argv[3])),
               flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--one-steps":
+        print("AB-STEPS " + json.dumps(measure_steps(sys.argv[2])),
+              flush=True)
+        return 0
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
+    if sys.argv[1] == "--steps":
+        for tree in sys.argv[2:]:
+            run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--one-steps", tree], check=True,
+                                 text=True, stdout=subprocess.PIPE)
+            sys.stdout.write(run.stdout)
+        return 0
     import torch
 
     # K4's weight gradients of each tree, compared after the last

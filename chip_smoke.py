@@ -126,13 +126,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   7. bsms serve — the flagship BSMS (3 bistride scales, WeightedEdgeConv,
                fp32) served through AeroInference(needs_hierarchy=True) for
                the three meshes, each through its own Loader (num_scales=3):
-               every forward launches K1 and K3 15 times and K7 4 times;
-               request 0 against the plain path; one forward profiled;
+               every forward launches K1 and K3 15 times, K5 6 times (the
+               pools) and K7 4 times; request 0 against the plain path, and
+               twice bit-equal without deterministic algorithms; one
+               forward profiled;
   8. bsms train — the flagship BSMS trained on mesh 0's Loader batch
                through make_step_fns(needs_hierarchy=True): fp32 first-step
-               gradients against the plain path, 5 steps each launching
-               K1-K5 15 times and K7 8 times, finite losses, peak device
-               memory, one step profiled;
+               gradients against the plain path and twice bit-equal, 5
+               steps each launching K1-K4 15 times, K5 25 (15 + the pools'
+               6 + the unpools' backward 4) and K7 8 times, finite losses,
+               peak device memory, one step profiled;
   9. zoo     — the registry's unfused model zoo built by
                models.registry.build_model from the model dicts of
                aero_gnn_tpu/config/default.yaml (written out here), served
@@ -142,9 +145,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                three meshes and trains 5 steps in bf16 and in fp32;
                poolMGN, MGNv2 (trial1) and MLPNet serve mesh 0 and train 2
                fp32 steps. K6 and K5 launches are asserted per forward and
-               per step; fp32 predictions and one fp32 step's gradients
-               against the plain path; one FourierMGN fp32 forward and one
-               step profiled;
+               per step (poolMGN's and MGNv2's per-graph pool on K5 in two
+               passes, and its broadcast's backward); fp32 predictions and
+               one fp32 step's gradients against the plain path, poolMGN's
+               and MGNv2's fp32 forward and step gradients twice, bit-equal
+               without deterministic algorithms; one FourierMGN fp32
+               forward and one step profiled;
   10. save_acts — with AERO_GNN_SAVE_ACTS=1 the flagship MGN trained on
                mesh 0 as in phase 6 (remat off): fp32 first-step gradients
                against the plain path, 5 bf16 and 2 fp32 steps, each
@@ -160,20 +166,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
   8b. bsms_switches — the flagship BSMS under each of the JAX package's
                transfer switches that the port reads
-               (AERO_GNN_SORTED_POOL=1, AERO_GNN_WEC_FUSED=0): first K5
-               in its pool use (ops.segment_pool_sum over the pool stream
-               cut before its pad tail, as the model calls it) at the fine
-               level's shapes (node rows x 128, edge rows x 128, the edge
-               weight sums x 1, fp32) against its plain version over the
-               whole stream, bit-equal across launches, timed beside its
-               bound, index_add_ (the default pool's call, which K5 must
-               not be slower than) and torch.sparse.mm of the pool's CSR
-               matrix; then per switch 2
-               requests served (within 1e-3 of the plain path with every
-               switch off; K1, K3 15 a forward, K5 6 more under the sorted
-               pools, K5 4 in place of K7's 4 under WEC_FUSED=0), one fp32
-               step's gradients against the plain path and 2 steps (K1-K4
-               15, K5 15 + 6 or 15 + 8, K7 8 or 0);
+               (AERO_GNN_SORTED_POOL=0 and =1, AERO_GNN_WEC_FUSED=0): first
+               K5 in its pool use (ops.segment_pool_sum over the pool
+               stream cut before its pad tail, as the model calls it) at
+               the fine level's shapes (node rows x 128, edge rows x 128,
+               the edge weight sums x 1, fp32) against its plain version
+               over the whole stream, bit-equal across launches, timed
+               beside its bound, index_add_ (the torch backend's pool,
+               which K5 must not be slower than) and torch.sparse.mm of the
+               pool's CSR matrix; then per switch 2 requests served (within
+               1e-3 of the plain path with every switch off; K1, K3 15 a
+               forward, K5 6 (the pools), K5 4 more in place of K7's 4
+               under WEC_FUSED=0), request 0's fp32 forward twice and one
+               fp32 step's gradients twice, bit-equal without
+               deterministic algorithms, the gradients against the plain
+               path, and 2 steps (K1-K4 15, K5 15 + 6 + 4 (the unpools'
+               backward), + 8 more under WEC_FUSED=0, K7 8 or 0);
   12. remat  — on the tight 65,536-node graph, bf16 and fp32: one step's
                parameter gradients under grouped remat (remat_group 3
                "save_fused:2", 3 "full", 3 "save_fused:2" with
@@ -212,12 +220,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                fp32 steps timed with CUDA events beside the single-device
                step in turns with AERO_GNN_ASYNC_COLLECTIVES off, on, on,
                off (the exchange issued with async_op and waited for where
-               the boundary chain reads it, or synchronous), the fp32
-               forward bit-equal between the two and one fp32 backward's
-               gradients within GRAD_TOL, one bf16 step profiled under
+               the boundary chain reads it, or synchronous), two
+               synchronous fp32 forwards and one fp32 backward's gradients
+               each and one asynchronous, all three bit-equal without
+               deterministic algorithms, one bf16 step profiled under
                each to measure how many ms of the exchange's device copies
                overlap K1 / K2 on the timeline,
-               the replicas bit-equal, K1-K5 launches per rank gated,
+               the replicas bit-equal, K1-K5 launches per rank gated (K5
+               also for the boundary chain: its masked sum, its gathers'
+               and the send gather's backward),
                the halo's rows, bytes and all_to_all time, K1 and K3
                forward, K2, K4 and K5 backward against their plain versions
                on shard 0's interior in bf16 and fp32, K1 / K2 timed there
@@ -229,7 +240,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                (c) data parallel on meshes 0 and 1 (2 ranks); (d) hybrid
                halo-split on a 2 x 2 grid (4 ranks); (e) the BSMS halo
                scheme (every level sharded, weighted transfer) against the
-               single-device BSMS, and K5 in each level's WEC spread
+               single-device BSMS, its K5 launches gated (every transfer's
+               sum and gather backward), its fp32 forward and one step's
+               gradients twice bit-equal on each rank without
+               deterministic algorithms, and K5 in each level's WEC spread
                (ops.segment_pool_sum) against the plain segment sum; (f) (a)'s state saved by save_dcp and
                restored bit-equal by restore_dcp in two fresh ranks.
                ``--parallel-only`` runs the device, build and parallel
@@ -287,6 +301,11 @@ LAYERS = 15
 BSMS_SCALES = 3
 # K7 launches: 2 transfers down + 2 up per forward; a step adds their VJPs
 K7_PER_FORWARD = 2 * (BSMS_SCALES - 1)
+# K5 launches of the BSMS transfers: the sorted pools (nodes, edges, the
+# edge weight sums) at each level a forward; the unpool's backward (its
+# chunk plan's two passes) at each level a step
+K5_BSMS_POOLS = 3 * (BSMS_SCALES - 1)
+K5_BSMS_UNPOOL = 2 * (BSMS_SCALES - 1)
 # the registry's model sections of aero_gnn_tpu/config/default.yaml
 # (model.fouriermgn, model.poolMGN, model.trial1, model.mlpnet), widths and
 # depths uncut; remat and compute_dtype at the registry's defaults
@@ -318,14 +337,20 @@ ZOO_DIMS = dict(input_node_dim=6, input_edge_dim=3, output_node_dim=4)
 # layer; a remat step runs each layer's forward twice (the forward and the
 # recompute) and adds K6's backward and the sender backward, both on K5.
 # MGNv2 aggregates by the mean (K5 for the sum and the degree) and has no
-# remat and no node gather; MLPNet passes no message.
+# remat and no node gather; MLPNet passes no message. poolMGN's and MGNv2's
+# per-graph pool sums on K5 in two passes (its chunk plan) a forward, and
+# the broadcast's backward two more a step.
 ZOO_LAUNCHES = {
     "fouriermgn": {"forward": (LAYERS, LAYERS),
                    "step": (2 * LAYERS, 4 * LAYERS)},
-    "poolmgn": {"forward": (LAYERS, LAYERS), "step": (2 * LAYERS, 4 * LAYERS)},
-    "mgn_v2": {"forward": (0, 2 * LAYERS), "step": (0, 2 * LAYERS)},
+    "poolmgn": {"forward": (LAYERS, LAYERS + 2),
+                "step": (2 * LAYERS, 4 * LAYERS + 4)},
+    "mgn_v2": {"forward": (0, 2 * LAYERS + 2), "step": (0, 2 * LAYERS + 4)},
     "mlpnet": {"forward": (0, 0), "step": (0, 0)},
 }
+# the kinds whose repeated fp32 forwards and step gradients are held bit
+# for bit (their sums' order is the graph's: the per-graph pools)
+ZOO_REPEAT = ("poolmgn", "mgn_v2")
 ZOO_STEPS = {"fouriermgn": 5, "poolmgn": 2, "mgn_v2": 2, "mlpnet": 2}
 # the kernels of the switched paths: K1's save variant and K8
 # (AERO_GNN_SAVE_ACTS), K9 (AERO_GNN_MEGA) and the WEC pair probe's K10
@@ -353,8 +378,10 @@ REMAT_RUNS = (("a", GROUPED), ("b", dict(remat_group=3,
                                          remat_group_policy="full")),
               ("c", dict(GROUPED, remat_offload=True)),
               ("g5", dict(remat_group=5, remat_group_policy="save_fused")))
-# phase bsms_switches: each BSMS transfer switch of the JAX package
-BSMS_SWITCHES = (("sorted_pool", "AERO_GNN_SORTED_POOL", "1"),
+# phase bsms_switches: each BSMS transfer switch of the JAX package (both
+# settings of AERO_GNN_SORTED_POOL)
+BSMS_SWITCHES = (("default_pool", "AERO_GNN_SORTED_POOL", "0"),
+                 ("sorted_pool", "AERO_GNN_SORTED_POOL", "1"),
                  ("wec_unfused", "AERO_GNN_WEC_FUSED", "0"))
 
 
@@ -1537,13 +1564,41 @@ def train_steps(torch, step, n_steps: int, want: dict, label: str):
     return losses, times, read_counters()
 
 
-def check_train_grads(torch, cfg, params, graph, label="train", **apply_kw):
+def repeat_bits(torch, label, fn):
+    """``fn()`` (a tensor, or a dict / tuple of them) twice on the same
+    inputs, without deterministic algorithms: raises unless the two are
+    the same bits. Comparison launches: not counted on the main path."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError(f"{label}: deterministic algorithms are on")
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    if not same_bits(torch, a, b):
+        raise AssertionError(f"{label}: two runs on the same inputs differ "
+                             "in their bits")
+    log(f"[repeat] {label}: two runs bit-equal (deterministic algorithms "
+        "off)")
+    return True
+
+
+def check_train_grads(torch, cfg, params, graph, label="train",
+                      repeat=False, **apply_kw):
     """One fp32 step's parameter gradients on the kernels against the plain
-    path (use_backend("torch")) on the card, TRAIN_GRAD_TOL per parameter.
-    Comparison launches: not counted on the main path."""
+    path (use_backend("torch")) on the card, TRAIN_GRAD_TOL per parameter;
+    with ``repeat`` the kernels' gradients twice, bit-equal
+    (``repeat_bits``). Comparison launches: not counted on the main
+    path."""
     from aero_gnn_tpu_torch import ops
     from aero_gnn_tpu_torch.training.loop import masked_mse
 
+    def kernel_grads():
+        params.zero_grad(set_to_none=True)
+        masked_mse(cfg.apply(params, graph, **apply_kw), graph.y,
+                   graph.node_mask).backward()
+        return {n: p.grad.clone() for n, p in params.named_parameters()}
+
+    if repeat:
+        repeat_bits(torch, f"{label} fp32 step gradients", kernel_grads)
     grads = {}
     for backend in ("cuda", "torch"):
         before = read_counters()
@@ -2066,8 +2121,9 @@ def phase_weighted(torch, g, hierarchy):
 def phase_bsms_serve(torch, requests):
     """Serve the flagship BSMS through AeroInference(needs_hierarchy=True)
     for each request's Loader batch: 3 warm forwards per request after the
-    first, K1 and K3 15 launches and K7 4 per forward; request 0 against the
-    plain path. Returns the main path's launch counts and the record."""
+    first, K1 and K3 15 launches, K5 6 (the sorted pools) and K7 4 per
+    forward; request 0 against the plain path, and its fp32 forward twice,
+    bit-equal. Returns the main path's launch counts and the record."""
     import numpy as np
 
     from aero_gnn_tpu_torch import ops
@@ -2080,6 +2136,7 @@ def phase_bsms_serve(torch, requests):
              "target_std": np.ones(4, np.float32)}
     eng = AeroInference(cfg, params, stats, device=dev, needs_hierarchy=True)
     want = {"fused_edge_fwd": LAYERS, "fused_node_fwd": LAYERS,
+            "segment_sum": K5_BSMS_POOLS,
             "segment_sum_weighted": K7_PER_FORWARD}
     want.update({k: 0 for k in SWITCHED})
     record, preds, n_fwd = {"ms": []}, [], 0
@@ -2127,6 +2184,9 @@ def phase_bsms_serve(torch, requests):
         f"{err.max():.3e} (atol={atol}, rtol={rtol})")
     record.update(n_forwards=n_fwd, max_abs_err_vs_plain=float(err.max()))
     g, aux = requests[0][1:]
+    record["forward_bit_equal"] = repeat_bits(
+        torch, "bsms serve fp32 forward",
+        lambda: eng.predict(g, aux["hierarchy"]))
     record["profile"] = phase_profile(
         torch, "bsms fp32 forward",
         lambda: eng.predict(g, aux["hierarchy"]), top=10)
@@ -2136,8 +2196,10 @@ def phase_bsms_serve(torch, requests):
 def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
     """Train the flagship BSMS on one request's Loader batch through
     make_step_fns(needs_hierarchy=True): first-step fp32 gradients against
-    the plain path, then ``n_steps`` steps, each launching K1-K5 15 times
-    and K7 8 times; one warm step profiled."""
+    the plain path and twice on the kernels, bit-equal, then ``n_steps``
+    steps, each launching K1-K4 15 times, K5 25 (the layers' 15, the
+    pools' 6, the unpools' backward 4) and K7 8 times; one warm step
+    profiled."""
     from aero_gnn_tpu_torch.training import loop as TL
 
     cfg = bsms_config()
@@ -2147,8 +2209,10 @@ def phase_bsms_train(torch, sample, g, aux, n_steps: int = 5):
     fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3), device=dev,
                            needs_hierarchy=True)
     worst = check_train_grads(torch, cfg, params, g, label="bsms train",
-                              hierarchy=hier)
-    want = expect(**FUSED_STEP, segment_sum_weighted=2 * K7_PER_FORWARD)
+                              repeat=True, hierarchy=hier)
+    want = expect(**dict(FUSED_STEP, segment_sum=LAYERS + K5_BSMS_POOLS
+                         + K5_BSMS_UNPOOL),
+                  segment_sum_weighted=2 * K7_PER_FORWARD)
     torch.cuda.reset_peak_memory_stats(dev)
     losses, times, launches = train_steps(
         torch, lambda: fns.train_step(params, g, hier), n_steps, want,
@@ -2239,6 +2303,10 @@ def zoo_serve(torch, kind, cfg, params, requests, stats, dtype):
             f"edges/s")
     rec["launches"] = read_counters()
     rec["n_forwards"] = n_fwd
+    if kind in ZOO_REPEAT:
+        g0 = requests[0][1]
+        rec["forward_bit_equal"] = repeat_bits(
+            torch, f"zoo {kind} {dtype} forward", lambda: eng.predict(g0))
     log(f"[zoo] {kind} {dtype} serve: K6 {rec['launches']['gather_rows']}x, "
         f"K5 {rec['launches']['segment_sum']}x over {n_fwd} forwards "
         f"({ZOO_LAUNCHES[kind]['forward']} per forward)")
@@ -2272,7 +2340,8 @@ def zoo_train(torch, kind, cfg, params, request, dtype):
     sample, g, _ = request
     fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
                            device=g.device)
-    worst = (check_train_grads(torch, cfg, params, g, label=f"zoo {kind}")
+    worst = (check_train_grads(torch, cfg, params, g, label=f"zoo {kind}",
+                               repeat=kind in ZOO_REPEAT)
              if dtype == "float32" else None)
     n_steps = ZOO_STEPS[kind]
     losses, times = [], []
@@ -3393,16 +3462,17 @@ def phase_bsms_switches(torch, requests):
     launches = {}
     for label, name, value in BSMS_SWITCHES:
         # K5 a forward: the sorted pools (nodes, edges, weight sums at each
-        # level), or the WEC's aggregations in place of K7's; a step adds
-        # the WEC adjoints
-        k5_fwd = {"sorted_pool": 3 * (BSMS_SCALES - 1),
-                  "wec_unfused": K7_PER_FORWARD}.get(label, 0)
-        k7_fwd = 0 if label == "wec_unfused" else K7_PER_FORWARD
-        k5_adj = K7_PER_FORWARD if label == "wec_unfused" else 0
+        # level; the cuda backend's pools under either setting of
+        # AERO_GNN_SORTED_POOL), and the WEC's aggregations in place of
+        # K7's; a step adds the WEC adjoints and the unpools' backward
+        wec_k5 = label == "wec_unfused"
+        k5_fwd = K5_BSMS_POOLS + (K7_PER_FORWARD if wec_k5 else 0)
+        k7_fwd = 0 if wec_k5 else K7_PER_FORWARD
+        k5_adj = K7_PER_FORWARD if wec_k5 else 0
         fwd_want = expect(fused_edge_fwd=LAYERS, fused_node_fwd=LAYERS,
                           segment_sum=k5_fwd, segment_sum_weighted=k7_fwd)
-        step_want = expect(**dict(FUSED_STEP,
-                                  segment_sum=LAYERS + k5_fwd + k5_adj),
+        step_want = expect(**dict(FUSED_STEP, segment_sum=(
+            LAYERS + k5_fwd + k5_adj + K5_BSMS_UNPOOL)),
                            segment_sum_weighted=2 * k7_fwd)
         with knob(name, value):
             params, eng = engine()
@@ -3428,8 +3498,11 @@ def phase_bsms_switches(torch, requests):
                         f"rtol={rtol}")
                 errs.append(float(err.max()))
             serve = read_counters()
+            repeat_bits(torch, f"bsms {label} fp32 forward",
+                        lambda: eng.predict(g0, hier0))
             worst = check_train_grads(torch, cfg, params, g0,
-                                      label=f"bsms {label}", hierarchy=hier0)
+                                      label=f"bsms {label}", repeat=True,
+                                      hierarchy=hier0)
             fns = TL.make_step_fns(cfg, TL.make_optimizer(params, 1e-3),
                                    device=dev, needs_hierarchy=True)
             losses, times, train = train_steps(
@@ -3466,10 +3539,19 @@ PAR_TURNS = ("0", "1", "1", "0")
 PAR_SETTING = {"0": "sync", "1": "async"}
 PAR_STEPS = 1 + len(PAR_TIMED) + len(PAR_TURNS) * sum(n for _, n in PAR_TIMED)
 PAR_TIMEOUT_S = 600
-# K5 launches of the BSMS halo scheme beyond the layers' sender backward:
-# the WEC spread's sorted pool (ops.segment_pool_sum) once per up
-# transfer, in the forward
-PAR_BSMS_POOLS = BSMS_SCALES - 1
+# K5 launches a layer of the halo-split layer: the boundary chain's masked
+# sum a forward; a step adds the backward of the interior sender gather, of
+# the exchange's send gather, of the halo-table gather and of the boundary
+# receiver gather
+PAR_SPLIT_K5 = {"forward": 1, "step": 5}
+# K5 launches of the BSMS halo scheme's transfers beyond its layers': 7 a
+# down transfer in the forward (the WEC conv's two sums, the node
+# reduction's two, the edge reduction's three), 3 an up transfer (the WEC
+# spread's three); a step adds 3 a down transfer (the conv's three gathers'
+# backward) and 4 an up transfer (the fetch's two gathers', the spread's
+# two)
+PAR_BSMS_K5 = {"forward": 10 * (BSMS_SCALES - 1),
+               "step": 17 * (BSMS_SCALES - 1)}
 
 
 def free_port() -> int:
@@ -3651,56 +3733,55 @@ def par_halo_split(torch, mesh, dev, rank, tag, save_dir=None):
     return rec
 
 
-def par_async_check(torch, cfg, params, sh, mesh) -> dict:
-    """The fp32 forward, and one fp32 forward and backward with the
-    gradients summed over the group (no optimizer step), under
-    AERO_GNN_ASYNC_COLLECTIVES 0 and 1 with deterministic algorithms on:
-    the forwards bit-equal (else it raises), the gradients within GRAD_TOL
-    of the synchronous ones (the names of those not bit-equal, the worst
-    error over max|p|). Without deterministic algorithms the boundary
-    chain's index_add (the plain segment sum and the gathers' backward)
-    adds in the atomics' order, so two synchronous forwards are compared
-    too (``sync_repeat_bit_equal``), for the record."""
+def par_fwd_grads(torch, forward, params, sh, g0, group):
+    """(the fp32 forward without grad, {name: gradient}) of one forward and
+    backward of the shard loss on ``g0``'s targets, the gradients summed
+    over the group (no optimizer step)."""
     from aero_gnn_tpu_torch.parallel import collectives as C
-    from aero_gnn_tpu_torch.parallel import halo as HL
     from aero_gnn_tpu_torch.parallel import spatial as SP
 
-    group = mesh.group("graph")
-    fwd = HL.make_halo_split_forward(cfg, mesh)
-    with knob("AERO_GNN_ASYNC_COLLECTIVES", "0"):
-        repeat = torch.equal(fwd(params, sh), fwd(params, sh))
-    preds, grads = {}, {}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for setting in PAR_SETTING:
-            with knob("AERO_GNN_ASYNC_COLLECTIVES", setting):
-                preds[setting] = fwd(params, sh)
-                params.zero_grad(set_to_none=True)
-                pred = HL.halo_split_mgn_forward(params, cfg, sh, group)
-                SP.shard_loss(pred, sh.y, sh.node_mask, group).backward()
-                C.sum_gradients(params, group)
-                grads[setting] = {n: p.grad.clone()
-                                  for n, p in params.named_parameters()}
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with torch.no_grad():
+        pred = forward(params, sh)
     params.zero_grad(set_to_none=True)
-    if not torch.equal(preds["0"], preds["1"]):
-        err = float((preds["0"] - preds["1"]).abs().max())
+    SP.shard_loss(forward(params, sh), g0.y, g0.node_mask,
+                  group).backward()
+    C.sum_gradients(params, group)
+    grads = {n: p.grad.clone() for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return pred, grads
+
+
+def par_async_check(torch, cfg, params, sh, mesh) -> dict:
+    """The fp32 forward, and one fp32 forward and backward with the
+    gradients summed over the group (no optimizer step), twice under
+    AERO_GNN_ASYNC_COLLECTIVES=0 and once under =1, without deterministic
+    algorithms: the three forwards and the three sets of gradients must be
+    the same bits (else it raises)."""
+    from aero_gnn_tpu_torch.parallel import halo as HL
+
+    group = mesh.group("graph")
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("parallel: deterministic algorithms are on")
+
+    def forward(p, shard):
+        return HL.halo_split_mgn_forward(p, cfg, shard, group)
+
+    runs = []
+    for setting in ("0", "0", "1"):
+        with knob("AERO_GNN_ASYNC_COLLECTIVES", setting):
+            runs.append(par_fwd_grads(torch, forward, params, sh, sh, group))
+    torch.cuda.synchronize()
+    (p0, g0), (p1, g1), (p2, g2) = runs
+    sync = torch.equal(p0, p1) and same_bits(torch, g0, g1)
+    differ = [n for n in g0 if not torch.equal(g0[n], g2[n])]
+    if not (sync and torch.equal(p0, p2) and not differ):
         raise AssertionError(
-            "parallel: the fp32 forward differs between "
-            f"AERO_GNN_ASYNC_COLLECTIVES=0 and =1 under deterministic "
-            f"algorithms (max abs {err:.3e}; two synchronous forwards "
-            f"without them bit-equal: {repeat})")
-    worst, differ = 0.0, []
-    for n, ref in grads["0"].items():
-        got = grads["1"][n]
-        if not torch.equal(got, ref):
-            differ.append(n)
-        err = check_grad(torch, f"parallel async grad {n}", got, ref,
-                         GRAD_TOL["float32"])
-        worst = max(worst, err / max(float(ref.abs().max()), 1e-30))
-    return {"forward_bit_equal": True, "sync_repeat_bit_equal": repeat,
-            "grads_not_bit_equal": differ, "grad_worst_rel_err": worst}
+            "parallel: without deterministic algorithms, two synchronous "
+            f"fp32 forwards and steps bit-equal: {sync}; the asynchronous "
+            f"forward bit-equal to them: {torch.equal(p0, p2)}; its "
+            f"gradients not bit-equal: {differ}")
+    return {"forward_bit_equal": True, "sync_repeat_bit_equal": True,
+            "grads_not_bit_equal": differ}
 
 
 def _merged(intervals):
@@ -3860,7 +3941,8 @@ def par_check_spread_pools(torch, bsh):
         data = lvl.conv_edge_int[:, None] * z[g.receivers_int]
         got = ops.segment_pool_sum(data, g.senders_int, n,
                                    perm=g.sender_perm_int,
-                                   seg_sorted=g.senders_int_sorted)
+                                   seg_sorted=g.senders_int_sorted,
+                                   pad_sink=g.aligned)
         ref = HS.segment_sum_ref(data, g.senders_int, n)
         torch.cuda.synchronize()
         out.append((k, int(data.shape[0]),
@@ -3923,6 +4005,13 @@ def par_pair_rank(rank, world, spec):
     torch.cuda.synchronize()
     e["step_launches"] = read_counters()
     e["grads"] = par_grads(params)
+    # outside the counted runs: a forward and one step's gradients twice
+    group = graph.group("graph")
+    e["repeat_bit_equal"] = repeat_bits(
+        torch, f"parallel (e) rank {rank} fp32 forward and step gradients",
+        lambda: par_fwd_grads(
+            torch, lambda p, shard: BS.bsms_halo_forward(p, cfg, shard, group),
+            params, sh, sh.fine, group))
     if rank == 0:  # outside the counted runs
         e["pool_check"] = par_check_spread_pools(torch, sh)
     out["e"] = e
@@ -3988,14 +4077,20 @@ def par_restore_rank(rank, world, spec):
     return {"restored": got, "state": par_state(params, opt)}
 
 
-def par_want(forward: int = 0, step: int = 0, k5_extra: int = 0) -> dict:
+def par_want(forward: int = 0, step: int = 0, k5_extra: int = 0,
+             split: bool = True) -> dict:
     """Per-rank launches of ``forward`` forwards and ``step`` steps on the
-    fused interior: K1 and K3 a layer each forward; K1-K5 a layer each
-    step; K5 ``k5_extra`` more; every other kernel 0."""
+    fused interior: K1 and K3 a layer each forward; K1-K4 a layer each
+    step; K5 a layer each step on one device, PAR_SPLIT_K5 a layer on the
+    halo-split layer (``split``), and ``k5_extra`` more; every other
+    kernel 0."""
     n = forward + step
+    k5 = (LAYERS * (PAR_SPLIT_K5["forward"] * forward
+                    + PAR_SPLIT_K5["step"] * step) if split
+          else LAYERS * step)
     return expect(fused_edge_fwd=LAYERS * n, fused_node_fwd=LAYERS * n,
                   fused_edge_bwd=LAYERS * step, fused_node_bwd=LAYERS * step,
-                  segment_sum=LAYERS * step + k5_extra)
+                  segment_sum=k5 + k5_extra)
 
 
 def par_check_launches(label, got, want):
@@ -4220,8 +4315,10 @@ def phase_parallel(torch, smi, graphs):
             f"err {fwd_err:.3e} (SERVE_TOL); fp32 step gradients within "
             f"TRAIN_GRAD_TOL, worst {worst:.3e} of max|p|; loss "
             f"{r0['loss']:.6f} vs {loss0:.6f}; launches per rank: forward "
-            f"{LAYERS} of K1 and K3, {PAR_STEPS} steps {LAYERS * PAR_STEPS} "
-            f"of K1-K5, every other kernel 0; replicas bit-equal")
+            f"{LAYERS} of K1, K3 and K5, {PAR_STEPS} steps "
+            f"{LAYERS * PAR_STEPS} of K1-K4 and "
+            f"{PAR_SPLIT_K5['step'] * LAYERS * PAR_STEPS} of K5, every other "
+            f"kernel 0; replicas bit-equal")
         sm = r0["step_ms"]
         log(f"[parallel] ({label}) step ms a rank (CUDA events, median of "
             f"{len(PAR_TURNS) // 2 * PAR_TIMED[0][1]} bf16 / "
@@ -4234,15 +4331,10 @@ def phase_parallel(torch, smi, graphs):
             f"{single_ms['float32']:.2f}; the split step at P = 1 without a "
             f"process group bf16 {steps_ms['split']['bfloat16']:.2f}, fp32 "
             f"{steps_ms['split']['float32']:.2f} ({smi})")
-        ac = r0["async_check"]
-        log(f"[parallel] ({label}) AERO_GNN_ASYNC_COLLECTIVES=1 against =0 "
-            f"under deterministic algorithms: fp32 forward bit-equal (two "
-            f"synchronous forwards without them bit-equal: "
-            f"{ac['sync_repeat_bit_equal']}); fp32 gradients within "
-            f"GRAD_TOL, worst "
-            f"{ac['grad_worst_rel_err']:.3e} of max|p|, "
-            f"{len(ac['grads_not_bit_equal'])} of {len(r0['grads'])} "
-            f"tensors not bit-equal {ac['grads_not_bit_equal']}")
+        log(f"[parallel] ({label}) without deterministic algorithms: two "
+            f"synchronous fp32 forwards and one step's gradients "
+            f"({len(r0['grads'])} tensors) bit-equal, and "
+            f"AERO_GNN_ASYNC_COLLECTIVES=1's bit-equal to them")
         for st, ov in r0["overlap_bf16"].items():
             if ov is None:
                 log(f"[parallel] ({label}) {st} bf16 step: the profiler saw "
@@ -4281,7 +4373,7 @@ def phase_parallel(torch, smi, graphs):
     # (c) data parallel
     for i, r in enumerate(pair):
         par_check_launches(f"(c) rank {i}", r["c"]["step_launches"],
-                           par_want(step=1))
+                           par_want(step=1, split=False))
     worst_c = par_check_grads(torch, "(c)", pair[0]["c"]["grads"],
                               mean_grads)
     mean_loss = (loss0 + loss1) / 2
@@ -4313,10 +4405,11 @@ def phase_parallel(torch, smi, graphs):
     # (e) BSMS halo
     e0 = pair[0]["e"]
     for i, r in enumerate(pair):
-        par_check_launches(f"(e) rank {i} forward", r["e"]["forward_launches"],
-                           par_want(forward=1, k5_extra=PAR_BSMS_POOLS))
+        par_check_launches(
+            f"(e) rank {i} forward", r["e"]["forward_launches"],
+            par_want(forward=1, k5_extra=PAR_BSMS_K5["forward"]))
         par_check_launches(f"(e) rank {i} step", r["e"]["step_launches"],
-                           par_want(step=1, k5_extra=PAR_BSMS_POOLS))
+                           par_want(step=1, k5_extra=PAR_BSMS_K5["step"]))
     err_e = par_check_rows("(e) forward", e0["forward"], bsms_fwd)
     worst_e = par_check_grads(torch, "(e)", e0["grads"], bsms_grads)
     launches["e"] = {"forward": [r["e"]["forward_launches"] for r in pair],
@@ -4329,8 +4422,9 @@ def phase_parallel(torch, smi, graphs):
         f"levels (rows per shard, H) {e0['levels']}): forward max abs err "
         f"{err_e:.3e} vs single-device BSMS (SERVE_TOL); step gradients "
         f"worst {worst_e:.3e} of max|p|; loss {e0['loss']:.6f} vs "
-        f"{float(bloss.detach()):.6f}; K5 {PAR_BSMS_POOLS} more per forward "
-        f"(the WEC spread's sorted pool)")
+        f"{float(bloss.detach()):.6f}; K5 {PAR_BSMS_K5['forward']} more a "
+        f"forward and {PAR_BSMS_K5['step']} a step for the transfers; the "
+        f"fp32 forward and step gradients twice bit-equal on each rank")
     for k, rows, err in e0["pool_check"]:
         log(f"[parallel] (e) rank 0 level {k} WEC spread: "
             f"ops.segment_pool_sum (K5) on {rows} interior rows x {HIDDEN} "
@@ -4454,6 +4548,11 @@ def main() -> int:
                 for label, c in bsms_sw.items()}
             if base == "segment_sum":
                 k["pool"] = bsms_sw_record["pool"]
+        if base == "segment_sum" and dtype == "float32":
+            # poolMGN's and MGNv2's per-graph pools
+            k["launches_zoo"] = {
+                kind: {run: zoo[kind]["float32"][run]["launches"][base]
+                       for run in ("serve", "train")} for kind in ZOO_REPEAT}
         fourier = zoo["fouriermgn"][dtype]
         if base in ("gather_rows", "segment_sum"):
             k["launches_fouriermgn_serve"] = \

@@ -199,10 +199,12 @@ def _counted(monkeypatch, name):
 # (K5, K7) calls of one forward and of one training step on the cuda
 # backend, SMALL's 5 fused layers over 2 levels: K5 is the sender backward
 # once a layer; the WEC runs A down and A^T up at each level (K7, or K5
-# under WEC_FUSED=0), a step adds each one's adjoint; the sorted pools add
-# three K5 a level (nodes, edges, the weight sums) to every forward
-ROUTES = {"default": ((0, 4), (5, 8)), "sorted_pool": ((6, 4), (11, 8)),
-          "wec_unfused": ((4, 0), (13, 0)), "wec_dtype": ((0, 4), (5, 8))}
+# under WEC_FUSED=0), a step adds each one's adjoint; the sorted pools
+# (every setting on the cuda backend) add three K5 a level (nodes, edges,
+# the weight sums) to every forward, and the unpool's backward two a level
+# (its chunk plan's two passes) to a step
+ROUTES = {"default": ((6, 4), (15, 8)), "sorted_pool": ((6, 4), (15, 8)),
+          "wec_unfused": ((10, 0), (23, 0)), "wec_dtype": ((6, 4), (15, 8))}
 
 
 @pytest.mark.parametrize("switch", list(SWITCHES))

@@ -167,20 +167,25 @@ def test_adam_losses_match_jax(runs, name):
 
 def test_kernel_calls_per_rank_aligned(runs):
     """The aligned weighted scheme: every level's layers on the fused
-    interior (K1 / K3 a layer in the forward, K1-K5 a layer in a step) and
-    K5 once more per up transfer (the WEC spread's sorted pool, in the
-    forward); K7 and K6 never (chip_smoke.py phase parallel (e) holds the
-    same on the card)."""
+    interior (K1 / K3 a layer in the forward, K1-K4 a layer in a step) with
+    the split layer's K5 (once a layer in the forward, five times in a
+    step: tests/test_torch_parallel_halo.py), and K5 for every sum of the
+    transfers: 7 a down transfer in the forward (the WEC conv's two sums,
+    the node reduction's two, the edge reduction's three), 3 an up transfer
+    (the WEC spread's three); a step adds 3 a down transfer (the conv's
+    three gathers' backward) and 4 an up transfer (the fetch's two, the
+    spread's two). K7 and K6 never (chip_smoke.py phase parallel (e) holds
+    the same on the card)."""
     from aero_gnn_tpu_torch.models.bsms import BSMSConfig
 
     cfg = BSMSConfig(**_cfg_kw("halo_bistride_weighted_aligned"))
     layers = 2 * sum(cfg.down_counts) + cfg.bottleneck_count
-    pools = cfg.num_scales - 1
+    transfers = cfg.num_scales - 1
     fwd = {k: 0 for k, _, _ in R.COUNTED}
     fwd.update(fused_edge_fwd=layers, fused_node_fwd=layers,
-               segment_sum=pools)
+               segment_sum=layers + 10 * transfers)
     step = dict(fwd, fused_edge_bwd=layers, fused_node_bwd=layers,
-                segment_sum=layers + pools)
+                segment_sum=5 * layers + 17 * transfers)
     for r in runs["halo_bistride_weighted_aligned"]:
         assert r["forward_counts"] == fwd
         assert r["step_counts"] == step

@@ -208,15 +208,19 @@ def test_psum_numerator_fails_ground_truth(runs):
 
 def test_kernel_calls_per_rank(runs):
     """On the aligned interior every rank's forward calls K1 and K3 once a
-    layer, and a step K1-K5 once a layer (K5: the interior sender gather's
-    backward); nothing else. On the card these are the launches
-    (chip_smoke.py phase parallel holds them)."""
+    layer, and K5 once a layer for the boundary chain's masked sum; a step
+    K1-K4 once a layer and K5 five times a layer (the boundary sum, the
+    backward of the interior sender gather, of the send gather, of the
+    halo-table gather and of the boundary receiver gather); nothing else.
+    On the card these are the launches (chip_smoke.py phase parallel holds
+    them)."""
     fwd = {k: 0 for k, _, _ in R.COUNTED}
-    fwd.update(fused_edge_fwd=LAYERS, fused_node_fwd=LAYERS)
+    fwd.update(fused_edge_fwd=LAYERS, fused_node_fwd=LAYERS,
+               segment_sum=LAYERS)
     step = {k: 0 for k, _, _ in R.COUNTED}
     step.update({k: LAYERS for k in ("fused_edge_fwd", "fused_edge_bwd",
-                                     "fused_node_fwd", "fused_node_bwd",
-                                     "segment_sum")})
+                                     "fused_node_fwd", "fused_node_bwd")},
+                segment_sum=5 * LAYERS)
     for r in runs["halo_split_aligned"]:
         assert r["forward_counts"] == fwd
         assert r["step_counts"] == step

@@ -79,6 +79,15 @@ def model_config(kind: str, kw: dict):
             "poolmgn": PoolMGNConfig, "bsms": BSMSConfig}[kind](**kw)
 
 
+# the switched paths' kernel wrappers (K1's save variant, K8, K9, K10)
+_SWITCHED = (("fused_edge_fwd_save", "hopper_fused", "fused_edge_layer_save"),
+             ("fused_edge_bwd_saved", "hopper_fused",
+              "fused_edge_layer_bwd_saved"),
+             ("fused_mgn_fwd", "hopper_mega", "fused_mgn_layer"),
+             ("fused_mgn_bwd", "hopper_mega", "fused_mgn_layer_bwd"),
+             ("segment_sum_weighted2", "hopper_segment",
+              "segment_sum_weighted2"))
+
 COUNTED = (("fused_edge_fwd", "hopper_fused", "fused_edge_layer"),
            ("fused_edge_bwd", "hopper_fused", "fused_edge_layer_bwd"),
            ("fused_node_fwd", "hopper_node", "fused_node_layer"),
@@ -442,3 +451,110 @@ def exchange_order_program(rank: int, world: int, spec: dict) -> list:
         HF.fused_edge_layer = originals["fused_edge_layer"]
         HF.fused_edge_layer_bwd = originals["fused_edge_layer_bwd"]
     return log
+
+
+# ---------------------------------------------------------------------------
+# the order of the sums (tests/test_torch_determinism.py)
+# ---------------------------------------------------------------------------
+
+def _adds_atomically(name: str, args, kwargs) -> bool:
+    """Whether an aten op adds rows in the order its CUDA atomics land:
+    index_add, scatter_add, put / index_put with accumulate, a summing
+    scatter_reduce; except where every value added is 0 or 1 (counts,
+    exact in any order: ``ops.degree``, the ties of ``segment_max``'s
+    backward)."""
+    name = name.rstrip("_")
+    values = None
+    if name in ("index_add", "scatter_add"):
+        values = args[3]
+    elif name in ("index_put", "_index_put_impl", "put"):
+        k = 2 if name == "put" else 3
+        if not kwargs.get("accumulate", args[k] if len(args) > k else False):
+            return False
+        values = args[k - 1]
+    elif name == "scatter_reduce":
+        reduce = kwargs.get("reduce", args[3] if len(args) > 3 else None)
+        if reduce not in ("sum", "mean"):
+            return False
+        values = args[2]
+    else:
+        return name == "embedding_dense_backward"
+    return not bool(((values == 0) | (values == 1)).all())
+
+
+class AtomicSums:
+    """``with AtomicSums() as rec:`` records in ``rec.found`` every aten op
+    of the block (backward passes included) that would add in the atomics'
+    order on CUDA (``_adds_atomically``), outside the calls of the kernel
+    wrappers (whose plain versions on CPU tensors sum with index_add_; on
+    the card each launches its kernel); ``rec.k5`` counts the K5 wrapper's
+    calls."""
+
+    def __init__(self):
+        import importlib
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        rec = self
+        self.found, self.k5, self._depth = [], 0, 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = func.overloadpacket.__name__
+                if not rec._depth and _adds_atomically(name, args, kwargs):
+                    rec.found.append(name)
+                return func(*args, **kwargs)
+
+        def exempt(fn, count):
+            def wrapped(*a, **k):
+                rec.k5 += count
+                rec._depth += 1
+                try:
+                    return fn(*a, **k)
+                finally:
+                    rec._depth -= 1
+            return wrapped
+
+        self._mode = Mode()
+        self._patches = []
+        for name, mod, fn in COUNTED + _SWITCHED:
+            m = importlib.import_module(f"aero_gnn_tpu_torch.ops.{mod}")
+            self._patches.append(
+                (m, fn, exempt(getattr(m, fn), name == "segment_sum")))
+
+    def __enter__(self):
+        self._saved = [(m, n, getattr(m, n)) for m, n, _ in self._patches]
+        for m, n, fn in self._patches:
+            setattr(m, n, fn)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+        return False
+
+
+def order_program(rank: int, world: int, specs: dict) -> dict:
+    """For each named spec (scheme, kind, config, partition kwargs): this
+    rank's shard of a small mesh, a forward and one training step on the
+    cuda backend inside AtomicSums; returns {name: (found, K5 calls)}."""
+    from aero_gnn_tpu_torch import ops
+    from aero_gnn_tpu_torch.parallel import mesh as PM
+    from aero_gnn_tpu_torch.training.loop import make_optimizer
+
+    mesh = PM.make_mesh(data=1, graph=world)
+    out = {}
+    for name, (scheme, kind, kw, part) in specs.items():
+        s = mesh_sample(480, 4)
+        sh = partition(scheme, s, world, part).shard(mesh.coords()[1], "cpu")
+        cfg = model_config(kind, kw)
+        params = cfg.init(0, device="cpu")
+        fwd_fn, step_fn = _builders(scheme)
+        with ops.use_backend("cuda"), AtomicSums() as rec:
+            fwd_fn(cfg, mesh)(params, sh)
+            step_fn(cfg, make_optimizer(params, 1e-3), mesh)(params, sh)
+        out[name] = (rec.found, rec.k5)
+    return out
