@@ -1,0 +1,8 @@
+"""idle_pct.train: the share of the traced steps' window in which no
+kernel, copy or memset ran on the device."""
+
+from portbench.readers import idle_pct
+
+
+def read(view):
+    return idle_pct(view) if view.kind == "train" else None
