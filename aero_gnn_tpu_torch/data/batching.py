@@ -28,6 +28,7 @@ from aero_gnn_tpu_torch.graph.padded import (
     batch_graphs,
     bucket_size,
 )
+from aero_gnn_tpu_torch.utils.profiling import annotate
 
 
 def sample_to_dict(s: MeshSample) -> Dict[str, np.ndarray]:
@@ -169,18 +170,21 @@ class Loader:
         self._epoch += 1
         bs = self.batch_size
         for b in range(len(self)):
-            idx = order[b * bs:(b + 1) * bs]
-            batch_samples = [self.samples[i] for i in idx]
-            gb, amap = batch_graphs(
-                [sample_to_dict(s) for s in batch_samples],
-                num_nodes_pad=self.pad_spec.num_nodes_pad,
-                num_edges_pad=self.pad_spec.num_edges_pad,
-                num_graphs_pad=self.pad_spec.num_graphs_pad,
-                align_edges=self.align_edges, return_align_map=True,
-                device=self.device)
-            aux: dict = {"samples": batch_samples}
-            if self._hier is not None:
-                aux["hierarchy"] = tuple(self._levels(idx, amap))
+            with annotate("aero.loader.batch"):
+                idx = order[b * bs:(b + 1) * bs]
+                batch_samples = [self.samples[i] for i in idx]
+                with annotate("aero.graph.build"):
+                    gb, amap = batch_graphs(
+                        [sample_to_dict(s) for s in batch_samples],
+                        num_nodes_pad=self.pad_spec.num_nodes_pad,
+                        num_edges_pad=self.pad_spec.num_edges_pad,
+                        num_graphs_pad=self.pad_spec.num_graphs_pad,
+                        align_edges=self.align_edges, return_align_map=True,
+                        device=self.device)
+                aux: dict = {"samples": batch_samples}
+                if self._hier is not None:
+                    with annotate("aero.loader.hierarchy"):
+                        aux["hierarchy"] = tuple(self._levels(idx, amap))
             yield gb, aux
 
     def _levels(self, idx, amap) -> List[H.HierarchyLevel]:
@@ -188,20 +192,22 @@ class Loader:
         every level; a batch beyond the PadSpec's balanced coarse-edge
         budget is realigned with per-batch sizes, with a warning."""
         spec = self.pad_spec
-        aligned = amap is not None
-        levels = H.collate_hierarchies(
-            [self._hier[i] for i in idx],
-            num_fine_nodes_pad=spec.num_nodes_pad,
-            num_fine_edges_pad=spec.num_edges_pad,
-            pad_plan=spec.hierarchy_pad_plan,
-            device="cpu" if aligned else self.device)
-        if not aligned:
-            return levels
-        try:
-            return H.align_hierarchy(
-                levels, amap, edge_pad_targets=spec.hierarchy_aligned_edges,
-                device=self.device)
-        except ValueError:
-            warnings.warn("hierarchy aligned-edge budget exceeded; "
-                          "realigning this batch with per-batch sizes")
-            return H.align_hierarchy(levels, amap, device=self.device)
+        with annotate("aero.hierarchy.collate"):
+            levels = H.collate_hierarchies(
+                [self._hier[i] for i in idx],
+                num_fine_nodes_pad=spec.num_nodes_pad,
+                num_fine_edges_pad=spec.num_edges_pad,
+                pad_plan=spec.hierarchy_pad_plan, device="cpu")
+        if amap is None:
+            with annotate("aero.hierarchy.to_device"):
+                return [lv.to(self.device) for lv in levels]
+        with annotate("aero.hierarchy.align"):
+            try:
+                return H.align_hierarchy(
+                    levels, amap,
+                    edge_pad_targets=spec.hierarchy_aligned_edges,
+                    device=self.device)
+            except ValueError:
+                warnings.warn("hierarchy aligned-edge budget exceeded; "
+                              "realigning this batch with per-batch sizes")
+                return H.align_hierarchy(levels, amap, device=self.device)

@@ -40,6 +40,7 @@ from aero_gnn_tpu_torch.graph.padded import (
     chunk_plan,
     sort_edges_by_receiver,
 )
+from aero_gnn_tpu_torch.utils.profiling import annotate
 
 _INT_FIELDS = ("fine_to_coarse", "edge_to_coarse", "senders", "receivers",
                "sender_perm", "senders_sorted", "node_graph", "tile_block",
@@ -880,8 +881,9 @@ def align_hierarchy(
             fields.update(rep_mask=rep, conv_self=cself, conv_edge=cedge)
             if cedge_t is not None:
                 fields["conv_edge_t"] = cedge_t
-        out.append(with_pool_perms(
-            _replace(level, **fields)).to(dev))
+        host_level = with_pool_perms(_replace(level, **fields))
+        with annotate("aero.hierarchy.to_device"):
+            out.append(host_level.to(dev))
 
         # maps for the NEXT level's fine side
         prev_src = np.full(ec2, -1, np.int64)

@@ -38,6 +38,7 @@ import torch
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
 from aero_gnn_tpu_torch.graph import native
+from aero_gnn_tpu_torch.utils.profiling import annotate, count
 
 ALIGN_NODE_BLOCK = 256
 ALIGN_EDGE_TILE = 1024
@@ -296,19 +297,24 @@ def build_graph_batch(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    gb = GraphBatch(
-        senders=t(s_p), receivers=t(r_p),
-        sender_perm=t(sender_perm), senders_sorted=t(senders_sorted),
-        x=t(pad_rows(x, np_pad)), edge_attr=t(ea_p),
-        pos=t(pad_rows(pos, np_pad)), y=t(pad_rows(y, np_pad)),
-        node_mask=t(node_mask), edge_mask=t(edge_mask),
-        node_graph=t(ng_p), graph_mask=t(graph_mask),
-        n_node=n, n_edge=e,
-        tile_block=None if tile_block is None else t(tile_block),
-        tile_first=None if tile_first is None else t(tile_first),
-        senders_aligned=senders_aligned, graph_perm=t(graph_perm),
-        graph_chunk=t(graph_chunk), chunk_graph=t(chunk_graph),
-    )
+    with annotate("aero.graph.to_device"):
+        gb = GraphBatch(
+            senders=t(s_p), receivers=t(r_p),
+            sender_perm=t(sender_perm), senders_sorted=t(senders_sorted),
+            x=t(pad_rows(x, np_pad)), edge_attr=t(ea_p),
+            pos=t(pad_rows(pos, np_pad)), y=t(pad_rows(y, np_pad)),
+            node_mask=t(node_mask), edge_mask=t(edge_mask),
+            node_graph=t(ng_p), graph_mask=t(graph_mask),
+            n_node=n, n_edge=e,
+            tile_block=None if tile_block is None else t(tile_block),
+            tile_first=None if tile_first is None else t(tile_first),
+            senders_aligned=senders_aligned, graph_perm=t(graph_perm),
+            graph_chunk=t(graph_chunk), chunk_graph=t(chunk_graph),
+        )
+    count("graph.nodes", n)
+    count("graph.node_rows", np_pad)
+    count("graph.edges", e)
+    count("graph.edge_rows", ep_pad)
     return (gb, align_src) if return_align_map else gb
 
 

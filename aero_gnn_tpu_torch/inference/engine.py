@@ -36,6 +36,7 @@ from aero_gnn_tpu_torch.inference.metrics import (
     featurewise_mae_mse,
 )
 from aero_gnn_tpu_torch.models.mgn import apply_model
+from aero_gnn_tpu_torch.utils.profiling import annotate
 
 
 def plot_2d_predictions(pos, pred, target, feature_names, save_path,
@@ -107,17 +108,22 @@ class AeroInference:
         """One device pass over a multi-sample batch; per-sample
         (pred_phys, target_phys, pred_norm, target_norm) tuples, the samples
         (``aux["samples"]``) being contiguous row ranges in order."""
-        pred = self.predict(graph, aux.get("hierarchy")).cpu().numpy()
-        target = graph.y.cpu().numpy()
-        outs = []
-        off = 0
-        for s in aux["samples"]:
-            pn = pred[off:off + s.num_nodes]
-            tn = target[off:off + s.num_nodes]
-            outs.append((denormalize_predictions(pn, self.norm_stats),
-                         denormalize_predictions(tn, self.norm_stats),
-                         pn, tn))
-            off += s.num_nodes
+        with annotate("aero.engine.predict"):
+            with annotate("aero.engine.forward"):
+                pred = self.predict(graph, aux.get("hierarchy"))
+            with annotate("aero.engine.to_host"):
+                pred = pred.cpu().numpy()
+                target = graph.y.cpu().numpy()
+            with annotate("aero.engine.denormalize"):
+                outs = []
+                off = 0
+                for s in aux["samples"]:
+                    pn = pred[off:off + s.num_nodes]
+                    tn = target[off:off + s.num_nodes]
+                    outs.append((denormalize_predictions(pn, self.norm_stats),
+                                 denormalize_predictions(tn, self.norm_stats),
+                                 pn, tn))
+                    off += s.num_nodes
         return outs
 
     def run_inference(self, test_samples: List[MeshSample],

@@ -70,6 +70,7 @@ from aero_gnn_tpu_torch.ops import _build
 from aero_gnn_tpu_torch.ops.hopper_node import DW_SLAB
 from aero_gnn_tpu_torch.ops.hopper_segment import segment_sum_ref
 from aero_gnn_tpu_torch.ops.scatter import gather
+from aero_gnn_tpu_torch.utils.profiling import count
 
 NB = ALIGN_NODE_BLOCK
 ET = ALIGN_EDGE_TILE
@@ -298,7 +299,7 @@ def fused_edge_layer(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
     if not e.is_cuda:
         return fused_edge_layer_ref(*args)
     out = _launch_fwd(False, *args)
-    fused_edge_layer.launches += 1
+    count("launch.K1")
     return out
 
 
@@ -313,7 +314,7 @@ def fused_edge_layer_save(e, sg, d_proj, mask, receivers, w_e, ws, bs,
     if not e.is_cuda:
         return fused_edge_layer_save_ref(*args)
     out = _launch_fwd(True, *args)
-    fused_edge_layer_save.launches += 1
+    count("launch.K1-save")
     return out
 
 
@@ -443,7 +444,7 @@ def fused_edge_layer_bwd(e, sg, d_proj, mask, receivers, w_e, ws, bs, w_out,
                  plan["ws_bytes"], n_edges, num_nodes, h, nh, plan["grid"],
                  ET, _DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_edge_bwd", err)
-    fused_edge_layer_bwd.launches += 1
+    count("launch.K2")
     return _split_grads(d_e, d_sg, d_dproj, dw, h, nh)
 
 
@@ -479,16 +480,8 @@ def fused_edge_layer_bwd_saved(e, mask, receivers, w_e, ws, w_out, ln_scale,
                  plan["ws_bytes"], n_edges, num_nodes, h, nh, plan["grid"],
                  int(plan["resident"]), ET, _DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_edge_bwd_saved", err)
-    fused_edge_layer_bwd_saved.launches += 1
+    count("launch.K8")
     return _split_grads(d_e, d_sg, d_dproj, dw, h, nh)
-
-
-# launches of K1, its save variant, K2 and K8 since the counts were last
-# set to 0
-fused_edge_layer.launches = 0
-fused_edge_layer_save.launches = 0
-fused_edge_layer_bwd.launches = 0
-fused_edge_layer_bwd_saved.launches = 0
 
 
 class _FusedEdgeLayer(torch.autograd.Function):

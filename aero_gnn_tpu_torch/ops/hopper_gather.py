@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from aero_gnn_tpu_torch.ops import _build
+from aero_gnn_tpu_torch.utils.profiling import count
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
@@ -52,9 +53,5 @@ def gather_rows(nodes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         err = fn(nodes.data_ptr(), idx.data_ptr(), out.data_ptr(),
                  idx.shape[0], row_bytes, stream)
     _build.check_launch("aero_gather_rows", err)
-    gather_rows.launches += 1
+    count("launch.K6")
     return out
-
-
-# launches of kernel K6 since the count was last set to 0
-gather_rows.launches = 0

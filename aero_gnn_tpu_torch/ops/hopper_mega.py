@@ -37,6 +37,7 @@ import torch
 from aero_gnn_tpu_torch.ops import _build
 from aero_gnn_tpu_torch.ops import hopper_fused as HF
 from aero_gnn_tpu_torch.ops import hopper_node as HN
+from aero_gnn_tpu_torch.utils.profiling import count
 
 NB, ET = HF.NB, HF.ET
 EDGE_KEYS = ("w_e", "ws", "bs", "w_out", "b_out", "ln_scale", "ln_bias")
@@ -251,7 +252,7 @@ def fused_mgn_layer(e, sg, d_proj, x, mask, receivers, ep, npar,
                  ne, nn, NB, ET, int(plan["resident"]),
                  HF._DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_mgn_fwd", err)
-    fused_mgn_layer.launches += 1
+    count("launch.K9-fwd")
     return x_out, e_out, agg
 
 
@@ -292,7 +293,7 @@ def fused_mgn_layer_bwd(e, sg, d_proj, x, agg, mask, receivers, ep, npar,
                  plan["node_grid"], int(plan["resident"]),
                  HF._DTYPE_CODE[e.dtype], stream)
     _build.check_launch("aero_fused_mgn_bwd", err)
-    fused_mgn_layer_bwd.launches += 1
+    count("launch.K9-bwd")
     # K2's [dW_e, dWs, dW_out], [db_out, dscale, dbias, dbs], then K4's
     # [dW1x, dW1a, dWs, dW_out], [db_out, dscale, dbias, db1, dbs]
     em, ev, nm, nv = torch.split(dw, sizes)
@@ -305,11 +306,6 @@ def fused_mgn_layer_bwd(e, sg, d_proj, x, agg, mask, receivers, ep, npar,
             "bs": nv[4:], "w_out": nm[nn + 2], "b_out": nv[0],
             "ln_scale": nv[1], "ln_bias": nv[2]}
     return d_e, d_sg, d_dproj, d_x, d_ep, d_np
-
-
-# launches of kernels K9-fwd / K9-bwd since the counts were last set to 0
-fused_mgn_layer.launches = 0
-fused_mgn_layer_bwd.launches = 0
 
 
 class _FusedMGNLayer(torch.autograd.Function):

@@ -29,6 +29,7 @@ import torch
 
 from aero_gnn_tpu_torch.nn.mlp import LN_EPS, layer_norm
 from aero_gnn_tpu_torch.ops import _build
+from aero_gnn_tpu_torch.utils.profiling import count
 
 ROW_CHUNK = 128  # rows per CTA step of the kernels
 KERNEL_WIDTHS = (64, 128)
@@ -178,7 +179,7 @@ def fused_node_layer(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out, ln_scale,
                  plan["grid"], int(plan["resident"]), _DTYPE_CODE[x.dtype],
                  stream)
     _build.check_launch("aero_fused_node_fwd", err)
-    fused_node_layer.launches += 1
+    count("launch.K3")
     return out
 
 
@@ -261,16 +262,11 @@ def fused_node_layer_bwd(x, agg, w1x, w1a, b1, ws, bs, w_out, b_out,
                  plan["ws_bytes"], n, h, nh, plan["grid"],
                  int(plan["resident"]), _DTYPE_CODE[x.dtype], stream)
     _build.check_launch("aero_fused_node_bwd", err)
-    fused_node_layer_bwd.launches += 1
+    count("launch.K4")
     mats = dw[:n_mat].view(nh + 3, h, h)
     vecs = dw[n_mat:].view(nh + 4, h)
     return (d_x, d_agg, mats[0], mats[1], vecs[3], mats[2:nh + 2], vecs[4:],
             mats[nh + 2], vecs[0], vecs[1], vecs[2])
-
-
-# launches of kernels K3 / K4 since the counts were last set to 0
-fused_node_layer.launches = 0
-fused_node_layer_bwd.launches = 0
 
 
 class _FusedNodeLayer(torch.autograd.Function):

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from aero_gnn_tpu_torch.ops import _build
+from aero_gnn_tpu_torch.utils.profiling import count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -153,7 +154,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                  data.shape[1], int(pad_sink), _DTYPE_CODE[data.dtype],
                  stream)
     _build.check_launch("aero_segment_sum", err)
-    segment_sum.launches += 1
+    count("launch.K5")
     return out
 
 
@@ -192,7 +193,7 @@ def segment_sum_weighted(data: torch.Tensor, segment_ids: torch.Tensor,
                  n_ids, num_segments, data.shape[1], int(pad_sink),
                  _DTYPE_CODE[data.dtype], stream)
     _build.check_launch("aero_segment_sum_weighted", err)
-    segment_sum_weighted.launches += 1
+    count("launch.K7")
     return out
 
 
@@ -235,11 +236,5 @@ def segment_sum_weighted2(m1: torch.Tensor, w1: torch.Tensor,
                  out1.data_ptr(), out2.data_ptr(), n_ids, num_nodes,
                  m1.shape[1], _DTYPE_CODE[m1.dtype], stream)
     _build.check_launch("aero_segment_sum_weighted2", err)
-    segment_sum_weighted2.launches += 1
+    count("launch.K10")
     return out1, out2
-
-
-# launches of kernels K5 / K7 / K10 since the counts were last set to 0
-segment_sum.launches = 0
-segment_sum_weighted.launches = 0
-segment_sum_weighted2.launches = 0

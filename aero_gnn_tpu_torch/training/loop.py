@@ -28,6 +28,7 @@ from aero_gnn_tpu_torch.training.schedulers import (
     ReduceLROnPlateau,
 )
 from aero_gnn_tpu_torch.utils.logging import MetricLogger
+from aero_gnn_tpu_torch.utils.profiling import annotate
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -85,14 +86,17 @@ def make_step_fns(model_cfg, optimizer: torch.optim.Optimizer, *,
     def train_step(params, graph, hierarchy=None,
                    generator: Optional[torch.Generator] = None):
         optimizer.zero_grad(set_to_none=True)
-        pred = apply(params, graph, hierarchy, generator)
-        loss = masked_mse(pred, graph.y.to(dev), graph.node_mask.to(dev))
-        loss.backward()
-        optimizer.step()
+        with annotate("aero.step.forward"):
+            pred = apply(params, graph, hierarchy, generator)
+            loss = masked_mse(pred, graph.y.to(dev), graph.node_mask.to(dev))
+        with annotate("aero.step.backward"):
+            loss.backward()
+        with annotate("aero.step.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     def eval_step(params, graph, hierarchy=None):
-        with torch.no_grad():
+        with torch.no_grad(), annotate("aero.step.forward"):
             pred = apply(params, graph, hierarchy)
             return masked_mse(pred, graph.y.to(dev), graph.node_mask.to(dev))
 
@@ -106,10 +110,16 @@ def make_step_fns(model_cfg, optimizer: torch.optim.Optimizer, *,
 
 def run_epoch_train(fns: StepFns, params, loader: Loader,
                     generator: Optional[torch.Generator] = None) -> float:
+    """The mean loss of one pass over ``loader``; each step is a span
+    ``aero.step`` whose child ``aero.step.sync`` is the host's wait for the
+    loss."""
     total, count = 0.0, 0
     for graph, aux in loader:
-        total += float(fns.train_step(params, graph, aux.get("hierarchy"),
-                                      generator))
+        with annotate("aero.step"):
+            loss = fns.train_step(params, graph, aux.get("hierarchy"),
+                                  generator)
+            with annotate("aero.step.sync"):
+                total += float(loss)
         count += 1
     return total / max(count, 1)
 
@@ -117,7 +127,10 @@ def run_epoch_train(fns: StepFns, params, loader: Loader,
 def run_epoch_eval(fns: StepFns, params, loader: Loader) -> float:
     total, count = 0.0, 0
     for graph, aux in loader:
-        total += float(fns.eval_step(params, graph, aux.get("hierarchy")))
+        with annotate("aero.step"):
+            loss = fns.eval_step(params, graph, aux.get("hierarchy"))
+            with annotate("aero.step.sync"):
+                total += float(loss)
         count += 1
     return total / max(count, 1)
 

@@ -12,6 +12,7 @@ from aero_gnn_tpu.graph import padded as JP
 from aero_gnn_tpu.ops import pallas_fused as PF
 from aero_gnn_tpu_torch.graph import padded as TP
 from aero_gnn_tpu_torch.ops import hopper_fused as HF
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 RTOL, ATOL = 2e-4, 2e-5  # fp32 CPU bar (tests/test_reference_parity.py)
 H = 32
@@ -49,9 +50,9 @@ def _case(n_hidden, seed=5):
 @pytest.mark.parametrize("n_hidden", [0, 2])
 def test_fused_edge_plain_matches_jax(n_hidden):
     jargs, targs, N, real = _case(n_hidden)
-    HF.fused_edge_layer.launches = 0
+    PR.reset_counters()
     e2, agg = HF.fused_edge_layer(*targs, N, "relu")
-    assert HF.fused_edge_layer.launches == 0  # CPU tensors: plain version
+    assert PR.counters().get("launch.K1", 0) == 0  # CPU tensors: plain version
     e2, agg = e2.numpy(), agg.numpy()
 
     e_ref, agg_ref = PF._equiv(*jargs, num_nodes=N)

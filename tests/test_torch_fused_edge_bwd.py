@@ -15,6 +15,7 @@ from aero_gnn_tpu.graph import padded as JP
 from aero_gnn_tpu.ops import pallas_fused as PF
 from aero_gnn_tpu_torch.graph import padded as TP
 from aero_gnn_tpu_torch.ops import hopper_fused as HF
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 # atol scales with the leaf: weight gradients sum thousands of fp32 rows of
 # order 1 (values ~1e2), where the summation order alone moves ~2e-5
@@ -82,11 +83,11 @@ def test_fused_edge_grads_match_jax(n_hidden, reference):
                               ct_e, ct_agg)
     leaves = [t.clone().requires_grad_() if i in DIFF else t
               for i, t in enumerate(targs)]
-    HF.fused_edge_layer.launches = HF.fused_edge_layer_bwd.launches = 0
+    PR.reset_counters()
     e2, agg = HF.fused_edge_layer_autograd(*leaves, N)
     torch.autograd.backward((e2, agg), (torch.from_numpy(ct_e),
                                         torch.from_numpy(ct_agg)))
-    assert HF.fused_edge_layer_bwd.launches == 0  # CPU: plain version
+    assert PR.counters().get("launch.K2", 0) == 0  # CPU: plain version
     real = targs[3].numpy() > 0  # pad-edge rows of e' are never observed
     np.testing.assert_allclose(e2.detach().numpy()[real], out[0][real],
                                rtol=RTOL, atol=ATOL)

@@ -10,6 +10,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from aero_gnn_tpu.ops import pallas_node as PN
 from aero_gnn_tpu_torch.ops import hopper_node as HN
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 RTOL, ATOL = 2e-4, 2e-5  # fp32 CPU bar (tests/test_reference_parity.py)
 H = 32
@@ -26,9 +27,9 @@ def test_fused_node_plain_matches_jax(n_hidden):
               f(H, H, scale=0.2), f(H, scale=0.1), f(n_hidden, H, H, scale=0.2),
               f(n_hidden, H, scale=0.1), f(H, H, scale=0.2), f(H, scale=0.1),
               1 + f(H, scale=0.1), f(H, scale=0.1)]
-    HN.fused_node_layer.launches = 0
+    PR.reset_counters()
     out = HN.fused_node_layer(*map(torch.from_numpy, arrays)).numpy()
-    assert HN.fused_node_layer.launches == 0  # CPU tensors: plain version
+    assert PR.counters().get("launch.K3", 0) == 0  # CPU tensors: plain version
 
     jargs = list(map(jnp.asarray, arrays))
     ref = np.asarray(PN._equiv(*jargs))

@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from aero_gnn_tpu.ops import pallas_node as PN
 from aero_gnn_tpu_torch.ops import hopper_node as HN
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 # atol scales with the leaf: weight gradients sum thousands of fp32 rows of
 # order 1 (values ~1e2), where the summation order alone moves ~2e-5
@@ -45,10 +46,10 @@ def test_fused_node_grads_match_jax(n_hidden, reference):
         value, vjp = jax.vjp(fn, *jargs)
         ref = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
     leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
-    HN.fused_node_layer.launches = HN.fused_node_layer_bwd.launches = 0
+    PR.reset_counters()
     out = HN.fused_node_layer_autograd(*leaves)
     out.backward(torch.from_numpy(ct))
-    assert HN.fused_node_layer_bwd.launches == 0  # CPU: plain version
+    assert PR.counters().get("launch.K4", 0) == 0  # CPU: plain version
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(value),
                                rtol=RTOL, atol=ATOL)
     for name, leaf, r in zip(NAMES, leaves, ref):

@@ -34,6 +34,7 @@ from aero_gnn_tpu_torch.ops import hopper_fused as HF
 from aero_gnn_tpu_torch.ops import hopper_mega as HM
 from aero_gnn_tpu_torch.ops import hopper_node as HN
 from aero_gnn_tpu_torch.training import loop as TL
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 # the JAX package's own tolerance for its single-kernel layer against the
 # composition (tests/test_pallas.py TestFusedMGNLayer), fp32
@@ -115,11 +116,12 @@ def test_mega_forward_deep_matches_jax(graphs):
                                                              x)),
                                           jb.edge_mask, jb.receivers,
                                           ep, npar, N)
-    HM.fused_mgn_layer.launches = 0
+    PR.reset_counters()
     x2, e2, agg = HM.fused_mgn_layer(*map(_torch, (e, sg, d_proj, x)),
                                      tb.edge_mask, tb.receivers,
                                      _torch(ep), _torch(npar), N)
-    assert HM.fused_mgn_layer.launches == 0  # CPU tensors: plain version
+    # CPU tensors: plain version
+    assert PR.counters().get("launch.K9-fwd", 0) == 0
     real = tb.edge_mask.numpy() > 0
     np.testing.assert_allclose(x2.numpy(), np.asarray(x_ref), rtol=TOL,
                                atol=TOL)

@@ -18,6 +18,7 @@ from aero_gnn_tpu.ops import scatter as JS
 from aero_gnn_tpu_torch import ops as tops
 from aero_gnn_tpu_torch.graph import padded as TP
 from aero_gnn_tpu_torch.ops import hopper_segment as HS
+from aero_gnn_tpu_torch.utils import profiling as PR
 
 RTOL, ATOL = 1e-4, 1e-5
 D = 16
@@ -140,11 +141,11 @@ def test_aligned_aggregation_matches_pallas_segment_kernel(aggregation):
             jnp.asarray(msgs))
         (dm_ref,) = vjp(jnp.asarray(ct))
     mt = torch.from_numpy(msgs).requires_grad_()
-    HS.segment_sum.launches = 0
+    PR.reset_counters()
     got = tops.aggregate_edges(mt, tb.receivers, n, aggregation=aggregation,
                                edge_mask=tb.edge_mask, aligned=True)
     got.backward(torch.from_numpy(ct))
-    assert HS.segment_sum.launches == 0  # CPU tensors: plain version
+    assert PR.counters().get("launch.K5", 0) == 0  # CPU tensors: plain version
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(mt.grad.numpy(), np.asarray(dm_ref),

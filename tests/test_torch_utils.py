@@ -1,9 +1,9 @@
 """Port parity for utils/: the JAX package's tests/test_utils.py cases
-(graph statistics, the diagnostic plots, the throughput meter, the memory
-stats) against its functions on the same inputs, the port's trace and
-annotate, and the reference checkpoint import: a state_dict in the
-reference framework's key layout, written with torch.save from a JAX
-parameter tree, converted by both packages."""
+(graph statistics, the diagnostic plots, the memory stats) against its
+functions on the same inputs, the port's trace and annotate, and the
+reference checkpoint import: a state_dict in the reference framework's key
+layout, written with torch.save from a JAX parameter tree, converted by
+both packages."""
 
 import os
 
@@ -54,24 +54,6 @@ def test_plot_graph_sparsity_writes_files(tmp_path):
         out[tag] = open(base + "_statistics.txt").read()
     assert "num_nodes: 30" in out["port"]
     assert out["port"] == out["jax"]
-
-
-def test_throughput_meter(monkeypatch):
-    """The same tick times give both packages' meters the same summary."""
-    clock = iter(np.cumsum(np.full(20, 0.25)).tolist() * 2)
-    monkeypatch.setattr(TPR.time, "perf_counter", lambda: next(clock))
-    summaries = []
-    for mod in (TPR, JPR):
-        m = mod.Throughput(edges_per_step=1000, nodes_per_step=100,
-                           window=8)
-        assert m.summary()["steps_per_s"] == 0.0
-        for _ in range(20):
-            m.tick()
-        assert m.total_steps == 20
-        summaries.append(m.summary())
-    assert summaries[0] == summaries[1]
-    assert summaries[0]["steps_per_s"] == pytest.approx(4.0)
-    assert summaries[0]["edges_per_s"] == pytest.approx(4000.0)
 
 
 def test_device_memory_stats_cpu_is_none():
