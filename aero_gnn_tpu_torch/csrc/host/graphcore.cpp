@@ -7,11 +7,20 @@
 // ABI consumed via ctypes (aero_gnn_tpu_torch/graph/native.py); the numpy
 // versions stay as the plain versions the tests compare against.
 //
+// A fifth entry point, gc_balance_slots, is the BSMS hierarchy's greedy
+// degree-balanced relabelling of coarse nodes (graph/hierarchy.py
+// align_hierarchy); its plain version is graph/hierarchy.py
+// _balance_block_slots_ref, a Python heap loop.
+//
 // Build: g++ -O3 -std=c++17 -shared -fPIC at first use
 // (aero_gnn_tpu_torch/ops/_build.py host_library).
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <queue>
+#include <utility>
 #include <vector>
 
 extern "C" {
@@ -100,6 +109,50 @@ int64_t gc_align_blocks(const int32_t* receivers, int64_t num_edges,
   }
   if (out_num_tiles != nullptr) *out_num_tiles = tile;
   return slot;
+}
+
+// Greedy block balance: a slot in [0, n_blocks * nb) for each of n weighted
+// items so that per-block weight sums are even. Items are taken heaviest
+// first, ties in index order; each goes to the block with the least
+// (load, block id) among the blocks with room, and takes that block's next
+// slot. Loads are double sums in the order items arrive. The last slot of
+// the last block is left free when reserve_last. Returns 0, or -1 (nothing
+// written) when the items exceed the capacity.
+int32_t gc_balance_slots(const double* weights, int64_t n, int32_t n_blocks,
+                         int32_t nb, int32_t reserve_last,
+                         int64_t* slots_out) {
+  std::vector<int64_t> cap(static_cast<size_t>(n_blocks), nb);
+  if (reserve_last && n_blocks > 0) cap[n_blocks - 1] -= 1;
+  int64_t total = 0;
+  for (int64_t c : cap) total += c;
+  if (n > total) return -1;
+
+  std::vector<int64_t> order(static_cast<size_t>(n));
+  for (int64_t i = 0; i < n; ++i) order[i] = i;
+  std::stable_sort(order.begin(), order.end(), [weights](int64_t a,
+                                                         int64_t b) {
+    return weights[a] > weights[b];
+  });
+
+  using Entry = std::pair<double, int32_t>;  // (load, block): a min-heap
+  std::vector<Entry> init;
+  init.reserve(static_cast<size_t>(n_blocks));
+  for (int32_t b = 0; b < n_blocks; ++b) init.emplace_back(0.0, b);
+  std::priority_queue<Entry, std::vector<Entry>, std::greater<Entry>> heap(
+      std::greater<Entry>(), std::move(init));
+  std::vector<int64_t> count(static_cast<size_t>(n_blocks), 0);
+  for (int64_t i : order) {
+    Entry top = heap.top();
+    heap.pop();
+    while (count[top.second] >= cap[top.second]) {  // a block of no room
+      top = heap.top();
+      heap.pop();
+    }
+    int32_t b = top.second;
+    slots_out[i] = static_cast<int64_t>(b) * nb + count[b];
+    if (++count[b] < cap[b]) heap.emplace(top.first + weights[i], b);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@ Every batch of one loader shares one padded shape. Samples are joined by
 (CUDA unless ``"cpu"``). For BSMS models (``num_scales > 1``) each
 sample's hierarchy is built once and cached, then collated per batch with
 coarse-id offsets (``graph.hierarchy.collate_hierarchies``) and, with the
-aligned layout, block-aligned at every level (``align_hierarchy``).
+aligned layout, block-aligned at every level (``align_hierarchy``; the
+Loader calls their host-array forms, which copy each level to the device
+once).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from aero_gnn_tpu_torch.graph.padded import (
     batch_graphs,
     bucket_size,
 )
-from aero_gnn_tpu_torch.utils.profiling import annotate
+from aero_gnn_tpu_torch.utils.profiling import annotate, count
 
 
 def sample_to_dict(s: MeshSample) -> Dict[str, np.ndarray]:
@@ -189,25 +191,30 @@ class Loader:
 
     def _levels(self, idx, amap) -> List[H.HierarchyLevel]:
         """The batch's hierarchy: collated, then (aligned layout) aligned at
-        every level; a batch beyond the PadSpec's balanced coarse-edge
-        budget is realigned with per-batch sizes, with a warning."""
+        every level on the host and copied to the device once; a batch
+        beyond the PadSpec's balanced coarse-edge budget is realigned with
+        per-batch sizes, with a warning (counter ``hierarchy.realigned``)."""
         spec = self.pad_spec
-        with annotate("aero.hierarchy.collate"):
-            levels = H.collate_hierarchies(
-                [self._hier[i] for i in idx],
-                num_fine_nodes_pad=spec.num_nodes_pad,
-                num_fine_edges_pad=spec.num_edges_pad,
-                pad_plan=spec.hierarchy_pad_plan, device="cpu")
+        collate_kw = dict(num_fine_nodes_pad=spec.num_nodes_pad,
+                          num_fine_edges_pad=spec.num_edges_pad,
+                          pad_plan=spec.hierarchy_pad_plan)
+        per_sample = [self._hier[i] for i in idx]
         if amap is None:
+            with annotate("aero.hierarchy.collate"):
+                levels = H.collate_hierarchies(per_sample, **collate_kw,
+                                               device="cpu")
             with annotate("aero.hierarchy.to_device"):
                 return [lv.to(self.device) for lv in levels]
+        with annotate("aero.hierarchy.collate"):
+            host = H._collate_host(per_sample, **collate_kw)
         with annotate("aero.hierarchy.align"):
             try:
-                return H.align_hierarchy(
-                    levels, amap,
+                return H._align_host(
+                    host, amap,
                     edge_pad_targets=spec.hierarchy_aligned_edges,
                     device=self.device)
             except ValueError:
                 warnings.warn("hierarchy aligned-edge budget exceeded; "
                               "realigning this batch with per-batch sizes")
-                return H.align_hierarchy(levels, amap, device=self.device)
+                count("hierarchy.realigned")
+                return H._align_host(host, amap, device=self.device)

@@ -17,7 +17,11 @@ fields, float32 weights and masks, as the JAX package stores them) plus
 host ints. The functions that make tensors take ``device`` (CUDA unless
 ``"cpu"``). ``align_hierarchy`` block-aligns every level for the fused
 kernels, as ``graph.padded.build_graph_batch(align_edges=True)`` does the
-fine graph.
+fine graph. The per-batch collation and alignment run on numpy arrays and
+the port's native host graph core (``graph.native``): the greedy block
+balance (``native.balance_slots``; the plain version
+``_balance_block_slots_ref``) and the stable sorts of bounded int32 keys.
+A level's arrays stay on the host until its one copy to the device.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from aero_gnn_tpu_torch.device import DeviceLike, resolve_device
+from aero_gnn_tpu_torch.graph import native
 from aero_gnn_tpu_torch.graph.padded import (
     ALIGN_EDGE_TILE,
     ALIGN_NODE_BLOCK,
@@ -40,7 +45,7 @@ from aero_gnn_tpu_torch.graph.padded import (
     chunk_plan,
     sort_edges_by_receiver,
 )
-from aero_gnn_tpu_torch.utils.profiling import annotate
+from aero_gnn_tpu_torch.utils.profiling import annotate, count
 
 _INT_FIELDS = ("fine_to_coarse", "edge_to_coarse", "senders", "receivers",
                "sender_perm", "senders_sorted", "node_graph", "tile_block",
@@ -131,26 +136,45 @@ def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.detach().cpu().numpy()
 
 
-def _level(device: torch.device, **fields) -> HierarchyLevel:
-    """A HierarchyLevel from numpy fields: index fields int32, the rest
-    float32, on ``device``."""
+def _host(**fields) -> dict:
+    """Level fields on the host as a HierarchyLevel stores them: numpy
+    index fields int32, the other arrays float32, contiguous (a cast only
+    where the dtype differs); other values as given."""
     out = {}
     for k, v in fields.items():
         if isinstance(v, np.ndarray):
             dt = np.int32 if k in _INT_FIELDS else np.float32
-            v = torch.from_numpy(np.ascontiguousarray(v.astype(dt))).to(
-                device)
+            v = np.ascontiguousarray(v.astype(dt, copy=False))
         out[k] = v
-    return HierarchyLevel(**out)
+    return out
+
+
+def _to_level(device: torch.device, host: dict) -> HierarchyLevel:
+    """A HierarchyLevel on ``device`` from ``_host`` fields: one copy of
+    each array."""
+    return HierarchyLevel(**{
+        k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray) else v
+        for k, v in host.items()})
+
+
+def _level(device: torch.device, **fields) -> HierarchyLevel:
+    """A HierarchyLevel from numpy fields: index fields int32, the rest
+    float32, on ``device``."""
+    return _to_level(device, _host(**fields))
+
+
+def _fields(level: HierarchyLevel) -> dict:
+    """Every field of ``level``, its tensors as host numpy arrays."""
+    out = {}
+    for f in dataclasses.fields(level):
+        v = getattr(level, f.name)
+        out[f.name] = _np(v) if isinstance(v, torch.Tensor) else v
+    return out
 
 
 def _replace(level: HierarchyLevel, **fields) -> HierarchyLevel:
     """dataclasses.replace with numpy fields converted as in _level."""
-    kw = {f.name: getattr(level, f.name) for f in dataclasses.fields(level)}
-    kw = {k: (_np(v) if isinstance(v, torch.Tensor) else v)
-          for k, v in kw.items()}
-    kw.update(fields)
-    return _level(level.device, **kw)
+    return _level(level.device, **{**_fields(level), **fields})
 
 
 # ---------------------------------------------------------------------------
@@ -168,21 +192,27 @@ def _pool_live(ids_sorted: np.ndarray, coarse_mask: np.ndarray) -> int:
     return int(np.searchsorted(ids_sorted, n - 1))
 
 
+def _pool_fields(host: dict) -> dict:
+    """The sorted-pooling fields of a level's ``_host`` fields: the stable
+    argsorts of the final fine_to_coarse / edge_to_coarse, the rows of each
+    before its pad tail, and the unpool's chunk plan (its backward sums
+    every fine row, the pad tail's long run too, in chunks)."""
+    f2c, e2c = host["fine_to_coarse"], host["edge_to_coarse"]
+    node_mask, edge_mask = host["node_mask"], host["edge_mask"]
+    npp, chunk, chunk_node = chunk_plan(f2c, len(node_mask))
+    epp = native.argsort_i32(e2c, len(edge_mask))
+    nps, eps = f2c[npp].astype(np.int32), e2c[epp]
+    return dict(node_pool_perm=npp, node_pool_sorted=nps,
+                edge_pool_perm=epp, edge_pool_sorted=eps,
+                node_pool_live=_pool_live(nps, node_mask),
+                edge_pool_live=_pool_live(eps, edge_mask),
+                unpool_chunk=chunk, unpool_chunk_node=chunk_node)
+
+
 def with_pool_perms(level: HierarchyLevel) -> HierarchyLevel:
-    """Attach the sorted-pooling permutations (stable argsort of the final
-    fine_to_coarse / edge_to_coarse), the rows of each before its pad tail,
-    and the unpool's chunk plan (its backward sums every fine row, the pad
-    tail's long run too, in chunks)."""
-    f2c = _np(level.fine_to_coarse)
-    e2c = _np(level.edge_to_coarse)
-    npp, chunk, chunk_node = chunk_plan(f2c, level.num_coarse_nodes_pad)
-    epp = np.argsort(e2c, kind="stable").astype(np.int32)
-    nps, eps = f2c[npp].astype(np.int32), e2c[epp].astype(np.int32)
-    return _replace(level, node_pool_perm=npp, node_pool_sorted=nps,
-                    edge_pool_perm=epp, edge_pool_sorted=eps,
-                    node_pool_live=_pool_live(nps, _np(level.node_mask)),
-                    edge_pool_live=_pool_live(eps, _np(level.edge_mask)),
-                    unpool_chunk=chunk, unpool_chunk_node=chunk_node)
+    """Attach the sorted-pooling permutations, the rows of each before its
+    pad tail, and the unpool's chunk plan (``_pool_fields``)."""
+    return _replace(level, **_pool_fields(_fields(level)))
 
 
 def _geometric_weights(senders: np.ndarray, receivers: np.ndarray,
@@ -550,8 +580,20 @@ def collate_hierarchies(
     ids of sample g offset by the coarse counts of samples < g at every
     level; ``pad_plan[s] = (Nc_pad, Ec_pad)``."""
     dev = resolve_device(device)
+    return [_level(dev, **host, **_pool_fields(host))
+            for host in _collate_host(
+                per_sample, num_fine_nodes_pad=num_fine_nodes_pad,
+                num_fine_edges_pad=num_fine_edges_pad, pad_plan=pad_plan,
+                dtype=dtype)]
+
+
+def _collate_host(per_sample: List[List[dict]], *, num_fine_nodes_pad: int,
+                  num_fine_edges_pad: int, pad_plan: List[tuple],
+                  dtype=np.float32) -> List[dict]:
+    """collate_hierarchies' levels as ``_host`` fields, without the
+    sorted-pooling fields (``align_hierarchy`` builds its own)."""
     num_scales_m1 = len(per_sample[0])
-    out: List[HierarchyLevel] = []
+    out: List[dict] = []
     nf_pad, ef_pad = num_fine_nodes_pad, num_fine_edges_pad
     for s in range(num_scales_m1):
         nc_pad, ec_pad = pad_plan[s]
@@ -585,8 +627,10 @@ def collate_hierarchies(
                 "node_weights", np.ones(nf))[:nf]
             ew[fe_off:fe_off + ef] = lvl.get(
                 "edge_weights", np.ones(ef))[:ef]
-            rep_p[fn_off:fn_off + nf] = lvl.get(
-                "rep_mask", _rep_mask_first(lvl["fine_to_coarse"], nf))[:nf]
+            rep = lvl.get("rep_mask")
+            if rep is None:
+                rep = _rep_mask_first(lvl["fine_to_coarse"], nf)
+            rep_p[fn_off:fn_off + nf] = rep[:nf]
             cself_p[fn_off:fn_off + nf] = lvl.get(
                 "conv_self", np.ones(nf))[:nf]
             cedge_p[fe_off:fe_off + ef] = lvl.get(
@@ -604,14 +648,14 @@ def collate_hierarchies(
             raise ValueError(
                 f"hierarchy pad_plan level {s} too small: need "
                 f"({cn_off + 1}, {ce_off}), have ({nc_pad}, {ec_pad})")
-        sperm = np.argsort(cs_p, kind="stable").astype(np.int32)
-        out.append(with_pool_perms(_level(
-            dev, fine_to_coarse=f2c_p, edge_to_coarse=e2c_p, senders=cs_p,
+        sperm = native.argsort_i32(cs_p, nc_pad)
+        out.append(_host(
+            fine_to_coarse=f2c_p, edge_to_coarse=e2c_p, senders=cs_p,
             receivers=cr_p, sender_perm=sperm, senders_sorted=cs_p[sperm],
             node_mask=nm, edge_mask=em, node_graph=ng_p, n_node=cn_off,
             n_edge=ce_off, node_weights=nw, edge_weights=ew,
             rep_mask=rep_p, conv_self=cself_p, conv_edge=cedge_p,
-            conv_edge_t=cedge_t_p if all_sym else None)))
+            conv_edge_t=cedge_t_p if all_sym else None))
         nf_pad, ef_pad = nc_pad, ec_pad
     return out
 
@@ -683,9 +727,10 @@ def build_hierarchy(
     return levels
 
 
-def _balance_block_slots(weights: np.ndarray, n_blocks: int, nb: int,
-                         reserve_last: bool = True) -> np.ndarray:
-    """A slot in [0, n_blocks*nb) for each weighted item so that per-block
+def _balance_block_slots_ref(weights: np.ndarray, n_blocks: int, nb: int,
+                             reserve_last: bool = True) -> np.ndarray:
+    """The plain version of ``native.balance_slots`` (a Python heap loop):
+    a slot in [0, n_blocks*nb) for each weighted item so that per-block
     weight sums are balanced (greedy min-load, heaviest first); the last
     slot (the pad-edge sink) is reserved when ``reserve_last``."""
     n = len(weights)
@@ -735,6 +780,25 @@ def align_hierarchy(
     ``edge_pad_targets[s]`` optionally fixes the aligned coarse edge count
     of level s (a tile multiple at least the aligned stream's). The levels
     land on ``device`` (CUDA unless ``"cpu"``)."""
+    return _align_host([_fields(lv) for lv in levels], align_src0,
+                       edge_pad_targets=edge_pad_targets,
+                       balance_blocks=balance_blocks, device=device)
+
+
+def _align_host(
+    levels: List[dict],
+    align_src0: Optional[np.ndarray] = None,
+    *,
+    edge_pad_targets: Optional[List[int]] = None,
+    balance_blocks: bool = True,
+    device: DeviceLike = None,
+) -> List[HierarchyLevel]:
+    """align_hierarchy over levels given as ``_host`` fields (the
+    sorted-pooling fields may be absent: they are built anew). Reads its
+    inputs and writes none of them; each level's arrays are copied to
+    ``device`` once, at the end of its alignment. Counts
+    ``hierarchy.levels_balanced`` once for each level the balance
+    relabels."""
     dev = resolve_device(device)
     NB, ET = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
     out: List[HierarchyLevel] = []
@@ -742,17 +806,19 @@ def align_hierarchy(
     prev_node_map: Optional[np.ndarray] = None
     prev_nf_new: Optional[int] = None
     for s, level in enumerate(levels):
-        f2c = _np(level.fine_to_coarse)
-        e2c = _np(level.edge_to_coarse)
-        nw = _np(level.node_weights)
-        ew = _np(level.edge_weights)
-        has_conv = level.conv_edge is not None
-        rep = _np(level.rep_mask) if has_conv else np.zeros_like(nw)
-        cself = _np(level.conv_self) if has_conv else np.zeros_like(nw)
-        cedge = _np(level.conv_edge) if has_conv else np.zeros_like(ew)
-        cedge_t = _np(level.conv_edge_t)
-        nc_pad = level.num_coarse_nodes_pad
-        ec_pad = level.num_coarse_edges_pad
+        f2c = level["fine_to_coarse"]
+        e2c = level["edge_to_coarse"]
+        nw = level["node_weights"]
+        ew = level["edge_weights"]
+        has_conv = level["conv_edge"] is not None
+        rep = level["rep_mask"] if has_conv else np.zeros_like(nw)
+        cself = level["conv_self"] if has_conv else np.zeros_like(nw)
+        cedge = level["conv_edge"] if has_conv else np.zeros_like(ew)
+        cedge_t = level["conv_edge_t"]
+        node_mask = level["node_mask"]
+        node_graph = level["node_graph"]
+        nc_pad = len(node_mask)
+        ec_pad = len(level["edge_mask"])
 
         # ---- 1. re-index fine rows through the previous alignment ----
         if prev_src is not None:
@@ -784,8 +850,6 @@ def align_hierarchy(
 
         # ---- 2a. extend coarse node padding to a block multiple ----
         nc2 = max(_round_up(nc_pad, NB), NB)
-        node_mask = _np(level.node_mask)
-        node_graph = _np(level.node_graph)
         if nc2 != nc_pad:
             node_mask = np.concatenate(
                 [node_mask, np.zeros(nc2 - nc_pad, node_mask.dtype)])
@@ -794,10 +858,10 @@ def align_hierarchy(
                 [node_graph, np.full(nc2 - nc_pad, fill_g,
                                      node_graph.dtype)])
 
-        n_real = int(level.n_edge)
-        s_real = _np(level.senders)[:n_real].astype(np.int64)
-        r_real = _np(level.receivers)[:n_real].astype(np.int64)
-        nc_real = int(level.n_node)
+        n_real = int(level["n_edge"])
+        s_real = level["senders"][:n_real].astype(np.int64)
+        r_real = level["receivers"][:n_real].astype(np.int64)
+        nc_real = int(level["n_node"])
 
         # ---- 2b. degree-balanced coarse node relabelling ----
         node_map: Optional[np.ndarray] = None  # old coarse id -> new id
@@ -805,10 +869,12 @@ def align_hierarchy(
             deg = (np.bincount(r_real, minlength=nc_pad)
                    + np.bincount(s_real, minlength=nc_pad))
             node_map = np.empty(nc_pad, np.int64)
-            node_map[:nc_real] = _balance_block_slots(
+            node_map[:nc_real] = native.balance_slots(
                 deg[:nc_real].astype(np.float64), nc2 // NB, NB)
-            free = np.setdiff1d(np.arange(nc2, dtype=np.int64),
-                                node_map[:nc_real], assume_unique=False)
+            count("hierarchy.levels_balanced")
+            used = np.zeros(nc2, bool)
+            used[node_map[:nc_real]] = True
+            free = np.flatnonzero(~used)  # the unused slots, ascending
             take = nc_pad - nc_real
             node_map[nc_real:] = free[-take:] if take else free[:0]
             if nc_real >= nc_pad:
@@ -825,7 +891,8 @@ def align_hierarchy(
             nm2[node_map[:nc_real]] = 1.0
             ng2[node_map] = node_graph[:nc_pad]
             node_mask, node_graph = nm2, ng2
-            sort_perm = np.lexsort((s_real, r_real))
+            # np.lexsort((s_real, r_real))'s permutation
+            sort_perm = native.sort_edges_by_receiver(s_real, r_real, nc2)
             s_real = s_real[sort_perm]
             r_real = r_real[sort_perm]
         else:
@@ -867,7 +934,7 @@ def align_hierarchy(
         aligned_of_old[sort_perm] = new_rows
         e2c = aligned_of_old[np.clip(e2c, 0, ec_pad - 1)].astype(np.int32)
 
-        sperm = np.argsort(s_p, kind="stable").astype(np.int32)
+        sperm = native.argsort_i32(s_p, nc2)
         ssort = s_p[sperm]
         sperm, ssort, _ = _align_sender_stream(sperm, ssort, em, nc2)
 
@@ -881,9 +948,10 @@ def align_hierarchy(
             fields.update(rep_mask=rep, conv_self=cself, conv_edge=cedge)
             if cedge_t is not None:
                 fields["conv_edge_t"] = cedge_t
-        host_level = with_pool_perms(_replace(level, **fields))
+        host = _host(**{**level, **fields})
+        host.update(_pool_fields(host))
         with annotate("aero.hierarchy.to_device"):
-            out.append(host_level.to(dev))
+            out.append(_to_level(dev, host))
 
         # maps for the NEXT level's fine side
         prev_src = np.full(ec2, -1, np.int64)

@@ -3,15 +3,19 @@ aero_gnn_tpu.graph.native).
 
 ``csrc/host/graphcore.cpp`` is built with g++ at first use
 (``ops._build.host_library``, into the git-ignored ``_kernels_build/``); a
-failed build raises, there is no quiet fallback. Its four entry points are
-the O(E + N) counting sorts and the block alignment of the host path
-(``graph.padded``). The numpy versions they replace stay as the plain
-versions the tests hold them to: ``np.lexsort``, a stable ``np.argsort``,
-``np.searchsorted`` and ``graph.padded._align_edge_blocks_ref``.
+failed build raises, there is no quiet fallback. Four of its five entry
+points are the O(E + N) counting sorts and the block alignment of the host
+path (``graph.padded``, ``graph.hierarchy``); the fifth,
+``balance_slots``, is the BSMS hierarchy's greedy degree-balanced
+relabelling of coarse nodes (``graph.hierarchy.align_hierarchy``). The
+versions they replace stay as the plain versions the tests hold them to:
+``np.lexsort``, a stable ``np.argsort``, ``np.searchsorted``,
+``graph.padded._align_edge_blocks_ref`` and
+``graph.hierarchy._balance_block_slots_ref``.
 
-Every pointer handed to the library is a contiguous int32 / int64 array
-this module made; keys are checked against their bound first, since the
-counting sorts index their count arrays with them.
+Every pointer handed to the library is a contiguous int32 / int64 /
+float64 array this module made; keys and sizes are checked against their
+bound first, since the counting sorts index their count arrays with them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from aero_gnn_tpu_torch.ops import _build
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
 _SIGNATURES = {
     "gc_sort_edges_by_receiver": (
         [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32, _I32P], None),
@@ -35,6 +40,9 @@ _SIGNATURES = {
     "gc_align_blocks": (
         [_I32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
          ctypes.c_int32, _I32P, _I32P, _I32P, _I64P], ctypes.c_int64),
+    "gc_balance_slots": (
+        [_F64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int32, _I64P], ctypes.c_int32),
 }
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -46,7 +54,9 @@ def _function(symbol: str):
 
 
 def _ptr(a: np.ndarray):
-    return a.ctypes.data_as(_I32P if a.dtype == np.int32 else _I64P)
+    return a.ctypes.data_as({np.dtype(np.int32): _I32P,
+                             np.dtype(np.int64): _I64P,
+                             np.dtype(np.float64): _F64P}[a.dtype])
 
 
 def _bound(name: str, n: int) -> int:
@@ -130,3 +140,25 @@ def align_blocks(receivers_sorted: np.ndarray, num_nodes_pad: int,
        ctypes.byref(n_tiles))
     k = int(n_tiles.value)
     return rows, tile_block[:k], tile_first[:k]
+
+
+def balance_slots(weights: np.ndarray, n_blocks: int, nb: int,
+                  reserve_last: bool = True) -> np.ndarray:
+    """A slot in [0, n_blocks * nb) for each weighted item (int64) so that
+    per-block weight sums are balanced: greedy min-load, heaviest first,
+    the last slot (the pad-edge sink) reserved when ``reserve_last``;
+    ``graph.hierarchy._balance_block_slots_ref``'s slots. Raises ValueError
+    when the items exceed the capacity."""
+    n_blocks, nb = _bound("n_blocks", n_blocks), _bound("nb", nb)
+    if n_blocks < 1 or nb < 1 or n_blocks * nb > _I32_MAX:
+        raise ValueError(f"n_blocks={n_blocks} and nb={nb} must be positive "
+                         f"with n_blocks * nb <= {_I32_MAX}")
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    if w.ndim != 1 or not np.isfinite(w).all():
+        raise ValueError("weights must be a 1-D array of finite values")
+    slots = np.empty(len(w), dtype=np.int64)
+    if _function("gc_balance_slots")(_ptr(w), len(w), n_blocks, nb,
+                                     int(bool(reserve_last)), _ptr(slots)):
+        raise ValueError(f"balance: {len(w)} items exceed capacity "
+                         f"{n_blocks * nb - int(bool(reserve_last))}")
+    return slots

@@ -28,7 +28,11 @@ step and engine phases); counters are always on: ``graph.nodes``,
 ``graph.node_rows``, ``graph.edges``, ``graph.edge_rows`` (real against
 padded, per built batch) and ``launch.<kernel id>``
 (``launch.K1`` ... ``launch.K10``, ``launch.K1-save``, ``launch.K9-fwd``,
-``launch.K9-bwd``: launches of the hand-written kernels).
+``launch.K9-bwd``: launches of the hand-written kernels),
+``hierarchy.levels_balanced`` (BSMS levels the block balance relabels,
+``graph.hierarchy.align_hierarchy``) and ``hierarchy.realigned`` (Loader
+batches over the PadSpec's aligned coarse-edge budget, aligned again with
+per-batch sizes).
 """
 
 from __future__ import annotations

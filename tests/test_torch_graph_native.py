@@ -3,8 +3,10 @@ csrc/host/graphcore.cpp) against the numpy plain versions and the JAX
 package's aero_gnn_tpu.graph.native, bit for bit, on random graphs with
 and without edges, one node, sparse ids and a mesh; build_graph_batch's
 batches equal with the graph core and with the numpy paths
-(padded.sort_edges_by_receiver_ref, padded._align_edge_blocks_ref); keys
-outside their bound refused; a build that fails raises."""
+(padded.sort_edges_by_receiver_ref, padded._align_edge_blocks_ref); the
+greedy block balance slot for slot against hierarchy's plain version and
+the JAX package's; keys and sizes outside their bound refused; a build
+that fails raises."""
 
 import dataclasses
 import time
@@ -13,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from aero_gnn_tpu.graph import hierarchy as jhierarchy
 from aero_gnn_tpu.graph import native as jnative
 from aero_gnn_tpu_torch.data import dataset as D
 from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
-from aero_gnn_tpu_torch.graph import native, padded
+from aero_gnn_tpu_torch.graph import hierarchy, native, padded
 from aero_gnn_tpu_torch.ops import _build
 
 # name: (nodes, edges); the ids are drawn from [0, nodes)
@@ -148,6 +151,57 @@ def test_keys_outside_their_bound_are_refused():
         native.argsort_i32(s, 3)
     with pytest.raises(ValueError):
         native.align_blocks(np.sort(s), 8, 4, 0)
+
+
+def _balance_case(name):
+    """(weights, n_blocks, nb, reserve_last) of a balance case."""
+    rng = np.random.default_rng(7)
+    if name == "random_degrees":
+        return rng.integers(1, 40, 900).astype(np.float64), 16, 64, True
+    if name == "all_equal":  # every pick a tie of load and of weight
+        return np.full(500, 6.0), 9, 64, True
+    if name == "one_block":
+        return rng.integers(0, 12, 200).astype(np.float64), 1, 256, True
+    if name == "nb1_reserve_last":  # the last block has no room at all
+        return rng.integers(0, 5, 11).astype(np.float64), 12, 1, True
+    if name == "exactly_full":
+        return rng.integers(0, 9, 8 * 32).astype(np.float64), 8, 32, False
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["random_degrees", "all_equal", "one_block",
+                                  "nb1_reserve_last", "exactly_full"])
+def test_balance_slots(name):
+    w, n_blocks, nb, reserve = _balance_case(name)
+    got = native.balance_slots(w, n_blocks, nb, reserve)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(
+        got, hierarchy._balance_block_slots_ref(w, n_blocks, nb, reserve))
+    np.testing.assert_array_equal(
+        got, jhierarchy._balance_block_slots(w, n_blocks, nb, reserve))
+    assert len(np.unique(got)) == len(w)
+    assert got.min(initial=0) >= 0
+    assert got.max(initial=0) < n_blocks * nb - int(reserve)
+
+
+def test_balance_slots_over_capacity_raises():
+    with pytest.raises(ValueError, match="exceed capacity"):
+        native.balance_slots(np.ones(8), 2, 4, True)
+    with pytest.raises(ValueError, match="exceed capacity"):
+        hierarchy._balance_block_slots_ref(np.ones(8), 2, 4, True)
+    assert len(native.balance_slots(np.ones(8), 2, 4, False)) == 8
+
+
+def test_balance_slots_sizes_outside_their_bound_are_refused():
+    w = np.ones(3)
+    for n_blocks, nb in [(-1, 4), (2, -4), (0, 4), (2, 0),
+                         (2 ** 31, 1), (2 ** 16, 2 ** 16)]:
+        with pytest.raises(ValueError):
+            native.balance_slots(w, n_blocks, nb)
+    for bad in (np.array([1.0, np.nan, 2.0]), np.array([np.inf]),
+                np.ones((2, 2))):
+        with pytest.raises(ValueError):
+            native.balance_slots(bad, 4, 4)
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

@@ -1,10 +1,14 @@
 """Port parity for the BSMS hierarchies: every array of the port's
 graph.hierarchy builders, of align_hierarchy and of the Loader's batches is
 bit-equal (np.array_equal, same int32 / float32 dtypes) to the JAX
-package's, for the stride and bistride modes and one and two samples; and
-the pad-tail invariant the kernels rely on holds on every stream."""
+package's, for the stride and bistride modes and one and two samples; the
+Loader's aligned levels on the native graph core equal the plain path's
+(numpy sorts, the Python block balance, collation's own permutations) at
+8,192 nodes, the realigned batch too; and the pad-tail invariant the
+kernels rely on holds on every stream."""
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from aero_gnn_tpu_torch.data import dataset as TD
 from aero_gnn_tpu_torch.data import synthetic as TS
 from aero_gnn_tpu_torch.graph import hierarchy as TH
 from aero_gnn_tpu_torch.graph import padded as TP
+from aero_gnn_tpu_torch.utils import profiling
 
 SIZES = (600, 850)
 
@@ -168,6 +173,93 @@ def test_loader_hierarchy_matches_jax(mode, align):
                                               np.asarray(getattr(jg, name)))
             assert_levels_equal(taux["hierarchy"], jaux["hierarchy"],
                                 f"loader {mode} align={align} bs={bs}")
+
+
+def _plain_levels(self, idx, amap):
+    """The Loader's aligned hierarchy the plain way: collated with the
+    collation's own sorted-pool permutations (which the alignment then
+    builds anew), aligned through the public align_hierarchy."""
+    spec = self.pad_spec
+    levels = TH.collate_hierarchies(
+        [self._hier[i] for i in idx], num_fine_nodes_pad=spec.num_nodes_pad,
+        num_fine_edges_pad=spec.num_edges_pad,
+        pad_plan=spec.hierarchy_pad_plan, device="cpu")
+    try:
+        return TH.align_hierarchy(
+            levels, amap, edge_pad_targets=spec.hierarchy_aligned_edges,
+            device="cpu")
+    except ValueError:
+        warnings.warn("hierarchy aligned-edge budget exceeded; realigning")
+        return TH.align_hierarchy(levels, amap, device="cpu")
+
+
+def _aligned_batches(samples, bs, pad_spec=None):
+    """(every batch's hierarchy, counters of the pass) of an aligned
+    bistride Loader."""
+    loader = TB.Loader(samples, bs, num_scales=3, hierarchy_mode="bistride",
+                       align_edges=True, pad_spec=pad_spec, device="cpu")
+    profiling.reset_counters()
+    out = [aux["hierarchy"] for _, aux in loader]
+    return out, {k: v for k, v in profiling.counters().items()
+                 if k.startswith("hierarchy.")}
+
+
+def _over_budget(samples):
+    """A PadSpec whose level-0 aligned coarse-edge budget is one tile, so
+    every batch takes the realign path."""
+    spec = TB.Loader(samples, 1, num_scales=3, hierarchy_mode="bistride",
+                     align_edges=True, device="cpu").pad_spec
+    return dataclasses.replace(spec, hierarchy_aligned_edges=[
+        TP.ALIGN_EDGE_TILE] + spec.hierarchy_aligned_edges[1:])
+
+
+def test_loader_native_alignment_equals_plain(monkeypatch):
+    samples = [TS.make_random_mesh_sample(n_nodes=8192, seed=21 + i)
+               for i in range(2)]
+    TD.compute_features(samples, ["mach", "alpha"])
+    over = _over_budget(samples[:1])
+    runs = {}
+    for plain in (False, True):
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(TH.native, "balance_slots",
+                          TH._balance_block_slots_ref)
+                m.setattr(TH.native, "sort_edges_by_receiver",
+                          lambda s, r, n: np.lexsort((s, r)))
+                m.setattr(TH.native, "argsort_i32",
+                          lambda k, n: np.argsort(k, kind="stable")
+                          .astype(np.int32))
+                m.setattr(TB.Loader, "_levels", _plain_levels)
+            bs1 = _aligned_batches(samples, 1)
+            bs2 = _aligned_batches(samples, 2)
+            with pytest.warns(UserWarning, match="budget exceeded"):
+                realign = _aligned_batches(samples[:1], 1, over)
+            runs[plain] = dict(bs1=bs1, bs2=bs2, realign=realign)
+    for case, (levels, counts) in runs[False].items():
+        plain_levels, _ = runs[True][case]
+        assert len(levels) == len(plain_levels) >= 1, case
+        for b, (got, ref) in enumerate(zip(levels, plain_levels)):
+            assert len(got) == len(ref) == 2
+            for s, (g, r) in enumerate(zip(got, ref)):
+                tag = f"{case} batch {b} level {s}"
+                assert g.edges_aligned, tag
+                for f in dataclasses.fields(r):
+                    a, e = getattr(g, f.name), getattr(r, f.name)
+                    if isinstance(e, torch.Tensor):
+                        assert a.dtype == e.dtype and torch.equal(a, e), \
+                            (tag, f.name)
+                    else:
+                        assert a == e, (tag, f.name)
+    # several node blocks a level, so the balance has blocks to choose
+    lv = runs[False]["bs2"][0][0]
+    assert all(v.num_coarse_nodes_pad // TP.ALIGN_NODE_BLOCK >= 4
+               for v in lv)
+    # each batch balances its 2 levels; the realigned batch balanced level
+    # 0 once before its budget failed, then both levels again
+    assert runs[False]["bs1"][1] == {"hierarchy.levels_balanced": 4}
+    assert runs[False]["bs2"][1] == {"hierarchy.levels_balanced": 2}
+    assert runs[False]["realign"][1] == {"hierarchy.levels_balanced": 3,
+                                         "hierarchy.realigned": 1}
 
 
 def _check_tail(senders_sorted, sender_perm, receivers, edge_mask, sink,
