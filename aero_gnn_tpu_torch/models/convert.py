@@ -12,6 +12,8 @@ MGN tree over the expanded input; poolMGN's adds ``"global_encoder"``;
 of ``"layers"``; MGNv2's is ``{"node_encoder", "edge_encoder",
 "global_encoder", "global_linout": {"w", "b"}, "layers": {"edge_mlp",
 "node_mlp"} stacked, "decoder"}``; MLPNet's ``{"encoder", "decoder"}``.
+Transolver, which the JAX package lacks, is kept as ``{parameter name:
+array}`` in the port's names.
 Weights are [in, out] in both packages, so each leaf is an exact copy.
 """
 
@@ -25,6 +27,7 @@ from aero_gnn_tpu_torch.models.bsms import BSMSConfig
 from aero_gnn_tpu_torch.models.mgn_v2 import MGNv2Config
 from aero_gnn_tpu_torch.models.mlpnet import MLPNetConfig
 from aero_gnn_tpu_torch.models.poolmgn import PoolMGNConfig
+from aero_gnn_tpu_torch.models.transolver import TransolverConfig
 from aero_gnn_tpu_torch.nn import blocks as B
 from aero_gnn_tpu_torch.nn import mlp as M
 
@@ -103,6 +106,14 @@ def params_from_jax(tree, cfg, *, device: DeviceLike = None):
     """Port parameters equal to a JAX ``cfg.init`` tree (any config of
     ``models.registry``), on ``device``."""
     params = cfg.init(0, device="cpu")
+    if isinstance(cfg, TransolverConfig):
+        named = dict(params.named_parameters())
+        if set(tree) != set(named):
+            raise ValueError("Transolver parameters differ: "
+                             f"{sorted(set(tree) ^ set(named))[:5]}")
+        for name, p in named.items():
+            _put(p, tree[name], name)
+        return params.to(resolve_device(device))
     if isinstance(cfg, MLPNetConfig):
         load_mlp(params.encoder, tree["encoder"], "encoder")
         load_mlp(params.decoder, tree["decoder"], "decoder")
@@ -197,6 +208,8 @@ def params_to_jax(params, cfg, *, grads: bool = False):
     """The port's parameters (``grads=True``: their ``.grad``, zeros where
     there is none) as the JAX package's ``cfg.init`` tree of float32 numpy
     arrays, processor layers stacked on the leading axis."""
+    if isinstance(cfg, TransolverConfig):
+        return {n: _get(p, grads) for n, p in params.named_parameters()}
     if isinstance(cfg, MLPNetConfig):
         return {"encoder": _mlp_tree(params.encoder, grads),
                 "decoder": _mlp_tree(params.decoder, grads)}

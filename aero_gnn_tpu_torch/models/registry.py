@@ -1,6 +1,6 @@
 """Model registry: build a model config from the experiment's model dict
 (counterpart of aero_gnn_tpu.models.registry, with the same names, aliases,
-keys and defaults).
+keys and defaults), and the port's own ``transolver``.
 
 ``build_model({"name": "fouriermgn", ...}, dims)`` returns the config
 (``dims``: input_node_dim, input_edge_dim, output_node_dim); its
@@ -11,6 +11,7 @@ keys and defaults).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 from aero_gnn_tpu_torch.models.bsms import BSMSConfig
@@ -19,6 +20,7 @@ from aero_gnn_tpu_torch.models.mgn import MGNConfig
 from aero_gnn_tpu_torch.models.mgn_v2 import MGNv2Config
 from aero_gnn_tpu_torch.models.mlpnet import MLPNetConfig
 from aero_gnn_tpu_torch.models.poolmgn import PoolMGNConfig
+from aero_gnn_tpu_torch.models.transolver import TransolverConfig
 
 # model kinds whose apply takes a graph hierarchy (the Loader's
 # aux["hierarchy"], num_scales > 1)
@@ -31,6 +33,8 @@ _ALIASES = {
     "poolmgn": ("poolmgn",),
     "fouriermgn": ("fouriermgn", "fourier_mgn"),
     "mgn_v2": ("trial1", "mgn_v2", "meshgraphnet_v2"),
+    # the port's own: no counterpart in the JAX package
+    "transolver": ("transolver",),
 }
 
 
@@ -113,6 +117,14 @@ def build_model(model_config: Dict[str, Any], dims: Dict[str, int]):
                 "num_hidden_layers_global_encoder", 1),
             global_dim=mc.get("global_dim", 128),
         )
+    if kind == "transolver":
+        # the keys the section sets; the dataclass holds the defaults
+        keys = {f.name for f in dataclasses.fields(TransolverConfig)}
+        return TransolverConfig(
+            input_node_dim=dims["input_node_dim"],
+            output_node_dim=dims["output_node_dim"],
+            **{k: v for k, v in mc.items() if k in keys - {
+                "input_node_dim", "output_node_dim"}})
     if kind == "fouriermgn":
         return FourierMGNConfig(
             **_mgn_kwargs(mc, dims),

@@ -65,6 +65,7 @@ def layer_norm_apply(ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:
 _ACTIVATIONS = {
     "relu": F.relu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu default
+    "gelu_exact": F.gelu,  # the erf form, torch.nn.GELU's default
     "silu": F.silu,
     "swish": F.silu,
     "tanh": torch.tanh,

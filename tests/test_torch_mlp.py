@@ -44,3 +44,15 @@ def test_linear_init_bounds_and_generator():
 def test_unknown_activation_raises():
     with pytest.raises(ValueError, match="Unsupported activation"):
         TM.activation_fn("softplus2")
+
+
+def test_gelu_exact_is_the_erf_gelu():
+    """"gelu_exact" is torch's erf GELU (torch.nn.GELU's default, the
+    published Transolver's); "gelu" stays jax.nn.gelu's tanh form."""
+    x = torch.linspace(-6.0, 6.0, 1001)
+    assert torch.equal(TM.activation_fn("gelu_exact")(x),
+                       torch.nn.functional.gelu(x))
+    assert torch.equal(TM.activation_fn("gelu")(x),
+                       torch.nn.functional.gelu(x, approximate="tanh"))
+    assert not torch.equal(TM.activation_fn("gelu_exact")(x),
+                           TM.activation_fn("gelu")(x))
