@@ -34,9 +34,11 @@ from aero_gnn_tpu_torch.utils.profiling import annotate, count
 
 
 def sample_to_dict(s: MeshSample) -> Dict[str, np.ndarray]:
+    """A sample's arrays, uncopied (``batch_graphs`` offsets the ids into
+    int32 itself)."""
     return {
-        "senders": s.senders.astype(np.int64),
-        "receivers": s.receivers.astype(np.int64),
+        "senders": s.senders,
+        "receivers": s.receivers,
         "x": s.x,
         "edge_attr": s.edge_attr,
         "pos": s.pos,
@@ -175,16 +177,20 @@ class Loader:
             with annotate("aero.loader.batch"):
                 idx = order[b * bs:(b + 1) * bs]
                 batch_samples = [self.samples[i] for i in idx]
+                # the align map only where a hierarchy is re-indexed by it
+                need_map = self._hier is not None
                 with annotate("aero.graph.build"):
-                    gb, amap = batch_graphs(
+                    built = batch_graphs(
                         [sample_to_dict(s) for s in batch_samples],
                         num_nodes_pad=self.pad_spec.num_nodes_pad,
                         num_edges_pad=self.pad_spec.num_edges_pad,
                         num_graphs_pad=self.pad_spec.num_graphs_pad,
-                        align_edges=self.align_edges, return_align_map=True,
+                        align_edges=self.align_edges,
+                        return_align_map=need_map,
                         device=self.device)
+                gb, amap = built if need_map else (built, None)
                 aux: dict = {"samples": batch_samples}
-                if self._hier is not None:
+                if need_map:
                     with annotate("aero.loader.hierarchy"):
                         aux["hierarchy"] = tuple(self._levels(idx, amap))
             yield gb, aux

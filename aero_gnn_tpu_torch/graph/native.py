@@ -3,25 +3,37 @@ aero_gnn_tpu.graph.native).
 
 ``csrc/host/graphcore.cpp`` is built with g++ at first use
 (``ops._build.host_library``, into the git-ignored ``_kernels_build/``); a
-failed build raises, there is no quiet fallback. Four of its five entry
-points are the O(E + N) counting sorts and the block alignment of the host
-path (``graph.padded``, ``graph.hierarchy``); the fifth,
-``balance_slots``, is the BSMS hierarchy's greedy degree-balanced
-relabelling of coarse nodes (``graph.hierarchy.align_hierarchy``). The
-versions they replace stay as the plain versions the tests hold them to:
-``np.lexsort``, a stable ``np.argsort``, ``np.searchsorted``,
-``graph.padded._align_edge_blocks_ref`` and
-``graph.hierarchy._balance_block_slots_ref``.
+failed build raises, there is no quiet fallback. Its entry points:
 
-Every pointer handed to the library is a contiguous int32 / int64 /
-float64 array this module made; keys and sizes are checked against their
+  * the O(E + N) counting sorts and the block alignment of the JAX
+    package's graph core (``sort_edges_by_receiver``, ``argsort_i32``,
+    ``csr_offsets``, ``align_blocks``), used by ``graph.padded``,
+    ``graph.hierarchy`` and ``parallel``;
+  * ``balance_slots``, the BSMS hierarchy's greedy degree-balanced
+    relabelling of coarse nodes (``graph.hierarchy.align_hierarchy``);
+  * ``edge_layout``, a batch's whole padded edge layout in one pass (the
+    receiver sort, the block alignment, the pad tail, the tiles, the
+    sender stream; ``graph.padded.build_graph_batch``);
+  * ``align_sender_stream``, the block alignment of a sorted sender stream
+    (``graph.padded._align_sender_stream``, the BSMS coarse levels);
+  * ``chunk_plan``, the plan of a segment sum without long runs
+    (``graph.padded.chunk_plan``: the per-graph pools, the BSMS unpool).
+
+The versions they replace stay as the plain versions the tests hold them
+to: ``np.lexsort``, a stable ``np.argsort``, ``np.searchsorted``,
+``graph.padded._align_edge_blocks_ref``, ``graph.padded._edge_layout_ref``,
+``graph.padded._align_sender_stream_ref``, ``graph.padded.chunk_plan_ref``
+and ``graph.hierarchy._balance_block_slots_ref``.
+
+Every pointer handed to the library is a contiguous array this module
+made or checked; keys and sizes are checked against their
 bound first, since the counting sorts index their count arrays with them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +42,7 @@ from aero_gnn_tpu_torch.ops import _build
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _F64P = ctypes.POINTER(ctypes.c_double)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 _SIGNATURES = {
     "gc_sort_edges_by_receiver": (
         [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32, _I32P], None),
@@ -43,6 +56,17 @@ _SIGNATURES = {
     "gc_balance_slots": (
         [_F64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
          ctypes.c_int32, _I64P], ctypes.c_int32),
+    "gc_align_sender_stream": (
+        [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_int32, ctypes.c_int32, _I32P, _I32P], ctypes.c_int64),
+    "gc_edge_layout": (
+        [_I32P, _I32P, _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+         ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, _U8P,
+         ctypes.c_int64, _I32P, _I32P, _U8P, _U8P, _I32P, _I32P, _I64P,
+         _I32P, _I32P, _I64P], ctypes.c_int64),
+    "gc_chunk_plan": (
+        [_I32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+         ctypes.c_int64, _I32P, _I32P, _I32P], None),
 }
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -57,6 +81,11 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as({np.dtype(np.int32): _I32P,
                              np.dtype(np.int64): _I64P,
                              np.dtype(np.float64): _F64P}[a.dtype])
+
+
+def _bytes(a: np.ndarray):
+    """A C-contiguous array's buffer as bytes."""
+    return a.ctypes.data_as(_U8P)
 
 
 def _bound(name: str, n: int) -> int:
@@ -162,3 +191,135 @@ def balance_slots(weights: np.ndarray, n_blocks: int, nb: int,
         raise ValueError(f"balance: {len(w)} items exceed capacity "
                          f"{n_blocks * nb - int(bool(reserve_last))}")
     return slots
+
+
+def _block_sizes(num_nodes_pad: int, node_block: int, edge_tile: int):
+    if node_block <= 0 or edge_tile <= 0:
+        raise ValueError(f"node_block={node_block} and edge_tile={edge_tile}"
+                         " must be positive")
+    num_nodes_pad = _bound("num_nodes_pad", num_nodes_pad)
+    if num_nodes_pad % node_block:
+        raise ValueError(f"num_nodes_pad={num_nodes_pad} is not a multiple "
+                         f"of node_block={node_block}")
+    return num_nodes_pad, int(node_block), int(edge_tile)
+
+
+def align_sender_stream(sender_perm: np.ndarray, senders_sorted: np.ndarray,
+                        pad_row: int, num_nodes_pad: int, node_block: int,
+                        edge_tile: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A sender-sorted stream block-aligned (int32 permutation and keys):
+    each ``node_block`` sender block's rows padded to whole ``edge_tile``
+    tiles, at least one; pad slots take ``pad_row`` and the block's last
+    key, else its first node. Keys must ascend in [0, num_nodes_pad)."""
+    num_nodes_pad, node_block, edge_tile = _block_sizes(
+        num_nodes_pad, node_block, edge_tile)
+    k = _keys("senders_sorted", senders_sorted, num_nodes_pad)
+    p = np.ascontiguousarray(sender_perm, dtype=np.int32)
+    if p.shape != k.shape:
+        raise ValueError(f"sender_perm {p.shape} and senders_sorted "
+                         f"{k.shape} differ")
+    cap = len(k) + (num_nodes_pad // node_block) * edge_tile
+    perm_out = np.empty(cap, dtype=np.int32)
+    keys_out = np.empty(cap, dtype=np.int32)
+    n = _function("gc_align_sender_stream")(
+        _ptr(p), _ptr(k), len(k), num_nodes_pad, node_block, edge_tile,
+        _bound("pad_row", pad_row), _ptr(perm_out), _ptr(keys_out))
+    if n < 0:
+        raise ValueError("senders_sorted is not ascending")
+    return perm_out[:n], keys_out[:n]
+
+
+def edge_layout(senders: np.ndarray, receivers: np.ndarray,
+                edge_attr: np.ndarray, num_nodes_pad: int,
+                num_edges_pad: Optional[int], node_block: int = 0,
+                edge_tile: int = 0, align_map: bool = True,
+                empty: Optional[Callable] = None) -> dict:
+    """A graph's padded edge layout in one pass (``_edge_layout_ref``'s
+    arrays in ``graph.padded``): ``senders``, ``receivers``, ``edge_attr``
+    and ``edge_mask`` (the features' dtype) of ``num_edges_pad`` rows in
+    stable receiver-major order, pad rows on the sink ``num_nodes_pad - 1``;
+    ``sender_perm`` / ``senders_sorted``, the rows in a stable sort by
+    sender, and ``senders_aligned``. With ``node_block`` > 0 the layout is
+    block-aligned (``align_blocks``), the sender stream too when a row is
+    masked, and ``tile_block`` / ``tile_first`` are set, and ``align_src``
+    (int64) with ``align_map``; ``num_edges_pad`` None then takes the
+    aligned row count. Ids must lie in [0, num_nodes_pad). ``empty(role,
+    shape, dtype)`` allocates each output (an uninitialised array; a fresh
+    one by default)."""
+    align = node_block != 0
+    if align:
+        num_nodes_pad, node_block, edge_tile = _block_sizes(
+            num_nodes_pad, node_block, edge_tile)
+    num_nodes_pad = _bound("num_nodes_pad", num_nodes_pad)
+    if num_nodes_pad < 1:
+        raise ValueError("num_nodes_pad must hold the pad sink")
+    s = _keys("senders", senders, num_nodes_pad)
+    r = _keys("receivers", receivers, num_nodes_pad)
+    ea = np.ascontiguousarray(edge_attr)
+    if s.shape != r.shape or ea.ndim != 2 or len(ea) != len(s):
+        raise ValueError(f"senders {s.shape}, receivers {r.shape} and "
+                         f"edge_attr {ea.shape} differ in rows")
+    fn = _function("gc_edge_layout")
+    args = (_ptr(s), _ptr(r), _bytes(ea), ea.shape[1] * ea.itemsize, len(s),
+            num_nodes_pad)
+    if num_edges_pad is None and align:  # the aligned row count
+        num_edges_pad = fn(*args, 0, node_block, edge_tile, _U8P(), 0,
+                           _I32P(), _I32P(), _U8P(), _U8P(), _I32P(),
+                           _I32P(), _I64P(), _I32P(), _I32P(), _I64P())
+    ep = _bound("num_edges_pad", num_edges_pad)
+    one = np.ones(1, dtype=ea.dtype)
+    if empty is None:
+        def empty(role, shape, dtype):
+            return np.empty(shape, dtype)
+    out = dict(senders=empty("senders", ep, np.int32),
+               receivers=empty("receivers", ep, np.int32),
+               edge_attr=empty("edge_attr", (ep, ea.shape[1]), ea.dtype),
+               edge_mask=empty("edge_mask", ep, ea.dtype))
+    n_tiles = ep // edge_tile if align else 0
+    tiles = (empty("tile_block", n_tiles, np.int32),
+             empty("tile_first", n_tiles, np.int32))
+    align_src = (empty("align_src", ep, np.int64) if align and align_map
+                 else None)
+    cap = ep + (num_nodes_pad // node_block) * edge_tile if align else ep
+    sender_perm = empty("sender_perm", cap, np.int32)
+    senders_sorted = empty("senders_sorted", cap, np.int32)
+    info = np.zeros(2, np.int64)
+    rows = fn(*args, ep, node_block, edge_tile, _bytes(one), one.nbytes,
+              _ptr(out["senders"]), _ptr(out["receivers"]),
+              _bytes(out["edge_attr"]), _bytes(out["edge_mask"]),
+              _ptr(tiles[0]), _ptr(tiles[1]),
+              _I64P() if align_src is None else _ptr(align_src),
+              _ptr(sender_perm), _ptr(senders_sorted), _ptr(info))
+    if align and (rows > ep or ep % edge_tile):
+        raise ValueError(f"num_edges_pad={ep} incompatible with aligned "
+                         f"edge count {rows} (tile {edge_tile})")
+    if rows > ep:
+        raise ValueError(f"num_edges_pad={ep} < num_edges={rows}")
+    n = int(info[0])
+    out.update(tile_block=tiles[0] if align else None,
+               tile_first=tiles[1] if align else None, align_src=align_src,
+               sender_perm=sender_perm[:n], senders_sorted=senders_sorted[:n],
+               senders_aligned=bool(info[1]))
+    return out
+
+
+def chunk_plan(ids: np.ndarray, num_segments: int, size: int
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(perm, chunk, chunk_seg), int32: the rows in a stable sort by id,
+    the chunk of each sorted row (each id's run cut into chunks of at most
+    ``size`` rows), and the id of each chunk, ``num_segments - 1`` past the
+    last, ceil(len(ids) / size) + num_segments in all
+    (``graph.padded.chunk_plan_ref``'s). Ids must lie in [0,
+    num_segments)."""
+    num_segments = _bound("num_segments", num_segments)
+    if size < 1:
+        raise ValueError(f"size={size} must be positive")
+    k = _keys("ids", ids, num_segments)
+    n_chunk_seg = -(-len(k) // size) + num_segments
+    perm = np.empty(len(k), np.int32)
+    chunk = np.empty(len(k), np.int32)
+    chunk_seg = np.empty(n_chunk_seg, np.int32)
+    _function("gc_chunk_plan")(_ptr(k), len(k), num_segments, int(size),
+                               n_chunk_seg, _ptr(perm), _ptr(chunk),
+                               _ptr(chunk_seg))
+    return perm, chunk, chunk_seg

@@ -23,15 +23,21 @@ Conventions the kernels and models rely on:
     ``ops.hopper_segment``), so a padded batch's tail does not all land on
     the last node block's CTA.
 
-Host-side construction is numpy, with the receiver sort and the block
-alignment on the port's native graph core (``graph.native``) as in the JAX
-package; the result is a dataclass of tensors on the requested device.
+Host-side construction runs on the port's native graph core
+(``graph.native``): the whole edge layout of a batch (the receiver sort,
+the block alignment, the pad tail, the tiles and the sender stream) in one
+pass, ``_edge_layout``, and the chunk plan's stable sort; the node-side
+pads are numpy. ``_edge_layout_ref`` and the other ``*_ref`` functions are
+the numpy plain versions the tests hold the graph core to. The result is a
+dataclass of tensors on the requested device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import sys
+import threading
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -155,12 +161,23 @@ def chunk_plan(ids: np.ndarray, num_segments: int):
     sqrt(8 N) rows where one id's run (a single graph, a pad tail) would
     give one warp up to N. The chunk count is fixed by N and
     ``num_segments``, so batches of one padded shape stack: chunks past the
-    last hold no row and belong to the last id. int32 arrays."""
+    last hold no row and belong to the last id. Ids lie in [0,
+    num_segments). int32 arrays, from the graph core
+    (``native.chunk_plan``); the plain version is ``chunk_plan_ref``."""
+    return native.chunk_plan(ids, num_segments, _chunk_size(len(ids)))
+
+
+def _chunk_size(n: int) -> int:
+    return max(16, int(np.ceil(np.sqrt(n / 8))))
+
+
+def chunk_plan_ref(ids: np.ndarray, num_segments: int):
+    """The plain version of chunk_plan (numpy)."""
     ids = np.asarray(ids)
     n = ids.shape[0]
     perm = np.argsort(ids, kind="stable")
     g = ids[perm]
-    size = max(16, int(np.ceil(np.sqrt(n / 8))))
+    size = _chunk_size(n)
     first = np.ones(n, dtype=bool)
     first[1:] = g[1:] != g[:-1]
     run_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
@@ -226,47 +243,10 @@ def build_graph_batch(
     if ep_pad < e:
         raise ValueError(f"num_edges_pad={ep_pad} < num_edges={e}")
 
-    perm = sort_edges_by_receiver(senders, receivers)
-    senders, receivers = senders[perm], receivers[perm]
-    edge_attr = edge_attr[perm]
-
-    tile_block = tile_first = None
-    edge_valid = np.ones(e, dtype=bool)
-    if align_edges:
-        senders, receivers, edge_attr, edge_valid, tile_block, tile_first = \
-            _align_edge_blocks(senders, receivers, edge_attr, np_pad, dtype)
-        e_aligned = senders.shape[0]
-        if num_edges_pad is None:
-            ep_pad = _round_up(e_aligned, ALIGN_EDGE_TILE)
-        if ep_pad < e_aligned or ep_pad % ALIGN_EDGE_TILE:
-            raise ValueError(
-                f"num_edges_pad={ep_pad} incompatible with aligned edge "
-                f"count {e_aligned} (tile {ALIGN_EDGE_TILE})")
-        # the pad tail forms whole tiles assigned to the last node block
-        n_tiles = ep_pad // ALIGN_EDGE_TILE
-        last_block = np_pad // ALIGN_NODE_BLOCK - 1
-        tb = np.full(n_tiles, last_block, dtype=np.int32)
-        tf = np.zeros(n_tiles, dtype=np.int32)
-        tb[: len(tile_block)] = tile_block
-        tf[: len(tile_first)] = tile_first
-        if len(tile_block) < n_tiles and (
-                len(tile_block) == 0 or tile_block[-1] != last_block):
-            tf[len(tile_block)] = 1
-        tile_block, tile_first = tb, tf
-
-    align_src = None
-    if align_edges:
-        align_src = np.full(ep_pad, -1, dtype=np.int64)
-        valid_rows = np.flatnonzero(edge_valid)
-        align_src[valid_rows] = np.arange(len(valid_rows), dtype=np.int64)
-
-    pad_node = np_pad - 1
-    n_rows = senders.shape[0]
-    s_p = np.full(ep_pad, pad_node, dtype=np.int32)
-    r_p = np.full(ep_pad, pad_node, dtype=np.int32)
-    s_p[:n_rows], r_p[:n_rows] = senders, receivers
-    ea_p = np.zeros((ep_pad, edge_attr.shape[1]), dtype=dtype)
-    ea_p[:n_rows] = edge_attr
+    lay = _edge_layout(senders, receivers, edge_attr, np_pad,
+                       None if align_edges and num_edges_pad is None
+                       else ep_pad, align_edges, return_align_map)
+    ep_pad = lay["senders"].shape[0]
 
     def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
         out = np.zeros((rows,) + a.shape[1:], dtype=dtype)
@@ -279,43 +259,36 @@ def build_graph_batch(
     ng_p[:n] = ng
     node_mask = np.zeros(np_pad, dtype=dtype)
     node_mask[:n] = 1.0
-    edge_mask = np.zeros(ep_pad, dtype=dtype)
-    edge_mask[:n_rows] = edge_valid.astype(dtype)
     n_real_graphs = int(ng.max()) + 1 if n else 0
     graph_mask = np.zeros(num_graphs_pad, dtype=dtype)
     graph_mask[:n_real_graphs] = 1.0
-
-    sender_perm = np.argsort(s_p, kind="stable").astype(np.int32)
-    senders_sorted = s_p[sender_perm]
-    senders_aligned = False
-    if align_edges:
-        sender_perm, senders_sorted, senders_aligned = _align_sender_stream(
-            sender_perm, senders_sorted, edge_mask, np_pad)
 
     graph_perm, graph_chunk, chunk_graph = chunk_plan(ng_p, num_graphs_pad)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    tile_block, tile_first = lay["tile_block"], lay["tile_first"]
     with annotate("aero.graph.to_device"):
         gb = GraphBatch(
-            senders=t(s_p), receivers=t(r_p),
-            sender_perm=t(sender_perm), senders_sorted=t(senders_sorted),
-            x=t(pad_rows(x, np_pad)), edge_attr=t(ea_p),
+            senders=t(lay["senders"]), receivers=t(lay["receivers"]),
+            sender_perm=t(lay["sender_perm"]),
+            senders_sorted=t(lay["senders_sorted"]),
+            x=t(pad_rows(x, np_pad)), edge_attr=t(lay["edge_attr"]),
             pos=t(pad_rows(pos, np_pad)), y=t(pad_rows(y, np_pad)),
-            node_mask=t(node_mask), edge_mask=t(edge_mask),
+            node_mask=t(node_mask), edge_mask=t(lay["edge_mask"]),
             node_graph=t(ng_p), graph_mask=t(graph_mask),
             n_node=n, n_edge=e,
             tile_block=None if tile_block is None else t(tile_block),
             tile_first=None if tile_first is None else t(tile_first),
-            senders_aligned=senders_aligned, graph_perm=t(graph_perm),
+            senders_aligned=lay["senders_aligned"], graph_perm=t(graph_perm),
             graph_chunk=t(graph_chunk), chunk_graph=t(chunk_graph),
         )
     count("graph.nodes", n)
     count("graph.node_rows", np_pad)
     count("graph.edges", e)
     count("graph.edge_rows", ep_pad)
-    return (gb, align_src) if return_align_map else gb
+    return (gb, lay["align_src"]) if return_align_map else gb
 
 
 def batch_graphs(graphs: list, *, num_nodes_pad: Optional[int] = None,
@@ -327,36 +300,173 @@ def batch_graphs(graphs: list, *, num_nodes_pad: Optional[int] = None,
     receivers, x, edge_attr, pos, y) in one padded GraphBatch, sample i's
     nodes after those of samples < i and ``node_graph`` = i
     (``return_align_map`` as in build_graph_batch)."""
-    offs = np.cumsum([0] + [g["x"].shape[0] for g in graphs[:-1]])
-    n_tot = sum(g["x"].shape[0] for g in graphs)
+    sizes = [g["x"].shape[0] for g in graphs]
+    n_tot = sum(sizes)
     e_tot = sum(g["senders"].shape[0] for g in graphs)
-    cat = np.concatenate
+    # ids offset straight into int32 (an id past int32 wraps, as a cast
+    # would); one graph's float arrays are passed on without a copy
+    senders = _host_buffers.empty("batch_senders", e_tot, np.int32)
+    receivers = _host_buffers.empty("batch_receivers", e_tot, np.int32)
+    node_graph = np.empty(n_tot, np.int32)
+    e0 = n0 = 0
+    for i, (g, n_i) in enumerate(zip(graphs, sizes)):
+        e1 = e0 + g["senders"].shape[0]
+        for ids, key in ((senders[e0:e1], "senders"),
+                         (receivers[e0:e1], "receivers")):
+            np.copyto(ids, g[key], casting="unsafe")
+            if n0:
+                ids += n0
+        node_graph[n0:n0 + n_i] = i
+        e0, n0 = e1, n0 + n_i
+
+    def cat(key):
+        arrays = [g[key] for g in graphs]
+        return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+
     return build_graph_batch(
-        senders=cat([g["senders"] + o for g, o in zip(graphs, offs)]),
-        receivers=cat([g["receivers"] + o for g, o in zip(graphs, offs)]),
-        x=cat([g["x"] for g in graphs]),
-        edge_attr=cat([g["edge_attr"] for g in graphs]),
-        pos=cat([g["pos"] for g in graphs]),
-        y=cat([g["y"] for g in graphs]),
+        senders=senders, receivers=receivers, x=cat("x"),
+        edge_attr=cat("edge_attr"), pos=cat("pos"), y=cat("y"),
         num_nodes_pad=(num_nodes_pad if num_nodes_pad is not None
                        else bucket_size(n_tot + 1)),
         num_edges_pad=(num_edges_pad if num_edges_pad is not None
                        else bucket_size(e_tot)),
         num_graphs_pad=(num_graphs_pad if num_graphs_pad is not None
                         else max(len(graphs) + 1, 2)),
-        node_graph=cat([np.full(g["x"].shape[0], i, dtype=np.int32)
-                        for i, g in enumerate(graphs)]),
+        node_graph=node_graph,
         align_edges=align_edges, dtype=dtype,
         return_align_map=return_align_map, device=device)
+
+
+class _HostBuffers:
+    """The per-batch host arrays of a build (the edge layout's outputs, the
+    ids batch_graphs offsets): one buffer kept per role and handed out again
+    once nothing else holds it (a batch copied to the card drops its host
+    arrays; one left on the CPU keeps them), so the next batch writes pages
+    the last one already faulted in: a fresh page costs about as much as
+    the layout pass's writes to it. A role's buffer grows to the largest
+    batch seen; a busy role gets a fresh array."""
+
+    def __init__(self):
+        self._held: Dict[str, np.ndarray] = {}
+        self._lock = threading.Lock()
+
+    def empty(self, role: str, shape, dtype) -> np.ndarray:
+        dtype = np.dtype(dtype)
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        with self._lock:
+            buf = self._held.get(role)
+            # free: held by the dict, by buf and by getrefcount's argument
+            if buf is not None and sys.getrefcount(buf) > 3:
+                return np.empty(shape, dtype)
+            if buf is None or buf.nbytes < nbytes:
+                buf = self._held[role] = np.empty(nbytes, np.uint8)
+            return buf[:nbytes].view(dtype).reshape(shape)
+
+
+_host_buffers = _HostBuffers()
+
+
+def _edge_layout(senders, receivers, edge_attr, num_nodes_pad,
+                 num_edges_pad, align_edges, align_map):
+    """A graph's padded edge layout, the edge fields of build_graph_batch
+    (a dict: ``senders``, ``receivers``, ``edge_attr``, ``edge_mask``,
+    ``tile_block``, ``tile_first``, ``align_src``, ``sender_perm``,
+    ``senders_sorted``, ``senders_aligned``), in one pass of the graph core
+    (``native.edge_layout``); ``num_edges_pad`` None takes the aligned row
+    count, and ``align_src`` is left out (None) unless ``align_map``. The
+    result equals ``_edge_layout_ref``'s."""
+    nb, et = (ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE) if align_edges else (0, 0)
+    return native.edge_layout(senders, receivers, edge_attr, num_nodes_pad,
+                              num_edges_pad, nb, et, align_map,
+                              empty=_host_buffers.empty)
+
+
+def _edge_layout_ref(senders, receivers, edge_attr, num_nodes_pad,
+                     num_edges_pad, align_edges, align_map):
+    """The plain version of _edge_layout: numpy (the receiver lexsort,
+    ``_align_edge_blocks_ref``, the pad tail, a stable sender argsort,
+    ``_align_sender_stream_ref``); ``align_src`` whatever ``align_map``
+    says."""
+    del align_map
+    dtype, e = edge_attr.dtype, len(senders)
+    ep_pad = num_edges_pad
+    perm = sort_edges_by_receiver_ref(senders, receivers)
+    senders, receivers = senders[perm], receivers[perm]
+    edge_attr = edge_attr[perm]
+
+    tile_block = tile_first = align_src = None
+    edge_valid = np.ones(e, dtype=bool)
+    if align_edges:
+        senders, receivers, edge_attr, edge_valid, tile_block, tile_first = \
+            _align_edge_blocks_ref(senders, receivers, edge_attr,
+                                   num_nodes_pad, dtype)
+        e_aligned = senders.shape[0]
+        if ep_pad is None:
+            ep_pad = _round_up(e_aligned, ALIGN_EDGE_TILE)
+        if ep_pad < e_aligned or ep_pad % ALIGN_EDGE_TILE:
+            raise ValueError(
+                f"num_edges_pad={ep_pad} incompatible with aligned edge "
+                f"count {e_aligned} (tile {ALIGN_EDGE_TILE})")
+        # the pad tail forms whole tiles assigned to the last node block
+        n_tiles = ep_pad // ALIGN_EDGE_TILE
+        last_block = num_nodes_pad // ALIGN_NODE_BLOCK - 1
+        tb = np.full(n_tiles, last_block, dtype=np.int32)
+        tf = np.zeros(n_tiles, dtype=np.int32)
+        tb[: len(tile_block)] = tile_block
+        tf[: len(tile_first)] = tile_first
+        if len(tile_block) < n_tiles and (
+                len(tile_block) == 0 or tile_block[-1] != last_block):
+            tf[len(tile_block)] = 1
+        tile_block, tile_first = tb, tf
+        align_src = np.full(ep_pad, -1, dtype=np.int64)
+        valid_rows = np.flatnonzero(edge_valid)
+        align_src[valid_rows] = np.arange(len(valid_rows), dtype=np.int64)
+
+    pad_node = num_nodes_pad - 1
+    n_rows = senders.shape[0]
+    s_p = np.full(ep_pad, pad_node, dtype=np.int32)
+    r_p = np.full(ep_pad, pad_node, dtype=np.int32)
+    s_p[:n_rows], r_p[:n_rows] = senders, receivers
+    ea_p = np.zeros((ep_pad, edge_attr.shape[1]), dtype=dtype)
+    ea_p[:n_rows] = edge_attr
+    edge_mask = np.zeros(ep_pad, dtype=dtype)
+    edge_mask[:n_rows] = edge_valid.astype(dtype)
+
+    sender_perm = np.argsort(s_p, kind="stable").astype(np.int32)
+    senders_sorted = s_p[sender_perm]
+    senders_aligned = False
+    if align_edges:
+        sender_perm, senders_sorted, senders_aligned = \
+            _align_sender_stream_ref(sender_perm, senders_sorted, edge_mask,
+                                     num_nodes_pad)
+    return dict(senders=s_p, receivers=r_p, edge_attr=ea_p,
+                edge_mask=edge_mask, tile_block=tile_block,
+                tile_first=tile_first, align_src=align_src,
+                sender_perm=sender_perm, senders_sorted=senders_sorted,
+                senders_aligned=senders_aligned)
 
 
 def _align_sender_stream(sender_perm, senders_sorted, edge_mask,
                          num_nodes_pad):
     """Block-align the sender-sorted stream: each ALIGN_NODE_BLOCK sender
-    block padded to whole ALIGN_EDGE_TILE tiles. Pad slots index the last
-    masked edge row, whose cotangent is exactly zero, so no extra mask is
-    needed downstream. Without a masked edge row the stream stays as it is
-    (third result False)."""
+    block padded to whole ALIGN_EDGE_TILE tiles, on the graph core
+    (``native.align_sender_stream``). Pad slots index the last masked edge
+    row, whose cotangent is exactly zero, so no extra mask is needed
+    downstream. Without a masked edge row the stream stays as it is (third
+    result False). The result equals ``_align_sender_stream_ref``'s."""
+    masked_rows = np.flatnonzero(edge_mask == 0.0)
+    if len(masked_rows) == 0:
+        return sender_perm, senders_sorted, False
+    perm, keys = native.align_sender_stream(
+        sender_perm, senders_sorted, int(masked_rows[-1]), num_nodes_pad,
+        ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE)
+    return perm, keys, True
+
+
+def _align_sender_stream_ref(sender_perm, senders_sorted, edge_mask,
+                             num_nodes_pad):
+    """The plain version of _align_sender_stream (numpy, a loop over the
+    node blocks)."""
     nb, et = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
     masked_rows = np.nonzero(edge_mask == 0.0)[0]
     if len(masked_rows) == 0:

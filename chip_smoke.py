@@ -14,8 +14,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                (sm_90a), one process per source, and the host graph core
                (csrc/host/graphcore.cpp) with g++, and report the times;
                then build_graph_batch's host ms on the 65,536-node mesh
-               with the graph core (graph.native) and with the numpy
-               plain versions (np.lexsort, the block loop), in turns, the
+               with the graph core (graph.native's one-pass edge layout
+               and chunk plan) and with the numpy plain versions
+               (padded._edge_layout_ref, chunk_plan_ref), in turns, the
                batches bit-equal (phase large does the same at 1,048,576);
   3. tail    — K1, K2 and K5 (the sender backward's, and the unfused
                aggregation's: the receiver stream, the edge mask and the
@@ -568,44 +569,48 @@ def flagship_graph(seed: int, device, n_nodes: int = N_NODES):
 
 def host_graph_build(torch, sample, dev, smi: str) -> dict:
     """build_graph_batch's host ms on ``sample`` (flagship_graph's layout)
-    with the graph core (graph.native's counting sort and block alignment)
-    and with the numpy plain versions (padded.sort_edges_by_receiver_ref:
-    np.lexsort; padded._align_edge_blocks_ref), in turns (core, numpy,
-    numpy, core), and the receiver sort alone; the two batches bit-equal.
-    Host clock, ending in a synchronize."""
+    with the graph core (padded._edge_layout: native.edge_layout's one
+    pass; padded.chunk_plan: native.chunk_plan) and with the numpy plain
+    versions (padded._edge_layout_ref, padded.chunk_plan_ref), in turns
+    (core, numpy, numpy, core), and the edge layout alone (with its align
+    map); the two batches and the two layouts bit-equal. Host clock, the
+    build ending in a synchronize."""
     import dataclasses
+
+    import numpy as np
 
     from aero_gnn_tpu_torch.graph import padded
 
-    paths = {"core": (padded.sort_edges_by_receiver,
-                      padded._align_edge_blocks),
-             "numpy": (padded.sort_edges_by_receiver_ref,
-                       padded._align_edge_blocks_ref)}
+    paths = {"core": (padded._edge_layout, padded.chunk_plan),
+             "numpy": (padded._edge_layout_ref, padded.chunk_plan_ref)}
     n = sample.num_nodes
+    np_pad = -(-(n + 1) // 512) * 512
     kw = dict(senders=sample.senders, receivers=sample.receivers,
               x=sample.x, edge_attr=sample.edge_attr, pos=sample.pos,
-              y=sample.y, num_nodes_pad=-(-(n + 1) // 512) * 512,
-              align_edges=True, device=dev)
+              y=sample.y, num_nodes_pad=np_pad, align_edges=True, device=dev)
+    lay_args = (np.asarray(sample.senders, np.int32),
+                np.asarray(sample.receivers, np.int32),
+                np.asarray(sample.edge_attr, np.float32), np_pad, None, True,
+                True)
     ms = {"core": [], "numpy": []}
-    sort_ms = {"core": [], "numpy": []}
-    first = {}
+    layout_ms = {"core": [], "numpy": []}
+    first, first_lay = {}, {}
     try:
         for name in ("core", "numpy", "numpy", "core"):
-            sort, align = paths[name]
-            padded.sort_edges_by_receiver = sort
-            padded._align_edge_blocks = align
+            layout, plan = paths[name]
+            padded._edge_layout, padded.chunk_plan = layout, plan
             t0 = time.perf_counter()
             g = padded.build_graph_batch(**kw)
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-            sort(sample.senders, sample.receivers)
-            sort_ms[name].append((time.perf_counter() - t0) * 1e3)
+            lay = layout(*lay_args)
+            layout_ms[name].append((time.perf_counter() - t0) * 1e3)
             first.setdefault(name, g)
-            del g
+            first_lay.setdefault(name, lay)
+            del g, lay
     finally:
-        padded.sort_edges_by_receiver, padded._align_edge_blocks = \
-            paths["core"]
+        padded._edge_layout, padded.chunk_plan = paths["core"]
     a, b = first["core"], first["numpy"]
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
@@ -614,15 +619,23 @@ def host_graph_build(torch, sample, dev, smi: str) -> dict:
         if not same:
             raise AssertionError(f"host graph build at {n} nodes: {f.name} "
                                  "differs between the graph core and numpy")
+    for key, x in first_lay["core"].items():
+        y = first_lay["numpy"][key]
+        same = (x.dtype == y.dtype and np.array_equal(x, y)
+                if isinstance(x, np.ndarray) else x == y)
+        if not same:
+            raise AssertionError(f"edge layout at {n} nodes: {key} differs "
+                                 "between the graph core and numpy")
     log(f"[host] build_graph_batch at {n} nodes ({sample.num_edges} edges, "
         f"aligned, to the card), host ms in turns core / numpy / numpy / "
         f"core: {ms['core'][0]:.1f} / {ms['numpy'][0]:.1f} / "
-        f"{ms['numpy'][1]:.1f} / {ms['core'][1]:.1f}; the receiver sort "
-        f"alone (graph core / np.lexsort): {sort_ms['core'][0]:.1f} / "
-        f"{sort_ms['numpy'][0]:.1f} / {sort_ms['numpy'][1]:.1f} / "
-        f"{sort_ms['core'][1]:.1f}; batches bit-equal (host clock; {smi})")
+        f"{ms['numpy'][1]:.1f} / {ms['core'][1]:.1f}; the edge layout "
+        f"alone with its align map (graph core / numpy): "
+        f"{layout_ms['core'][0]:.1f} / {layout_ms['numpy'][0]:.1f} / "
+        f"{layout_ms['numpy'][1]:.1f} / {layout_ms['core'][1]:.1f}; batches "
+        f"and layouts bit-equal (host clock; {smi})")
     return {"nodes": n, "edges": sample.num_edges, "build_ms": ms,
-            "sort_ms": sort_ms}
+            "layout_ms": layout_ms}
 
 
 def cuda_time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:

@@ -2,11 +2,15 @@
 csrc/host/graphcore.cpp) against the numpy plain versions and the JAX
 package's aero_gnn_tpu.graph.native, bit for bit, on random graphs with
 and without edges, one node, sparse ids and a mesh; build_graph_batch's
-batches equal with the graph core and with the numpy paths
-(padded.sort_edges_by_receiver_ref, padded._align_edge_blocks_ref); the
-greedy block balance slot for slot against hierarchy's plain version and
-the JAX package's; keys and sizes outside their bound refused; a build
-that fails raises."""
+batches, field by field with the align map, equal with the graph core's
+one-pass layout and with the numpy composition (padded._edge_layout_ref,
+padded.chunk_plan_ref), also for batches of uneven graphs, an unsorted
+node_graph and a stream with no masked row; the sender stream's alignment
+against its plain version at the BSMS coarse levels' sizes; the greedy
+block balance slot for slot against hierarchy's plain version and the JAX
+package's; keys and sizes outside their bound refused; a build that fails
+raises; the reused host buffers never handed out while a batch holds
+them, and grown to the largest batch."""
 
 import dataclasses
 import time
@@ -119,18 +123,65 @@ def _graph(name):
                 pos=rng.standard_normal((n, 2)).astype(np.float32))
 
 
+def _mesh_graph(n_nodes, seed):
+    s = make_random_mesh_sample(n_nodes=n_nodes, seed=seed)
+    D.compute_features([s], ["mach", "alpha"])
+    return dict(senders=s.senders, receivers=s.receivers, x=s.x,
+                edge_attr=s.edge_attr, pos=s.pos, y=s.y)
+
+
+def _batch(name, align):
+    """(function, keywords) of one build: build_graph_batch on a GRAPHS
+    case or the mesh, or one of the cases below."""
+    rng = np.random.default_rng(6)
+    if name == "three_uneven":  # through batch_graphs
+        graphs = [_mesh_graph(300, 1), _mesh_graph(90, 2),
+                  _mesh_graph(500, 3)]
+        e = sum(len(g["senders"]) for g in graphs)
+        return padded.batch_graphs, dict(graphs=graphs, num_nodes_pad=1024,
+                                         num_edges_pad=padded._round_up(
+                                             e + 4 * 1024, 1024))
+    if name == "unsorted_node_graph":
+        kw = _graph("random")
+        kw.update(node_graph=rng.integers(0, 3, len(kw["x"])),
+                  num_graphs_pad=4)
+        return padded.build_graph_batch, kw
+    if name == "no_masked_row":  # two node blocks of exactly one tile each
+        n, tile = 400, padded.ALIGN_EDGE_TILE
+        r = np.r_[rng.integers(0, 256, tile), rng.integers(256, n, tile)]
+        return padded.build_graph_batch, dict(
+            senders=rng.integers(0, n, 2 * tile), receivers=r,
+            x=rng.standard_normal((n, 4)).astype(np.float32),
+            edge_attr=rng.standard_normal((2 * tile, 3)).astype(np.float32),
+            pos=rng.standard_normal((n, 2)).astype(np.float32),
+            num_nodes_pad=512, num_edges_pad=2 * tile if align else None)
+    if name == "float64":  # features and masks of 8 bytes
+        return padded.build_graph_batch, dict(_graph("random"),
+                                              dtype=np.float64)
+    if name == "no_edges":
+        n = 300
+        return padded.build_graph_batch, dict(
+            senders=np.zeros(0, np.int64), receivers=np.zeros(0, np.int64),
+            x=rng.standard_normal((n, 4)).astype(np.float32),
+            edge_attr=np.zeros((0, 3), np.float32),
+            pos=rng.standard_normal((n, 2)).astype(np.float32))
+    return padded.build_graph_batch, _graph(name)
+
+
+BATCHES = list(GRAPHS) + ["mesh", "three_uneven", "unsorted_node_graph",
+                          "no_masked_row", "no_edges", "float64"]
+
+
 @pytest.mark.parametrize("align", [False, True])
-@pytest.mark.parametrize("name", list(GRAPHS) + ["mesh"])
+@pytest.mark.parametrize("name", BATCHES)
 def test_build_graph_batch_equal_to_numpy_path(monkeypatch, name, align):
-    g = _graph(name)
-    got, got_map = padded.build_graph_batch(
-        **g, align_edges=align, return_align_map=True, device="cpu")
-    monkeypatch.setattr(padded, "sort_edges_by_receiver",
-                        padded.sort_edges_by_receiver_ref)
-    monkeypatch.setattr(padded, "_align_edge_blocks",
-                        padded._align_edge_blocks_ref)
-    ref, ref_map = padded.build_graph_batch(
-        **g, align_edges=align, return_align_map=True, device="cpu")
+    build, kw = _batch(name, align)
+    got, got_map = build(**kw, align_edges=align, return_align_map=True,
+                         device="cpu")
+    monkeypatch.setattr(padded, "_edge_layout", padded._edge_layout_ref)
+    monkeypatch.setattr(padded, "chunk_plan", padded.chunk_plan_ref)
+    ref, ref_map = build(**kw, align_edges=align, return_align_map=True,
+                         device="cpu")
     for f in dataclasses.fields(ref):
         a, b = getattr(got, f.name), getattr(ref, f.name)
         if isinstance(b, torch.Tensor):
@@ -138,7 +189,96 @@ def test_build_graph_batch_equal_to_numpy_path(monkeypatch, name, align):
         else:
             assert a == b, f.name
     if align:
+        assert got_map.dtype == ref_map.dtype == np.int64
         np.testing.assert_array_equal(got_map, ref_map)
+        assert got.senders_aligned == (name != "no_masked_row")
+    else:
+        assert got_map is None and not got.senders_aligned
+
+
+# (num_nodes_pad, rows, real rows) of the benchmark BSMS mesh's two coarse
+# levels at 65,536 nodes, and a stream whose every row is real
+SENDER_STREAMS = {"coarse_1": (39168, 157696, 131849),
+                  "coarse_2": (17664, 71680, 67470),
+                  "no_masked_row": (17664, 71680, 71680)}
+
+
+@pytest.mark.parametrize("name", list(SENDER_STREAMS))
+def test_align_sender_stream_equal_to_plain(name):
+    n_pad, rows, real = SENDER_STREAMS[name]
+    rng = np.random.default_rng(8)
+    s_p = np.full(rows, n_pad - 1, np.int32)
+    s_p[:real] = rng.integers(0, n_pad - 1, real)
+    mask = (np.arange(rows) < real).astype(np.float32)
+    if real < rows:  # masked rows among the real ones too
+        mask[rng.integers(0, real, 50)] = 0.0
+    perm = native.argsort_i32(s_p, n_pad)
+    got = padded._align_sender_stream(perm, s_p[perm], mask, n_pad)
+    ref = padded._align_sender_stream_ref(perm, s_p[perm], mask, n_pad)
+    assert got[2] == ref[2] == (real < rows)
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["runs", "one_id", "empty_ids", "tail",
+                                  "no_rows"])
+def test_chunk_plan_equal_to_plain(case):
+    rng = np.random.default_rng(9)
+    ids = {"runs": rng.integers(0, 40, 3000),
+           "one_id": np.zeros(5000, np.int64),
+           "empty_ids": rng.choice([1, 4, 9], 700),
+           "tail": np.r_[np.repeat(np.arange(300), 3), np.full(2000, 300)],
+           "no_rows": np.zeros(0, np.int64)}[case]
+    n_seg = int(ids.max(initial=0)) + 3
+    for a, b in zip(padded.chunk_plan(ids, n_seg),
+                    padded.chunk_plan_ref(ids, n_seg)):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_reused_buffers_are_not_handed_out_while_held():
+    """A batch left on the CPU keeps its host arrays; the next batch's build
+    must not write into them, and once dropped they are used again."""
+    g1, g2 = _graph("random"), _graph("dense")
+    kw = dict(num_nodes_pad=512, num_edges_pad=4096, align_edges=True,
+              device="cpu")
+    first = padded.build_graph_batch(**g1, **kw)
+    kept = {f.name: getattr(first, f.name).clone()
+            for f in dataclasses.fields(first)
+            if isinstance(getattr(first, f.name), torch.Tensor)}
+    second = padded.build_graph_batch(**g2, **kw)
+    for name, want in kept.items():
+        assert torch.equal(getattr(first, name), want), name
+    assert not torch.equal(first.senders, second.senders)
+    ptr = first.senders.data_ptr()
+    del first
+    third = padded.build_graph_batch(**g2, **kw)
+    assert third.senders.data_ptr() == ptr
+    assert torch.equal(third.senders, second.senders)
+
+
+def test_host_buffers_grow_and_serve_smaller_batches():
+    """A role's buffer serves any batch up to the largest seen (meshes of
+    other sizes do not reallocate it), grows past it, and is never handed
+    out while an array of it is held."""
+    pool = padded._HostBuffers()
+    a = pool.empty("ids", 1000, np.int32)
+    ptr = a.ctypes.data
+    del a
+    b = pool.empty("ids", (10, 30), np.float32)
+    assert b.shape == (10, 30) and b.dtype == np.float32
+    assert b.ctypes.data == ptr
+    c = pool.empty("ids", 5, np.int32)
+    assert c.ctypes.data != ptr
+    del b, c
+    d = pool.empty("ids", 2000, np.int32)
+    assert d.shape == (2000,)
+    ptr = d.ctypes.data
+    d[:] = 7
+    del d
+    e = pool.empty("ids", 1500, np.int32)
+    assert e.ctypes.data == ptr and (e == 7).all()
 
 
 def test_keys_outside_their_bound_are_refused():
@@ -151,6 +291,37 @@ def test_keys_outside_their_bound_are_refused():
         native.argsort_i32(s, 3)
     with pytest.raises(ValueError):
         native.align_blocks(np.sort(s), 8, 4, 0)
+    # the one-pass layout: ids past the node pad or negative, too few rows,
+    # rows not whole tiles, a node pad not whole blocks, unequal lengths
+    ea = np.zeros((3, 2), np.float32)
+    for bad in (dict(senders=np.array([0, 4, 1])),
+                dict(receivers=np.array([0, -1, 1])),
+                dict(num_nodes_pad=2 ** 31),
+                dict(num_edges_pad=2),
+                dict(num_edges_pad=-1),
+                dict(num_edges_pad=10, node_block=4, edge_tile=8),
+                dict(num_edges_pad=0, node_block=4, edge_tile=8),
+                dict(num_nodes_pad=6, node_block=4, edge_tile=8),
+                dict(node_block=4, edge_tile=0),
+                dict(edge_attr=np.zeros((2, 2), np.float32))):
+        kw = dict(senders=s, receivers=s, edge_attr=ea, num_nodes_pad=4,
+                  num_edges_pad=8)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            native.edge_layout(**kw)
+    # the sender stream's alignment: keys unsorted or past the node pad,
+    # a pad row outside int32, unequal lengths
+    for keys, pad_row, perm in ((np.array([0, 3, 1]), 0, s),
+                                (np.array([0, 1, 8]), 0, s),
+                                (np.array([0, 1, 3]), -1, s),
+                                (np.array([0, 1, 3]), 0, s[:2])):
+        with pytest.raises(ValueError):
+            native.align_sender_stream(perm, keys, pad_row, 8, 4, 8)
+    # the chunk plan: ids past num_segments, a chunk size below one
+    with pytest.raises(ValueError):
+        native.chunk_plan(s, 3, 16)
+    with pytest.raises(ValueError):
+        native.chunk_plan(s, 4, 0)
 
 
 def _balance_case(name):
