@@ -13,13 +13,11 @@
 //   gc_balance_slots: the BSMS hierarchy's greedy degree-balanced
 //     relabelling of coarse nodes (graph/hierarchy.py align_hierarchy;
 //     plain version _balance_block_slots_ref, a Python heap loop);
-//   gc_edge_layout: a batch's whole padded edge layout in one pass, the
+//   gc_edge_layout: a graph's whole padded edge layout in one pass, the
 //     receiver sort, the block alignment, the pad tail, the tiles and the
-//     sender stream (graph/padded.py build_graph_batch; plain version
+//     sender stream (graph/padded.py build_graph_batch, and each BSMS
+//     coarse level in graph/hierarchy.py align_host; plain version
 //     _edge_layout_ref, a numpy composition);
-//   gc_align_sender_stream: a sorted sender stream aligned by node block
-//     (graph/padded.py _align_sender_stream, the BSMS coarse levels; plain
-//     version _align_sender_stream_ref);
 //   gc_chunk_plan: the plan of the per-graph pools and the BSMS unpool
 //     (graph/padded.py chunk_plan; plain version chunk_plan_ref).
 //
@@ -232,35 +230,6 @@ int32_t gc_balance_slots(const double* weights, int64_t n, int32_t n_blocks,
   return 0;
 }
 
-// A sender-sorted stream (keys ascending in [0, num_nodes_pad), perm the
-// rows it came from) block-aligned: each node_block-node block's rows
-// padded to whole edge_tile tiles, at least one, with pad_row and the
-// block's fill key. Writes at most n + (num_nodes_pad / node_block) *
-// edge_tile slots and returns their count; -1 (nothing written) when the
-// keys are not ascending.
-int64_t gc_align_sender_stream(const int32_t* perm, const int32_t* keys,
-                               int64_t n, int32_t num_nodes_pad,
-                               int32_t node_block, int32_t edge_tile,
-                               int32_t pad_row, int32_t* perm_out,
-                               int32_t* keys_out) {
-  for (int64_t i = 1; i < n; ++i)
-    if (keys[i] < keys[i - 1]) return -1;
-  std::vector<int64_t> count(static_cast<size_t>(num_nodes_pad), 0);
-  for (int64_t i = 0; i < n; ++i) count[keys[i]]++;
-  std::vector<int64_t> counts, starts;
-  std::vector<int32_t> fill;
-  block_counts(count, node_block, &counts, &fill);
-  block_starts(counts, edge_tile, &starts);
-  int64_t lo = 0;
-  for (size_t b = 0; b < counts.size(); ++b) {
-    std::copy(perm + lo, perm + lo + counts[b], perm_out + starts[b]);
-    std::copy(keys + lo, keys + lo + counts[b], keys_out + starts[b]);
-    lo += counts[b];
-  }
-  fill_sender_pads(counts, starts, fill, pad_row, perm_out, keys_out);
-  return starts.back();
-}
-
 // The padded edge layout of a graph in one pass: the edges in stable
 // receiver-major order (gc_sort_edges_by_receiver's), then the pad tail up
 // to num_edges_pad rows, each pad row an edge of the sink num_nodes_pad - 1
@@ -278,8 +247,9 @@ int64_t gc_align_sender_stream(const int32_t* perm, const int32_t* keys,
 //
 // The sender stream: the rows in a stable sort by sender (sender_perm,
 // senders_sorted); aligned, when node_block > 0 and some row is masked,
-// as gc_align_sender_stream does with the last masked row as pad_row. Its
-// buffers hold num_edges_pad + (num_nodes_pad / node_block) * edge_tile
+// by sender block as the edges are by receiver block, each block's pad
+// slots taking the last masked row and the block's last sender, else its
+// first node (plain version _align_sender_stream_ref). Its buffers hold num_edges_pad + (num_nodes_pad / node_block) * edge_tile
 // slots; sender_info gets its length and 1 iff it was aligned.
 //
 // Returns the rows the layout fills before the pad tail. Nothing is

@@ -5,10 +5,9 @@ Every batch of one loader shares one padded shape. Samples are joined by
 ``graph.padded.batch_graphs`` and the batches land on the loader's device
 (CUDA unless ``"cpu"``). For BSMS models (``num_scales > 1``) each
 sample's hierarchy is built once and cached, then collated per batch with
-coarse-id offsets (``graph.hierarchy.collate_hierarchies``) and, with the
-aligned layout, block-aligned at every level (``align_hierarchy``; the
-Loader calls their host-array forms, which copy each level to the device
-once).
+coarse-id offsets (``graph.hierarchy.collate_host``) and, with the
+aligned layout, block-aligned at every level (``align_host``, which copies
+each level to the device once).
 """
 
 from __future__ import annotations
@@ -212,10 +211,10 @@ class Loader:
             with annotate("aero.hierarchy.to_device"):
                 return [lv.to(self.device) for lv in levels]
         with annotate("aero.hierarchy.collate"):
-            host = H._collate_host(per_sample, **collate_kw)
+            host = H.collate_host(per_sample, **collate_kw)
         with annotate("aero.hierarchy.align"):
             try:
-                return H._align_host(
+                return H.align_host(
                     host, amap,
                     edge_pad_targets=spec.hierarchy_aligned_edges,
                     device=self.device)
@@ -223,4 +222,4 @@ class Loader:
                 warnings.warn("hierarchy aligned-edge budget exceeded; "
                               "realigning this batch with per-batch sizes")
                 count("hierarchy.realigned")
-                return H._align_host(host, amap, device=self.device)
+                return H.align_host(host, amap, device=self.device)

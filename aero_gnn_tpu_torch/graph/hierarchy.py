@@ -1,9 +1,9 @@
 """Multi-scale graph hierarchies for BSMS, built on the host (the port's own
 copy of aero_gnn_tpu.graph.hierarchy).
 
-A hierarchy is computed once per mesh with numpy and padded to static
-sizes; the model's forward is then segment reductions and gathers over the
-precomputed index arrays. Two builder modes:
+A hierarchy is built once per mesh with numpy, collated and padded to
+static sizes per batch; the model's forward is then segment reductions and
+gathers over the precomputed index arrays. Two builder modes:
 
   * "stride"   — per graph, sort nodes by x-coordinate and group each
     consecutive ``stride`` nodes into one coarse node; coarse edges are the
@@ -12,16 +12,19 @@ precomputed index arrays. Two builder modes:
     nodes kept, coarse connectivity from the fine edges through the
     assignment.
 
-Both give a ``HierarchyLevel``: a dataclass of tensors (int32 index
-fields, float32 weights and masks, as the JAX package stores them) plus
-host ints. The functions that make tensors take ``device`` (CUDA unless
-``"cpu"``). ``align_hierarchy`` block-aligns every level for the fused
-kernels, as ``graph.padded.build_graph_batch(align_edges=True)`` does the
-fine graph. The per-batch collation and alignment run on numpy arrays and
-the port's native host graph core (``graph.native``): the greedy block
-balance (``native.balance_slots``; the plain version
-``_balance_block_slots_ref``) and the stable sorts of bounded int32 keys.
-A level's arrays stay on the host until its one copy to the device.
+One path makes a batch's levels: ``build_hierarchy_real`` (each sample's
+unpadded levels, cached) -> ``collate_host`` (the batch's padded levels as
+numpy arrays) -> with the aligned layout ``align_host`` (every level
+block-aligned for the fused kernels, as ``graph.padded.build_graph_batch(
+align_edges=True)`` does the fine graph: each coarse edge stream laid out
+by the same one pass of the native graph core, ``native.edge_layout``).
+``collate_hierarchies`` and ``align_hierarchy`` are their forms over
+``HierarchyLevel``: a dataclass of tensors (int32 index fields, float32
+weights and masks, as the JAX package stores them) plus host ints, on
+``device`` (CUDA unless ``"cpu"``). The alignment's greedy block balance
+(``native.balance_slots``; the plain version ``_balance_block_slots_ref``)
+and its stable sorts of bounded int32 keys run on the graph core too. A
+level's arrays stay on the host until its one copy to the device.
 """
 
 from __future__ import annotations
@@ -38,10 +41,7 @@ from aero_gnn_tpu_torch.graph import native
 from aero_gnn_tpu_torch.graph.padded import (
     ALIGN_EDGE_TILE,
     ALIGN_NODE_BLOCK,
-    _align_edge_blocks,
-    _align_sender_stream,
     _round_up,
-    bucket_size,
     chunk_plan,
     sort_edges_by_receiver,
 )
@@ -89,7 +89,7 @@ class HierarchyLevel:
     edge_pool_perm: Optional[torch.Tensor] = None  # i32[Ef]
     edge_pool_sorted: Optional[torch.Tensor] = None  # i32[Ef]
     # rows of each sorted pool stream before the run of pad rows keyed by
-    # a pad last coarse id (with_pool_perms); the whole stream where the
+    # a pad last coarse id (_pool_fields); the whole stream where the
     # last coarse id is real
     node_pool_live: Optional[int] = None
     edge_pool_live: Optional[int] = None
@@ -132,10 +132,6 @@ class HierarchyLevel:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def _np(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
-    return None if t is None else t.detach().cpu().numpy()
-
-
 def _host(**fields) -> dict:
     """Level fields on the host as a HierarchyLevel stores them: numpy
     index fields int32, the other arrays float32, contiguous (a cast only
@@ -168,13 +164,9 @@ def _fields(level: HierarchyLevel) -> dict:
     out = {}
     for f in dataclasses.fields(level):
         v = getattr(level, f.name)
-        out[f.name] = _np(v) if isinstance(v, torch.Tensor) else v
+        out[f.name] = (v.detach().cpu().numpy()
+                       if isinstance(v, torch.Tensor) else v)
     return out
-
-
-def _replace(level: HierarchyLevel, **fields) -> HierarchyLevel:
-    """dataclasses.replace with numpy fields converted as in _level."""
-    return _level(level.device, **{**_fields(level), **fields})
 
 
 # ---------------------------------------------------------------------------
@@ -208,11 +200,6 @@ def _pool_fields(host: dict) -> dict:
                 edge_pool_live=_pool_live(eps, edge_mask),
                 unpool_chunk=chunk, unpool_chunk_node=chunk_node)
 
-
-def with_pool_perms(level: HierarchyLevel) -> HierarchyLevel:
-    """Attach the sorted-pooling permutations, the rows of each before its
-    pad tail, and the unpool's chunk plan (``_pool_fields``)."""
-    return _replace(level, **_pool_fields(_fields(level)))
 
 
 def _geometric_weights(senders: np.ndarray, receivers: np.ndarray,
@@ -418,100 +405,6 @@ def _assign(mode: str, senders, receivers, node_graph, num_nodes, pos,
     raise ValueError(f"Unknown hierarchy mode: {mode}")
 
 
-def build_hierarchy_level(
-    *,
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    node_graph: np.ndarray,
-    num_nodes: int,
-    pos: Optional[np.ndarray] = None,
-    mode: str = "stride",
-    stride: int = 2,
-    num_coarse_nodes_pad: Optional[int] = None,
-    num_coarse_edges_pad: Optional[int] = None,
-    num_fine_nodes_pad: Optional[int] = None,
-    num_fine_edges_pad: Optional[int] = None,
-    dtype=np.float32,
-    device: DeviceLike = None,
-) -> tuple:
-    """One coarsening level from the REAL (unpadded) fine arrays. Returns
-    (HierarchyLevel, coarse_real), coarse_real the unpadded coarse arrays
-    {senders, receivers, node_graph, num_nodes, pos} for the next level."""
-    dev = resolve_device(device)
-    geo_pos = pos
-    f2c, c_node_graph, rep = _assign(mode, senders, receivers, node_graph,
-                                     num_nodes, pos, stride)
-    if mode == "stride" and pos is None:
-        pos = np.arange(num_nodes, dtype=np.float64)[:, None]
-
-    num_coarse = len(c_node_graph)
-    c_s, c_r, edge_to_ce = _coarse_edges(senders, receivers, f2c, num_coarse)
-    e_coarse = len(c_s)
-    perm = sort_edges_by_receiver(c_s, c_r)
-    inv_perm = np.empty_like(perm)
-    inv_perm[perm] = np.arange(len(perm))
-    c_s, c_r = c_s[perm], c_r[perm]
-    edge_to_ce = inv_perm[edge_to_ce]
-
-    c_pos = None
-    if pos is not None and num_coarse > 0:
-        c_pos = np.zeros((num_coarse, pos.shape[1]), dtype=np.float64)
-        cnt = np.zeros(num_coarse, dtype=np.float64)
-        np.add.at(c_pos, f2c, pos.astype(np.float64))
-        np.add.at(cnt, f2c, 1.0)
-        c_pos /= np.maximum(cnt, 1.0)[:, None]
-
-    nf_pad = num_fine_nodes_pad or bucket_size(num_nodes + 1)
-    ef_pad = num_fine_edges_pad or bucket_size(len(senders))
-    nc_pad = num_coarse_nodes_pad or bucket_size(num_coarse + 1)
-    ec_pad = num_coarse_edges_pad or bucket_size(e_coarse)
-
-    f2c_p = np.full(nf_pad, nc_pad - 1, dtype=np.int32)
-    f2c_p[:num_nodes] = f2c
-    e2c_p = np.full(ef_pad, ec_pad - 1, dtype=np.int32)
-    e2c_p[: len(edge_to_ce)] = edge_to_ce
-    cs_p = np.full(ec_pad, nc_pad - 1, dtype=np.int32)
-    cr_p = np.full(ec_pad, nc_pad - 1, dtype=np.int32)
-    cs_p[:e_coarse] = c_s
-    cr_p[:e_coarse] = c_r
-    nm = np.zeros(nc_pad, dtype=dtype)
-    nm[:num_coarse] = 1.0
-    em = np.zeros(ec_pad, dtype=dtype)
-    em[:e_coarse] = 1.0
-    ng_p = np.full(nc_pad, 0, dtype=np.int32)
-    ng_p[:num_coarse] = c_node_graph
-
-    nw_r, ew_r = _geometric_weights(senders, receivers, geo_pos, num_nodes)
-    cself_r, cedge_r = _conv_weights(senders, receivers, nw_r, num_nodes)
-    nw = np.zeros(nf_pad, dtype=dtype)
-    nw[:num_nodes] = nw_r
-    ew = np.zeros(ef_pad, dtype=dtype)
-    ew[: len(ew_r)] = ew_r
-    rep_p = np.zeros(nf_pad, dtype=dtype)
-    rep_p[:num_nodes] = rep
-    cself_p = np.zeros(nf_pad, dtype=dtype)
-    cself_p[:num_nodes] = cself_r
-    cedge_p = np.zeros(ef_pad, dtype=dtype)
-    cedge_p[: len(cedge_r)] = cedge_r
-    cedge_t_r = _conv_edge_transposed(cedge_r, senders, receivers)
-    cedge_t_p = None
-    if cedge_t_r is not None:
-        cedge_t_p = np.zeros(ef_pad, dtype=dtype)
-        cedge_t_p[: len(cedge_t_r)] = cedge_t_r
-
-    sperm = np.argsort(cs_p, kind="stable").astype(np.int32)
-    level = _level(
-        dev, fine_to_coarse=f2c_p, edge_to_coarse=e2c_p, senders=cs_p,
-        receivers=cr_p, sender_perm=sperm, senders_sorted=cs_p[sperm],
-        node_mask=nm, edge_mask=em, node_graph=ng_p, n_node=num_coarse,
-        n_edge=e_coarse, node_weights=nw, edge_weights=ew, rep_mask=rep_p,
-        conv_self=cself_p, conv_edge=cedge_p, conv_edge_t=cedge_t_p)
-    coarse_real = {"senders": c_s, "receivers": c_r,
-                   "node_graph": c_node_graph, "num_nodes": num_coarse,
-                   "pos": c_pos}
-    return with_pool_perms(level), coarse_real
-
-
 def build_hierarchy_real(
     *,
     senders: np.ndarray,
@@ -576,22 +469,25 @@ def collate_hierarchies(
     dtype=np.float32,
     device: DeviceLike = None,
 ) -> List[HierarchyLevel]:
-    """Merge per-sample real hierarchies into padded batch levels: coarse
-    ids of sample g offset by the coarse counts of samples < g at every
-    level; ``pad_plan[s] = (Nc_pad, Ec_pad)``."""
+    """Merge per-sample real hierarchies into padded batch levels
+    (``collate_host``'s, with their sorted-pooling fields) on ``device``."""
     dev = resolve_device(device)
     return [_level(dev, **host, **_pool_fields(host))
-            for host in _collate_host(
+            for host in collate_host(
                 per_sample, num_fine_nodes_pad=num_fine_nodes_pad,
                 num_fine_edges_pad=num_fine_edges_pad, pad_plan=pad_plan,
                 dtype=dtype)]
 
 
-def _collate_host(per_sample: List[List[dict]], *, num_fine_nodes_pad: int,
-                  num_fine_edges_pad: int, pad_plan: List[tuple],
-                  dtype=np.float32) -> List[dict]:
-    """collate_hierarchies' levels as ``_host`` fields, without the
-    sorted-pooling fields (``align_hierarchy`` builds its own)."""
+def collate_host(per_sample: List[List[dict]], *, num_fine_nodes_pad: int,
+                 num_fine_edges_pad: int, pad_plan: List[tuple],
+                 dtype=np.float32) -> List[dict]:
+    """Per-sample real hierarchies (``build_hierarchy_real``) merged into
+    padded batch levels, as ``_host`` fields without the sorted-pooling
+    fields (``align_host`` builds its own): coarse ids of sample g offset by
+    the coarse counts of samples < g at every level, so each level's real
+    coarse edges stay in (receiver, sender) order; ``pad_plan[s] =
+    (Nc_pad, Ec_pad)``."""
     num_scales_m1 = len(per_sample[0])
     out: List[dict] = []
     nf_pad, ef_pad = num_fine_nodes_pad, num_fine_edges_pad
@@ -660,73 +556,6 @@ def _collate_host(per_sample: List[List[dict]], *, num_fine_nodes_pad: int,
     return out
 
 
-def realign_level0(level: HierarchyLevel,
-                   align_src: np.ndarray) -> HierarchyLevel:
-    """Re-index level 0's fine-EDGE-row artifacts onto a block-aligned
-    batch: ``align_src`` (build_graph_batch(return_align_map=True)) maps
-    each aligned row to its plain receiver-sorted row, -1 = pad slot."""
-    e2c = _np(level.edge_to_coarse)
-    ew = _np(level.edge_weights)
-    ec_pad = level.num_coarse_edges_pad
-    src = np.asarray(align_src)
-    ok = src >= 0
-    idx = np.where(ok, src, 0)
-    fields = dict(
-        edge_to_coarse=np.where(ok, e2c[idx], ec_pad - 1).astype(np.int32),
-        edge_weights=np.where(ok, ew[idx], 0.0).astype(ew.dtype))
-    for name in ("conv_edge", "conv_edge_t"):
-        if getattr(level, name) is not None:
-            a = _np(getattr(level, name))
-            fields[name] = np.where(ok, a[idx], 0.0).astype(a.dtype)
-    return with_pool_perms(_replace(level, **fields))
-
-
-def build_hierarchy(
-    *,
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    node_graph: np.ndarray,
-    num_nodes: int,
-    pos: Optional[np.ndarray] = None,
-    num_scales: int,
-    mode: str = "stride",
-    stride: int = 2,
-    num_fine_nodes_pad: Optional[int] = None,
-    num_fine_edges_pad: Optional[int] = None,
-    pad_plan: Optional[List[tuple]] = None,
-    device: DeviceLike = None,
-) -> List[HierarchyLevel]:
-    """``num_scales - 1`` coarsening levels from the REAL fine graph;
-    ``pad_plan`` optionally fixes [(Nc_pad, Ec_pad), ...] per level."""
-    dev = resolve_device(device)
-    levels: List[HierarchyLevel] = []
-    perm0 = sort_edges_by_receiver(np.asarray(senders),
-                                   np.asarray(receivers))
-    cur = {
-        "senders": np.asarray(senders, dtype=np.int64)[perm0],
-        "receivers": np.asarray(receivers, dtype=np.int64)[perm0],
-        "node_graph": np.asarray(node_graph, dtype=np.int64),
-        "num_nodes": num_nodes,
-        "pos": None if pos is None else np.asarray(pos, dtype=np.float64),
-    }
-    nf_pad, ef_pad = num_fine_nodes_pad, num_fine_edges_pad
-    for s in range(num_scales - 1):
-        nc_pad = ec_pad = None
-        if pad_plan is not None:
-            nc_pad, ec_pad = pad_plan[s]
-        level, cur = build_hierarchy_level(
-            senders=cur["senders"], receivers=cur["receivers"],
-            node_graph=cur["node_graph"], num_nodes=cur["num_nodes"],
-            pos=cur["pos"], mode=mode, stride=stride,
-            num_fine_nodes_pad=nf_pad, num_fine_edges_pad=ef_pad,
-            num_coarse_nodes_pad=nc_pad, num_coarse_edges_pad=ec_pad,
-            device=dev)
-        levels.append(level)
-        nf_pad = level.num_coarse_nodes_pad
-        ef_pad = level.num_coarse_edges_pad
-    return levels
-
-
 def _balance_block_slots_ref(weights: np.ndarray, n_blocks: int, nb: int,
                              reserve_last: bool = True) -> np.ndarray:
     """The plain version of ``native.balance_slots`` (a Python heap loop):
@@ -775,17 +604,19 @@ def align_hierarchy(
          degree sums are even, the pad sink pinned at the last slot;
       3. the coarse node padding extended to a block multiple and the
          coarse streams laid out in whole tiles per node block, the
-         sender-sorted view too.
+         sender-sorted view too, in one pass of the graph core
+         (``native.edge_layout``, as ``build_graph_batch`` lays out the
+         fine stream).
 
     ``edge_pad_targets[s]`` optionally fixes the aligned coarse edge count
     of level s (a tile multiple at least the aligned stream's). The levels
     land on ``device`` (CUDA unless ``"cpu"``)."""
-    return _align_host([_fields(lv) for lv in levels], align_src0,
-                       edge_pad_targets=edge_pad_targets,
-                       balance_blocks=balance_blocks, device=device)
+    return align_host([_fields(lv) for lv in levels], align_src0,
+                      edge_pad_targets=edge_pad_targets,
+                      balance_blocks=balance_blocks, device=device)
 
 
-def _align_host(
+def align_host(
     levels: List[dict],
     align_src0: Optional[np.ndarray] = None,
     *,
@@ -859,8 +690,8 @@ def _align_host(
                                      node_graph.dtype)])
 
         n_real = int(level["n_edge"])
-        s_real = level["senders"][:n_real].astype(np.int64)
-        r_real = level["receivers"][:n_real].astype(np.int64)
+        s_real = level["senders"][:n_real]
+        r_real = level["receivers"][:n_real]
         nc_real = int(level["n_node"])
 
         # ---- 2b. degree-balanced coarse node relabelling ----
@@ -893,57 +724,36 @@ def _align_host(
             node_mask, node_graph = nm2, ng2
             # np.lexsort((s_real, r_real))'s permutation
             sort_perm = native.sort_edges_by_receiver(s_real, r_real, nc2)
-            s_real = s_real[sort_perm]
-            r_real = r_real[sort_perm]
         else:
             sort_perm = np.arange(n_real, dtype=np.int64)
 
-        # ---- 2c. align the coarse edge stream ----
-        dummy = np.zeros((n_real, 1), np.float32)
-        s2, r2, _, valid, tb, tf = _align_edge_blocks(
-            s_real.astype(np.int32), r_real.astype(np.int32), dummy, nc2,
-            np.float32)
-        ec2 = _round_up(len(s2), ET)
-        if edge_pad_targets is not None:
-            target = edge_pad_targets[s]
-            if target < ec2 or target % ET:
-                raise ValueError(
-                    f"edge_pad_targets[{s}]={target} incompatible with "
-                    f"aligned coarse edge count {ec2} (tile {ET})")
-            ec2 = target
-        pad_node = nc2 - 1
-        s_p = np.full(ec2, pad_node, np.int32)
-        r_p = np.full(ec2, pad_node, np.int32)
-        s_p[:len(s2)] = s2
-        r_p[:len(r2)] = r2
-        em = np.zeros(ec2, np.float32)
-        em[:len(valid)] = valid.astype(em.dtype)
-
-        n_tiles = ec2 // ET
-        last_block = nc2 // NB - 1
-        tb_full = np.full(n_tiles, last_block, np.int32)
-        tf_full = np.zeros(n_tiles, np.int32)
-        tb_full[:len(tb)] = tb
-        tf_full[:len(tf)] = tf
-        if len(tb) < n_tiles and (len(tb) == 0 or tb[-1] != last_block):
-            tf_full[len(tb)] = 1
-
+        # ---- 2c. lay out the coarse edge stream ----
+        # the layout puts the real edges in stable (receiver, sender) order,
+        # which is sort_perm's (the relabelled edges' sort, or without the
+        # balance their own: collate_host joins each sample's sorted edges
+        # at rising id offsets), so its k-th real row is old row sort_perm[k]
+        target = None if edge_pad_targets is None else edge_pad_targets[s]
+        try:
+            lay = native.edge_layout(
+                s_real, r_real, np.zeros((n_real, 0), np.float32), nc2,
+                target, NB, ET, align_map=True)
+        except ValueError as err:
+            if target is None:
+                raise
+            raise ValueError(f"edge_pad_targets[{s}]: {err}") from err
+        new_rows = np.flatnonzero(lay["align_src"] >= 0)
+        ec2 = len(lay["align_src"])
         # old coarse edge row -> aligned row, through the balance resort
-        new_rows = np.flatnonzero(valid)
         aligned_of_old = np.full(ec_pad, ec2 - 1, np.int64)
         aligned_of_old[sort_perm] = new_rows
         e2c = aligned_of_old[np.clip(e2c, 0, ec_pad - 1)].astype(np.int32)
 
-        sperm = native.argsort_i32(s_p, nc2)
-        ssort = s_p[sperm]
-        sperm, ssort, _ = _align_sender_stream(sperm, ssort, em, nc2)
-
         fields = dict(
-            fine_to_coarse=f2c, edge_to_coarse=e2c, senders=s_p,
-            receivers=r_p, sender_perm=sperm, senders_sorted=ssort,
-            node_mask=node_mask, edge_mask=em, node_graph=node_graph,
-            node_weights=nw, edge_weights=ew, tile_block=tb_full,
-            tile_first=tf_full)
+            fine_to_coarse=f2c, edge_to_coarse=e2c, node_mask=node_mask,
+            node_graph=node_graph, node_weights=nw, edge_weights=ew,
+            **{k: lay[k] for k in ("senders", "receivers", "sender_perm",
+                                   "senders_sorted", "edge_mask",
+                                   "tile_block", "tile_first")})
         if has_conv:
             fields.update(rep_mask=rep, conv_self=cself, conv_edge=cedge)
             if cedge_t is not None:

@@ -8,22 +8,24 @@ failed build raises, there is no quiet fallback. Its entry points:
   * the O(E + N) counting sorts and the block alignment of the JAX
     package's graph core (``sort_edges_by_receiver``, ``argsort_i32``,
     ``csr_offsets``, ``align_blocks``), used by ``graph.padded``,
-    ``graph.hierarchy`` and ``parallel``;
+    ``graph.hierarchy`` and ``parallel`` (``align_blocks`` by
+    ``parallel.spatial`` alone);
   * ``balance_slots``, the BSMS hierarchy's greedy degree-balanced
     relabelling of coarse nodes (``graph.hierarchy.align_hierarchy``);
-  * ``edge_layout``, a batch's whole padded edge layout in one pass (the
+  * ``edge_layout``, a graph's whole padded edge layout in one pass (the
     receiver sort, the block alignment, the pad tail, the tiles, the
-    sender stream; ``graph.padded.build_graph_batch``);
-  * ``align_sender_stream``, the block alignment of a sorted sender stream
-    (``graph.padded._align_sender_stream``, the BSMS coarse levels);
+    sender stream): every block-aligned stream but ``parallel``'s shards,
+    the fine graph's (``graph.padded.build_graph_batch``) and each BSMS
+    coarse level's (``graph.hierarchy.align_host``);
   * ``chunk_plan``, the plan of a segment sum without long runs
     (``graph.padded.chunk_plan``: the per-graph pools, the BSMS unpool).
 
 The versions they replace stay as the plain versions the tests hold them
 to: ``np.lexsort``, a stable ``np.argsort``, ``np.searchsorted``,
-``graph.padded._align_edge_blocks_ref``, ``graph.padded._edge_layout_ref``,
-``graph.padded._align_sender_stream_ref``, ``graph.padded.chunk_plan_ref``
-and ``graph.hierarchy._balance_block_slots_ref``.
+``graph.padded._align_edge_blocks_ref``, ``graph.padded._edge_layout_ref``
+(with ``_align_sender_stream_ref``, its aligned sender stream),
+``graph.padded.chunk_plan_ref`` and
+``graph.hierarchy._balance_block_slots_ref``.
 
 Every pointer handed to the library is a contiguous array this module
 made or checked; keys and sizes are checked against their
@@ -56,9 +58,6 @@ _SIGNATURES = {
     "gc_balance_slots": (
         [_F64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
          ctypes.c_int32, _I64P], ctypes.c_int32),
-    "gc_align_sender_stream": (
-        [_I32P, _I32P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-         ctypes.c_int32, ctypes.c_int32, _I32P, _I32P], ctypes.c_int64),
     "gc_edge_layout": (
         [_I32P, _I32P, _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
          ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, _U8P,
@@ -193,42 +192,6 @@ def balance_slots(weights: np.ndarray, n_blocks: int, nb: int,
     return slots
 
 
-def _block_sizes(num_nodes_pad: int, node_block: int, edge_tile: int):
-    if node_block <= 0 or edge_tile <= 0:
-        raise ValueError(f"node_block={node_block} and edge_tile={edge_tile}"
-                         " must be positive")
-    num_nodes_pad = _bound("num_nodes_pad", num_nodes_pad)
-    if num_nodes_pad % node_block:
-        raise ValueError(f"num_nodes_pad={num_nodes_pad} is not a multiple "
-                         f"of node_block={node_block}")
-    return num_nodes_pad, int(node_block), int(edge_tile)
-
-
-def align_sender_stream(sender_perm: np.ndarray, senders_sorted: np.ndarray,
-                        pad_row: int, num_nodes_pad: int, node_block: int,
-                        edge_tile: int) -> Tuple[np.ndarray, np.ndarray]:
-    """A sender-sorted stream block-aligned (int32 permutation and keys):
-    each ``node_block`` sender block's rows padded to whole ``edge_tile``
-    tiles, at least one; pad slots take ``pad_row`` and the block's last
-    key, else its first node. Keys must ascend in [0, num_nodes_pad)."""
-    num_nodes_pad, node_block, edge_tile = _block_sizes(
-        num_nodes_pad, node_block, edge_tile)
-    k = _keys("senders_sorted", senders_sorted, num_nodes_pad)
-    p = np.ascontiguousarray(sender_perm, dtype=np.int32)
-    if p.shape != k.shape:
-        raise ValueError(f"sender_perm {p.shape} and senders_sorted "
-                         f"{k.shape} differ")
-    cap = len(k) + (num_nodes_pad // node_block) * edge_tile
-    perm_out = np.empty(cap, dtype=np.int32)
-    keys_out = np.empty(cap, dtype=np.int32)
-    n = _function("gc_align_sender_stream")(
-        _ptr(p), _ptr(k), len(k), num_nodes_pad, node_block, edge_tile,
-        _bound("pad_row", pad_row), _ptr(perm_out), _ptr(keys_out))
-    if n < 0:
-        raise ValueError("senders_sorted is not ascending")
-    return perm_out[:n], keys_out[:n]
-
-
 def edge_layout(senders: np.ndarray, receivers: np.ndarray,
                 edge_attr: np.ndarray, num_nodes_pad: int,
                 num_edges_pad: Optional[int], node_block: int = 0,
@@ -247,12 +210,17 @@ def edge_layout(senders: np.ndarray, receivers: np.ndarray,
     shape, dtype)`` allocates each output (an uninitialised array; a fresh
     one by default)."""
     align = node_block != 0
-    if align:
-        num_nodes_pad, node_block, edge_tile = _block_sizes(
-            num_nodes_pad, node_block, edge_tile)
     num_nodes_pad = _bound("num_nodes_pad", num_nodes_pad)
     if num_nodes_pad < 1:
         raise ValueError("num_nodes_pad must hold the pad sink")
+    if align:
+        if node_block <= 0 or edge_tile <= 0:
+            raise ValueError(f"node_block={node_block} and edge_tile="
+                             f"{edge_tile} must be positive")
+        if num_nodes_pad % node_block:
+            raise ValueError(f"num_nodes_pad={num_nodes_pad} is not a "
+                             f"multiple of node_block={node_block}")
+        node_block, edge_tile = int(node_block), int(edge_tile)
     s = _keys("senders", senders, num_nodes_pad)
     r = _keys("receivers", receivers, num_nodes_pad)
     ea = np.ascontiguousarray(edge_attr)

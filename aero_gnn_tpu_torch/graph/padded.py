@@ -446,27 +446,15 @@ def _edge_layout_ref(senders, receivers, edge_attr, num_nodes_pad,
                 senders_aligned=senders_aligned)
 
 
-def _align_sender_stream(sender_perm, senders_sorted, edge_mask,
-                         num_nodes_pad):
-    """Block-align the sender-sorted stream: each ALIGN_NODE_BLOCK sender
-    block padded to whole ALIGN_EDGE_TILE tiles, on the graph core
-    (``native.align_sender_stream``). Pad slots index the last masked edge
-    row, whose cotangent is exactly zero, so no extra mask is needed
-    downstream. Without a masked edge row the stream stays as it is (third
-    result False). The result equals ``_align_sender_stream_ref``'s."""
-    masked_rows = np.flatnonzero(edge_mask == 0.0)
-    if len(masked_rows) == 0:
-        return sender_perm, senders_sorted, False
-    perm, keys = native.align_sender_stream(
-        sender_perm, senders_sorted, int(masked_rows[-1]), num_nodes_pad,
-        ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE)
-    return perm, keys, True
-
-
 def _align_sender_stream_ref(sender_perm, senders_sorted, edge_mask,
                              num_nodes_pad):
-    """The plain version of _align_sender_stream (numpy, a loop over the
-    node blocks)."""
+    """Block-align a sender-sorted stream, the plain version of
+    ``native.edge_layout``'s aligned sender stream (numpy, a loop over the
+    node blocks): each ALIGN_NODE_BLOCK sender block padded to whole
+    ALIGN_EDGE_TILE tiles. Pad slots index the last masked edge row, whose
+    cotangent is exactly zero, so no extra mask is needed downstream.
+    Without a masked edge row the stream stays as it is (third result
+    False)."""
     nb, et = ALIGN_NODE_BLOCK, ALIGN_EDGE_TILE
     masked_rows = np.nonzero(edge_mask == 0.0)[0]
     if len(masked_rows) == 0:
@@ -506,7 +494,11 @@ def _align_edge_blocks(senders, receivers, edge_attr, num_nodes_pad, dtype):
     features, so receivers stay ascending. The layout comes from the graph
     core (``native.align_blocks``, as JAX's padded.py:559-561); the result
     equals ``_align_edge_blocks_ref``'s, which also lays out a stream
-    without edges (all pad slots: no row to index)."""
+    without edges (all pad slots: no row to index). The fine graph and the
+    BSMS coarse levels are laid out by ``native.edge_layout`` instead; this
+    is kept for ``parallel.spatial.pack_aligned_edges`` alone, whose shard
+    streams carry global sender ids outside the layout's [0,
+    num_nodes_pad) bound."""
     if len(receivers) == 0:
         return _align_edge_blocks_ref(senders, receivers, edge_attr,
                                       num_nodes_pad, dtype)

@@ -439,7 +439,7 @@ def segment_pool_sum(data: torch.Tensor, seg_ids: torch.Tensor,
                      pad_sink: bool = False) -> torch.Tensor:
     """Segment sum over ``seg_ids`` in any order through the host-built
     stable sort ``perm`` (``seg_sorted = seg_ids[perm]``; HierarchyLevel
-    carries both, ``graph.hierarchy.with_pool_perms``): the sorted sum of
+    carries both, ``graph.hierarchy._pool_fields``): the sorted sum of
     ``data[perm]`` by ``seg_sorted``, [R, *] -> [num_segments, *], with the
     plain gather ``ct[seg_ids]`` as its backward. ``perm`` / ``seg_sorted``
     may be a prefix of the sort: the caller declares the rows past it zero

@@ -5,8 +5,8 @@ and without edges, one node, sparse ids and a mesh; build_graph_batch's
 batches, field by field with the align map, equal with the graph core's
 one-pass layout and with the numpy composition (padded._edge_layout_ref,
 padded.chunk_plan_ref), also for batches of uneven graphs, an unsorted
-node_graph and a stream with no masked row; the sender stream's alignment
-against its plain version at the BSMS coarse levels' sizes; the greedy
+node_graph and a stream with no masked row; the aligned layout against
+its plain version at the BSMS coarse levels' sizes; the greedy
 block balance slot for slot against hierarchy's plain version and the JAX
 package's; keys and sizes outside their bound refused; a build that fails
 raises; the reused host buffers never handed out while a batch holds
@@ -197,7 +197,7 @@ def test_build_graph_batch_equal_to_numpy_path(monkeypatch, name, align):
 
 
 # (num_nodes_pad, rows, real rows) of the benchmark BSMS mesh's two coarse
-# levels at 65,536 nodes, and a stream whose every row is real
+# levels at 65,536 nodes, and a stream whose every block is whole tiles
 SENDER_STREAMS = {"coarse_1": (39168, 157696, 131849),
                   "coarse_2": (17664, 71680, 67470),
                   "no_masked_row": (17664, 71680, 71680)}
@@ -205,20 +205,33 @@ SENDER_STREAMS = {"coarse_1": (39168, 157696, 131849),
 
 @pytest.mark.parametrize("name", list(SENDER_STREAMS))
 def test_align_sender_stream_equal_to_plain(name):
+    """A BSMS coarse level's layout (hierarchy.align_host): the aligned
+    one-pass native.edge_layout, its sender stream included, equal to
+    padded._edge_layout_ref on a stream whose node blocks are filled evenly
+    (as the block balance fills them), without edge features."""
     n_pad, rows, real = SENDER_STREAMS[name]
+    nb, et = padded.ALIGN_NODE_BLOCK, padded.ALIGN_EDGE_TILE
     rng = np.random.default_rng(8)
-    s_p = np.full(rows, n_pad - 1, np.int32)
-    s_p[:real] = rng.integers(0, n_pad - 1, real)
-    mask = (np.arange(rows) < real).astype(np.float32)
-    if real < rows:  # masked rows among the real ones too
-        mask[rng.integers(0, real, 50)] = 0.0
-    perm = native.argsort_i32(s_p, n_pad)
-    got = padded._align_sender_stream(perm, s_p[perm], mask, n_pad)
-    ref = padded._align_sender_stream_ref(perm, s_p[perm], mask, n_pad)
-    assert got[2] == ref[2] == (real < rows)
-    for a, b in zip(got[:2], ref[:2]):
-        assert a.dtype == b.dtype == np.int32
-        np.testing.assert_array_equal(a, b)
+    per_block = np.full(n_pad // nb, real // (n_pad // nb))
+    per_block[:real % len(per_block)] += 1
+    if name == "no_masked_row":  # one tile a block, two in the first
+        per_block[:] = et
+        per_block[0] += real - per_block.sum()
+    blocks = np.repeat(np.arange(len(per_block)), per_block)
+    r = blocks * nb + rng.integers(0, nb, real)
+    r = np.minimum(r, n_pad - 2).astype(np.int32)  # the sink holds no edge
+    s = rng.integers(0, n_pad - 1, real).astype(np.int32)
+    order = rng.permutation(real)
+    s, r = s[order], r[order]
+    ea = np.zeros((real, 0), np.float32)
+    got = native.edge_layout(s, r, ea, n_pad, rows, nb, et, align_map=True)
+    ref = padded._edge_layout_ref(s, r, ea, n_pad, rows, True, True)
+    assert got.keys() == ref.keys()
+    assert got["senders_aligned"] == ref["senders_aligned"] == (real < rows)
+    for k, b in ref.items():
+        if isinstance(b, np.ndarray):
+            assert got[k].dtype == b.dtype, k
+            np.testing.assert_array_equal(got[k], b, err_msg=k)
 
 
 @pytest.mark.parametrize("case", ["runs", "one_id", "empty_ids", "tail",
@@ -309,14 +322,6 @@ def test_keys_outside_their_bound_are_refused():
         kw.update(bad)
         with pytest.raises(ValueError):
             native.edge_layout(**kw)
-    # the sender stream's alignment: keys unsorted or past the node pad,
-    # a pad row outside int32, unequal lengths
-    for keys, pad_row, perm in ((np.array([0, 3, 1]), 0, s),
-                                (np.array([0, 1, 8]), 0, s),
-                                (np.array([0, 1, 3]), -1, s),
-                                (np.array([0, 1, 3]), 0, s[:2])):
-        with pytest.raises(ValueError):
-            native.align_sender_stream(perm, keys, pad_row, 8, 4, 8)
     # the chunk plan: ids past num_segments, a chunk size below one
     with pytest.raises(ValueError):
         native.chunk_plan(s, 3, 16)

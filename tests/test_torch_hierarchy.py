@@ -1,11 +1,11 @@
 """Port parity for the BSMS hierarchies: every array of the port's
-graph.hierarchy builders, of align_hierarchy and of the Loader's batches is
-bit-equal (np.array_equal, same int32 / float32 dtypes) to the JAX
-package's, for the stride and bistride modes and one and two samples; the
-Loader's aligned levels on the native graph core equal the plain path's
-(numpy sorts, the Python block balance, collation's own permutations) at
-8,192 nodes, the realigned batch too; and the pad-tail invariant the
-kernels rely on holds on every stream."""
+graph.hierarchy builder and collation, of align_hierarchy and of the
+Loader's batches is bit-equal (np.array_equal, same int32 / float32 dtypes)
+to the JAX package's, for the stride and bistride modes and one and two
+samples; the Loader's aligned levels on the native graph core equal the
+plain path's (numpy sorts, the Python block balance, collation's own
+permutations) at 8,192 nodes, the realigned batch too; and the pad-tail
+invariant the kernels rely on holds on every stream."""
 
 import dataclasses
 import warnings
@@ -102,23 +102,31 @@ def test_real_collate_and_realign_match_jax(mode, n_samples):
     jlv = JH.collate_hierarchies(jreal, **kw)
     tlv = TH.collate_hierarchies(treal, **kw, device="cpu")
     assert_levels_equal(tlv, jlv, "collate")
-    assert_level_equal(TH.realign_level0(tlv[0], tmap),
-                       JH.realign_level0(jlv[0], jmap), "realign")
 
 
 @pytest.mark.parametrize("mode", ["stride", "bistride"])
 def test_build_hierarchy_matches_jax(mode):
+    """The port's one builder (the real levels, collated) against the JAX
+    package's padded builder, and without positions against its real
+    builder, collated."""
     (js,), (ts,) = _samples(1, True), _samples(1, False)
     kw = _real(js, mode)
     jlv = JH.build_hierarchy(**kw, num_fine_nodes_pad=1024,
                              num_fine_edges_pad=4096)
-    tlv = TH.build_hierarchy(**_real(ts, mode), num_fine_nodes_pad=1024,
-                             num_fine_edges_pad=4096, device="cpu")
+    ckw = dict(num_fine_nodes_pad=1024, num_fine_edges_pad=4096,
+               pad_plan=[(lv.num_coarse_nodes_pad, lv.num_coarse_edges_pad)
+                         for lv in jlv])
+    tlv = TH.collate_hierarchies([TH.build_hierarchy_real(**_real(ts, mode))],
+                                 **ckw, device="cpu")
     assert_levels_equal(tlv, jlv, "build_hierarchy")
     # no positions: the stride sort keeps node order, uniform weights
     kw.pop("pos")
-    assert_levels_equal(TH.build_hierarchy(**kw, device="cpu"),
-                        JH.build_hierarchy(**kw), "no pos")
+    jreal, treal = JH.build_hierarchy_real(**kw), TH.build_hierarchy_real(**kw)
+    _assert_real_equal(treal, jreal)
+    ckw["pad_plan"] = [(JP.bucket_size(lv["num_nodes"] + 1),
+                        JP.bucket_size(lv["num_edges"])) for lv in jreal]
+    assert_levels_equal(TH.collate_hierarchies([treal], **ckw, device="cpu"),
+                        JH.collate_hierarchies([jreal], **ckw), "no pos")
 
 
 @pytest.mark.parametrize("targets", [False, True])

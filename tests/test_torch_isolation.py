@@ -164,13 +164,14 @@ def test_registry_models_need_explicit_cpu(monkeypatch, name):
 
 def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
     """The BSMS entry points (the Loader with hierarchies, the hierarchy
-    builders, BSMSConfig.init, the engine and the steps with
+    collation and alignment, BSMSConfig.init, the engine and the steps with
     needs_hierarchy) raise without device="cpu" when there is no CUDA
     device, and run with it."""
     from aero_gnn_tpu_torch.data import dataset as D
     from aero_gnn_tpu_torch.data.batching import Loader
     from aero_gnn_tpu_torch.data.synthetic import make_random_mesh_sample
     from aero_gnn_tpu_torch.graph import hierarchy as H
+    from aero_gnn_tpu_torch.graph.padded import bucket_size
     from aero_gnn_tpu_torch.inference.engine import AeroInference
     from aero_gnn_tpu_torch.models.bsms import BSMSConfig
     from aero_gnn_tpu_torch.training import loop
@@ -184,12 +185,9 @@ def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
               mode="bistride")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Loader([s], 1, num_scales=3)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        H.build_hierarchy(**kw)
-    levels = H.build_hierarchy(**kw, device="cpu")
     real = [H.build_hierarchy_real(**kw)]
-    plan = [(lv.num_coarse_nodes_pad, lv.num_coarse_edges_pad)
-            for lv in levels]
+    plan = [(bucket_size(lv["num_nodes"] + 1), bucket_size(lv["num_edges"]))
+            for lv in real[0]]
     ckw = dict(num_fine_nodes_pad=512, num_fine_edges_pad=2048,
                pad_plan=plan)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -198,7 +196,7 @@ def test_bsms_entry_points_need_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         H.align_hierarchy(collated)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        levels[0].to(None)
+        collated[0].to(None)
     cfg = BSMSConfig(input_node_dim=6, input_edge_dim=3, output_node_dim=4,
                      processor_size=3, num_scales=3, layers_per_scale=1,
                      hidden_dim_processor=8, hidden_dim_node_encoder=8,

@@ -61,19 +61,21 @@ def test_sender_stream_matches_jax(align):
 
 def test_sender_stream_without_masked_row_stays_plain():
     """JAX returns the sender stream unaligned when no edge row is masked
-    (graph/padded.py:513-516); the port does the same and records it."""
+    (graph/padded.py:513-516); the port's plain version
+    (padded._align_sender_stream_ref, which native.edge_layout's aligned
+    sender stream is held to) does the same and records it."""
     rng = np.random.default_rng(1)
     s = np.sort(rng.integers(0, 600, 3000)).astype(np.int32)
     perm = np.argsort(s, kind="stable").astype(np.int32)
     mask = np.ones(3000, np.float32)
     jp, jk = JP._align_sender_stream(perm, s[perm], mask, 768)
-    tp, tk, aligned = TP._align_sender_stream(perm, s[perm], mask, 768)
+    tp, tk, aligned = TP._align_sender_stream_ref(perm, s[perm], mask, 768)
     assert not aligned
     np.testing.assert_array_equal(tp, jp)
     np.testing.assert_array_equal(tk, jk)
     mask[17] = 0.0
     jp, jk = JP._align_sender_stream(perm, s[perm], mask, 768)
-    tp, tk, aligned = TP._align_sender_stream(perm, s[perm], mask, 768)
+    tp, tk, aligned = TP._align_sender_stream_ref(perm, s[perm], mask, 768)
     assert aligned and len(tp) % TP.ALIGN_EDGE_TILE == 0
     np.testing.assert_array_equal(tp, jp)
     np.testing.assert_array_equal(tk, jk)
